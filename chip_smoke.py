@@ -1,0 +1,305 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+with ``nvcc``, then runs four phases and raises on any failure:
+
+1. environment — the card, its power limit, torch/CUDA versions, build time;
+2. kernels     — each kernel against its plain PyTorch version on the card, at
+                 the shape sweeps of tests/test_kernels.py and at the shapes
+                 the main path gives it, timed with CUDA events;
+3. case studies at full size through the apps' entry points — BMVM n=4096,
+   LDPC 7168-bit code × 512 codewords, particle filter 512² video × 4096
+   particles — with the kernels' launch counters reset just before and read
+   just after;
+4. the ``sim`` NoC engine on the card — golden NoCStats, BMVM on four
+   topologies, the particle-filter NoC graph, and a 64-node BMVM NoC.
+
+Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
+JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
+no result when no CUDA device is present or the port is not beside it.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = "src/repro_torch/kernels/csrc/kernels.cu"
+
+# Published H100 peaks (NVIDIA data sheet; dense, at the 700 W limit).  Memory
+# rate by variant; int32 ALU rate = 132 SMs x 64 INT32 lanes x 1.98 GHz boost.
+HBM_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "default": 3.35e12}
+FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+GOLDEN_LDPC_FANO = dict(
+    waves=20, rounds=60, link_bytes=92160, payload_bytes=840, flits=420,
+    cross_pod_msgs=0, cross_pod_wire_bytes=0, cross_pod_beats=0,
+    bridge_beats=0, bridge_wire_bytes=0, bridge_stall_rounds=0,
+    bridge_peak_fifo=0, switch_cycles=0, switch_stall_cycles=0,
+    switch_arb_losses=0, switch_max_queue=0, switch_peak_link_flits=0)
+GOLDEN_BMVM_64 = dict(
+    waves=4, rounds=8, link_bytes=5632, payload_bytes=256, flits=128,
+    cross_pod_msgs=0, cross_pod_wire_bytes=0, cross_pod_beats=0,
+    bridge_beats=0, bridge_wire_bytes=0, bridge_stall_rounds=0,
+    bridge_peak_fifo=0, switch_cycles=0, switch_stall_cycles=0,
+    switch_arb_losses=0, switch_max_queue=0, switch_peak_link_flits=0)
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def hbm_rate(name):
+    for key, rate in HBM_BYTES_PER_S.items():
+        if key in name:
+            return rate
+    return HBM_BYTES_PER_S["default"]
+
+
+def timed(torch, fn, reps=25, warmup=3, flush=None):
+    """Median milliseconds of ``fn`` over ``reps`` launches, each bracketed by
+    CUDA events, with the L2 cache overwritten before each (cold inputs)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def wall(torch, fn):
+    """(result, host seconds) of ``fn`` ending in a device synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.apps import bmvm, ldpc
+    from repro_torch.apps import particle_filter as pf
+    from repro_torch.kernels import _build, ops, ref
+
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+
+    # -- phase 1: environment -------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
+          f"{sys.version.split()[0]}, device {name}, count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off for matmul and cuDNN: float32 products run in full float32")
+    hbm = hbm_rate(name)
+    lib = _build.library()
+    print(f"kernels built in {lib.build_seconds:.2f} s -> {os.path.relpath(lib.path, HERE)}")
+    for line in lib.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    # -- inputs of the main path, made from seeds --------------------------------
+    g = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    bcfg = bmvm.BMVMConfig(n=4096, k=8, fold=1)
+    A = torch.randint(0, 2, (bcfg.n, bcfg.n), generator=g, device=dev, dtype=torch.uint8)
+    V = torch.randint(0, 2, (64, bcfg.n), generator=g, device=dev, dtype=torch.uint8)
+    lut, secs = wall(torch, lambda: bmvm.preprocess(A, bcfg))
+    print(f"BMVM LUT {tuple(lut.shape)} int32 ({lut.numel() * 4 / 2**20:.0f} MiB) "
+          f"built in {secs:.3f} s")
+    H = ldpc.pg_ldpc_H(copies=1024)
+    idx = ldpc.build_edge_index(H)
+    llr = ldpc.awgn_llr(np.zeros((512, H.shape[1]), np.int8), 3.0, rng)
+    pcfg = pf.PFConfig(img=512, roi=64, n_particles=4096, n_bins=16, seed=0)
+    frames, truth = pf.synth_video(pcfg, 16, rng)
+
+    # kernel-shaped inputs as the main path builds them
+    vw = ref.gf2_pack_vector(V, bcfg.k)
+    llr_t = torch.as_tensor(llr, device=dev)
+    u_main = llr_t[:, torch.as_tensor(idx.edge_bit, device=dev)].reshape(-1, 3).contiguous()
+    frames_t = torch.as_tensor(frames, device=dev)
+    c0 = pf._first_center(frames_t[0])
+    ref_hist = pf.reference_histogram(frames_t[0], c0, pcfg)
+    parts = (c0[None] + torch.randn((pcfg.n_particles, 2), generator=g, device=dev)
+             * pcfg.sigma_motion).clamp(pcfg.roi // 2, pcfg.img - pcfg.roi // 2 - 1)
+    bins_main = pf._roi_bins(frames_t[1], parts, pcfg)
+    dw = pf.distance_weights(pcfg)
+
+    # -- phase 2: kernels against their plain versions ----------------------------
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    for n, k, m in [(16, 4, 1), (32, 4, 3), (64, 8, 5), (128, 4, 2), (128, 8, 8)]:
+        a = torch.randint(0, 2, (n, n), generator=g, device=dev, dtype=torch.uint8)
+        lt = ref.gf2_preprocess(a, k)
+        w = ref.gf2_pack_vector(torch.randint(0, 2, (m, n), generator=g, device=dev,
+                                              dtype=torch.uint8), k)
+        check(torch.equal(ops.gf2_bmvm(lt, w), ops.gf2_bmvm(lt, w, use_kernel=False)),
+              f"gf2_bmvm differs at n={n} k={k} m={m}")
+    for shape in [(1, 3), (7, 3), (64, 6), (200, 4), (1000, 8)]:
+        u = torch.randn(shape, generator=g, device=dev) * 4
+        err = (ops.minsum_check(u) - ops.minsum_check(u, use_kernel=False)).abs().max().item()
+        check(err <= 1e-6, f"minsum_check differs by {err} at {shape}")
+    for N, px, B in [(1, 64, 8), (10, 300, 16), (33, 517, 12), (8, 1024, 32)]:
+        b = torch.randint(0, B, (N, px), generator=g, device=dev, dtype=torch.int32)
+        w = torch.rand(px, generator=g, device=dev) * 0.9 + 0.1
+        rh = torch.rand(B, generator=g, device=dev)
+        rh = rh / rh.sum()
+        hk, bk = ops.particle_histogram(b, w, rh)
+        hp, bp = ops.particle_histogram(b, w, rh, use_kernel=False)
+        err = max((hk - hp).abs().max().item(), (bk - bp).abs().max().item())
+        check(err <= 1e-5, f"particle_histogram differs by {err} at {(N, px, B)}")
+    print("kernel sweeps of tests/test_kernels.py: all three kernels agree with their plain versions")
+
+    kernels = []
+
+    def report(kname, replaces, err, tol, kfn, pfn, nbytes, nops, ops_rate):
+        check(err <= tol, f"{kname} differs by {err} (tolerance {tol}) at the main-path shape")
+        ms, plain_ms = timed(torch, kfn, flush=flush), timed(torch, pfn, flush=flush)
+        t_bytes, t_ops = nbytes / hbm * 1e3, nops / ops_rate * 1e3
+        kernels.append(dict(name=kname, route="cuda", source=SOURCE, replaces=replaces,
+                            launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=max(t_bytes, t_ops),
+                            bound_by="bytes" if t_bytes >= t_ops else "operations",
+                            library_ms=None, bytes=nbytes, ops=nops, tolerance=tol))
+        print(f"{kname}: max_abs_err {err:g} (tol {tol:g}), kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops) * 1e3:.2f} us "
+              f"({nbytes / 2**20:.1f} MiB, {nops:.3g} ops)")
+
+    C, P, R = lut.shape
+    M = vw.shape[0]
+    rows = torch.unique(torch.arange(C, device=dev)[None, :] * P + vw).numel()
+    out_k, out_p = ops.gf2_bmvm(lut, vw), ops.gf2_bmvm(lut, vw, use_kernel=False)
+    err = (out_k.long() - out_p.long()).abs().max().item()
+    report("gf2_bmvm", "src/repro/kernels/gf2_bmvm.py:42", err, 0,
+           lambda: ops.gf2_bmvm(lut, vw), lambda: ops.gf2_bmvm(lut, vw, use_kernel=False),
+           rows * R * 4 + M * C * 4 + M * R * 4, M * C * R, INT32_OPS_PER_S)
+
+    n_chk, deg = u_main.shape
+    err = (ops.minsum_check(u_main) - ops.minsum_check(u_main, use_kernel=False)).abs().max().item()
+    report("minsum_check", "src/repro/kernels/minsum.py:31", err, 1e-6,
+           lambda: ops.minsum_check(u_main), lambda: ops.minsum_check(u_main, use_kernel=False),
+           2 * n_chk * deg * 4, 8 * n_chk * deg, FP32_OPS_PER_S)
+
+    N, px = bins_main.shape
+    nb = pcfg.n_bins
+    hk, bk = ops.particle_histogram(bins_main, dw, ref_hist)
+    hp, bp = ops.particle_histogram(bins_main, dw, ref_hist, use_kernel=False)
+    err = max((hk - hp).abs().max().item(), (bk - bp).abs().max().item())
+    report("particle_histogram", "src/repro/kernels/histogram.py:48", err, 1e-5,
+           lambda: ops.particle_histogram(bins_main, dw, ref_hist),
+           lambda: ops.particle_histogram(bins_main, dw, ref_hist, use_kernel=False),
+           N * px * 4 + px * 4 + nb * 4 + N * nb * 4 + N * 4, N * px + 4 * N * nb,
+           FP32_OPS_PER_S)
+    del flush
+
+    # -- phase 3: the case studies at full size, counted --------------------------
+    ops.reset_launch_counts()
+    r = 4
+    out, secs = wall(torch, lambda: bmvm.iterate_kernel(lut, V, bcfg, r))
+    expect = V
+    for _ in range(r):
+        expect = ref.gf2_matmul_oracle(A, expect)
+    check(torch.equal(out, expect), "BMVM iterate_kernel differs from the direct GF(2) product")
+    print(f"BMVM n={bcfg.n} k={bcfg.k} M={V.shape[0]} r={r}: iterate_kernel {secs * 1e3:.3f} ms, "
+          "equal to gf2_matmul_oracle iterated")
+
+    (dec, post), secs = wall(torch, lambda: ldpc.decode_minsum(idx, llr, 10))
+    (_, post_p), secs_p = wall(torch, lambda: ldpc.decode_minsum(idx, llr, 10, use_kernel=False))
+    err = (post - post_p).abs().max().item()
+    check(err <= 1e-4, f"LDPC posteriors differ by {err} between kernel and plain")
+    coded, uncoded = dec.float().mean().item(), float((llr < 0).mean())
+    check(bool(torch.isfinite(post).all()) and coded < uncoded,
+          f"LDPC coded BER {coded} not below uncoded {uncoded}")
+    print(f"LDPC N={H.shape[1]} batch={llr.shape[0]} iters=10 at 3 dB: decode {secs * 1e3:.3f} ms "
+          f"(plain {secs_p * 1e3:.3f} ms), posteriors agree to {err:.2e}, coded BER {coded:.3e} "
+          f"< uncoded {uncoded:.3e}")
+
+    est, secs = wall(torch, lambda: pf.track(frames, pcfg))
+    est_p, secs_p = wall(torch, lambda: pf.track(frames, pcfg, use_kernel=False))
+    err = float(np.abs(est - est_p).max())
+    check(np.isfinite(est).all() and err <= 1e-3, f"PF tracks differ by {err}")
+    track_err = float(np.linalg.norm(est - truth, axis=1).mean())
+    print(f"PF img={pcfg.img} roi={pcfg.roi} particles={pcfg.n_particles} frames={len(frames)}: "
+          f"track {secs * 1e3:.3f} ms (plain {secs_p * 1e3:.3f} ms), tracks agree to {err:.2e}, "
+          f"mean tracking error {track_err:.3f} px")
+    counts = ops.launch_counts()
+    print(f"kernel launches on the main path: {counts}")
+    check(all(v > 0 for v in counts.values()), f"a kernel was not launched: {counts}")
+    for kern in kernels:
+        kern["launches"] = counts[kern["name"]]
+
+    # -- phase 4: the sim NoC engine on the card ---------------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    llr7 = ldpc.awgn_llr(np.zeros(7, np.int8), 3.0, rng)
+    _, _, st = ldpc.decode_on_noc(ldpc.fano_plane_H(), llr7, 10)
+    check(st.as_dict() == GOLDEN_LDPC_FANO, f"Fano LDPC NoCStats {st.as_dict()}")
+    rng = np.random.default_rng(0)
+    cfg64 = bmvm.BMVMConfig(n=64, k=8, fold=2)
+    A64 = rng.integers(0, 2, (64, 64)).astype(np.uint8)
+    v64 = rng.integers(0, 2, (64,)).astype(np.uint8)
+    lut64 = bmvm.preprocess(A64, cfg64)
+    out, st = bmvm.iterate_noc_sim(lut64, v64, cfg64, 2, topology="mesh")
+    check(np.array_equal(out.reshape(1, -1), bmvm.software_ref(A64, v64[None], 2)), "BMVM n=64")
+    check(st.as_dict() == GOLDEN_BMVM_64, f"BMVM n=64 NoCStats {st.as_dict()}")
+    print("golden NoCStats of the Fano LDPC and BMVM n=64 runs reproduced field for field")
+    for topo in ("ring", "mesh", "torus", "fattree"):
+        out, st = bmvm.iterate_noc_sim(lut64, v64, cfg64, 3, topology=topo)
+        check(np.array_equal(out.reshape(1, -1), bmvm.software_ref(A64, v64[None], 3)),
+              f"BMVM n=64 on {topo}")
+        print(f"  BMVM n=64 r=3 on {topo}: equal to software_ref, rounds={st.rounds} "
+              f"link_bytes={st.link_bytes}")
+    scfg = pf.PFConfig(img=128, roi=32, n_particles=256, n_bins=16)
+    sframes, _ = pf.synth_video(scfg, 8, rng)
+    est_noc, st = pf.track_on_noc(sframes, scfg, n_pe=4, n_nodes=8)
+    err = float(np.abs(est_noc - pf.track(sframes, scfg, use_kernel=False)).max())
+    check(err <= 1e-3, f"track_on_noc differs from track by {err}")
+    print(f"  PF track_on_noc (4 PEs, 8-node mesh): agrees with track to {err:.2e}, "
+          f"flits={st.flits}")
+    big = bmvm.BMVMConfig(n=1024, k=8, fold=4)
+    Ab = rng.integers(0, 2, (1024, 1024)).astype(np.uint8)
+    vb = rng.integers(0, 2, (1024,)).astype(np.uint8)
+    (out, st), secs = wall(torch, lambda: bmvm.iterate_noc_sim(
+        bmvm.preprocess(Ab, big), vb, big, 2, topology="mesh", n_nodes=64))
+    check(np.array_equal(out.reshape(1, -1), bmvm.software_ref(Ab, vb[None], 2)), "BMVM n=1024")
+    _, st_cpu = bmvm.iterate_noc_sim(bmvm.preprocess(Ab, big, device="cpu"), vb, big, 2,
+                                     topology="mesh", n_nodes=64, device="cpu")
+    check(st.as_dict() == st_cpu.as_dict(), "BMVM n=1024 NoCStats differ between GPU and CPU")
+    print(f"  BMVM n=1024 fold=4 ({big.n_pe} PEs, 8x8 mesh) r=2: equal to software_ref in "
+          f"{secs:.3f} s, NoCStats equal to the CPU run: {st.as_dict()}")
+    print(f"NoC phase {time.perf_counter() - t0:.2f} s")
+
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Where the time goes on the port's three case-study datapaths, on one GPU.
+
+    python3 scripts/profile_main_path.py
+
+At the sizes ``chip_smoke.py`` drives (BMVM n=4096 r=4; LDPC 7168 bits × 512
+codewords × 10 iterations; particle filter 512² × 4096 particles × 16 frames)
+it times each datapath on the host clock (median of 5 warm runs, each ending in
+``torch.cuda.synchronize()``), then traces one more run with
+``torch.profiler`` and reports the device busy time (sum of the kernel, copy
+and memset activities on the card), the device idle share of the traced
+window, and the device activities that take the most time.  One JSON line per
+datapath.
+"""
+import json
+import os
+import statistics
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_main_path: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.apps import bmvm, ldpc
+    from repro_torch.apps import particle_filter as pf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    bcfg = bmvm.BMVMConfig(n=4096, k=8, fold=1)
+    A = torch.randint(0, 2, (bcfg.n, bcfg.n), generator=g, device=dev, dtype=torch.uint8)
+    V = torch.randint(0, 2, (64, bcfg.n), generator=g, device=dev, dtype=torch.uint8)
+    lut = bmvm.preprocess(A, bcfg)
+    H = ldpc.pg_ldpc_H(copies=1024)
+    idx = ldpc.build_edge_index(H)
+    llr = ldpc.awgn_llr(np.zeros((512, H.shape[1]), np.int8), 3.0, rng)
+    pcfg = pf.PFConfig(img=512, roi=64, n_particles=4096, n_bins=16, seed=0)
+    frames, _ = pf.synth_video(pcfg, 16, rng)
+
+    paths = {
+        "bmvm_iterate_kernel": lambda: bmvm.iterate_kernel(lut, V, bcfg, 4),
+        "ldpc_decode_minsum": lambda: ldpc.decode_minsum(idx, llr, 10),
+        "pf_track": lambda: pf.track(frames, pcfg),
+    }
+    print(torch.cuda.get_device_name(0), f"torch {torch.__version__}")
+    # all host-clock timings first, so that no profiler session precedes a
+    # timed run
+    walls = {}
+    for name, fn in paths.items():
+        runs = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        walls[name] = runs[1:]                 # the first run warms caches
+    for name, fn in paths.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        # device-side activities only (kernels, copies, memsets): the CPU
+        # operators that launched them would count the same time again
+        by_name: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        busy_us = sum(sum(v) for v in by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
+        w = walls[name]
+        print(json.dumps(dict(
+            path=name, wall_ms_median=statistics.median(w) * 1e3,
+            wall_ms_min=min(w) * 1e3, wall_ms_max=max(w) * 1e3, runs=len(w),
+            traced_wall_ms=traced_s * 1e3, device_busy_ms=busy_us / 1e3,
+            device_idle_share=1 - busy_us / 1e6 / traced_s,
+            top_device_activities=[dict(name=k[:80], device_ms=sum(v) / 1e3, calls=len(v))
+                                   for k, v in top])))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

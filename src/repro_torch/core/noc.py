@@ -1,0 +1,390 @@
+"""NoC executor: run a TaskGraph over a Topology (port of ``repro.core.noc``).
+
+PEs from phase 1 (`core.graph`) are placed on a CONNECT-style topology
+(`core.topology`, `core.partition`) and every message moves through the
+topology's routing schedule (`core.routing.simulate_schedule`) as bytes of a
+device-resident ``(n, n, buf_bytes)`` uint8 message cube.
+
+Modes of this port:
+
+* ``direct`` — `TaskGraph.run`, the pure-software oracle.  No NoC, no stats.
+* ``sim``    — the compiled **flit-program engine**: PEs fire wave by wave and
+  each wave's messages are framed into the cube with one scatter, moved round
+  by round with `simulate_schedule`, and gathered back with one gather.
+  Outputs equal ``direct`` bit for bit; `NoCStats` equal the reference's
+  field for field.
+
+``run_batch`` moves B independent input sets through one ``(B, n, n, bytes)``
+simulation (PEs fire per input set), and ``run_iterative`` reuses the
+compiled program across iterations.  PEs fire eagerly on the executor's device.
+
+Not in this slice, and raising ``NotImplementedError`` rather than being
+ignored: modes ``sim_python``, ``spmd`` and ``buffered``; partitioned execution
+(``plan=``); telemetry (``trace=``); and static verification
+(``verify="strict"``/``"warn"`` — the port's default is ``"off"`` until the
+analysis slice lands, a planned divergence from the reference's ``"strict"``).
+
+The flit-program compile step
+-----------------------------
+Every channel's shape/dtype is a declared contract, so the framing of a wave
+is known when the executor is built.  ``NoCExecutor.__init__`` compiles, per
+wave, a :class:`_WaveProgram`: the flit-padded byte offset of every message in
+its (src, dst) node buffer (``flit_data_width`` granularity), flat
+``pack_idx``/``gather_idx`` device index vectors into the cube and the
+delivered ``(n_dst, n_src, buf_bytes)`` cube, and the wave's value-independent
+`NoCStats` increment (payload bytes, flits).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from . import serdes as qserdes
+from .graph import GraphError, TaskGraph, torch_dtype
+from .partition import place_round_robin
+from .routing import simulate_schedule
+from .topology import Topology
+
+# modes of the reference executor that later slices port (ROADMAP Queue 1)
+_LATER_MODES = {
+    "sim_python": "the seed per-message loop (ROADMAP Queue 1 item 5, deferred)",
+    "spmd": "device-mesh execution (ROADMAP Queue 1 item 11)",
+    "buffered": "the buffered wormhole switch (ROADMAP Queue 1 item 8)",
+}
+
+
+@dataclasses.dataclass
+class NoCStats:
+    waves: int = 0
+    rounds: int = 0
+    link_bytes: int = 0
+    payload_bytes: int = 0
+    flits: int = 0
+    cross_pod_msgs: int = 0
+    cross_pod_wire_bytes: int = 0
+    cross_pod_beats: int = 0
+    # bridge counters — nonzero only under partitioned execution (plan=)
+    bridge_beats: int = 0
+    bridge_wire_bytes: int = 0
+    bridge_stall_rounds: int = 0
+    bridge_peak_fifo: int = 0
+    # buffered-switch counters — nonzero only in mode="buffered"
+    switch_cycles: int = 0
+    switch_stall_cycles: int = 0
+    switch_arb_losses: int = 0
+    switch_max_queue: int = 0
+    switch_peak_link_flits: int = 0
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def add(self, other: "NoCStats") -> "NoCStats":
+        for f in dataclasses.fields(NoCStats):
+            a, b = getattr(self, f.name), getattr(other, f.name)
+            # peak occupancies are high-water marks, not flows — merge by max
+            setattr(self, f.name,
+                    max(a, b) if f.name in _MAX_MERGE_FIELDS else a + b)
+        return self
+
+
+# high-water-mark fields: NoCStats.add merges these by max, not sum
+_MAX_MERGE_FIELDS = frozenset(
+    {"bridge_peak_fifo", "switch_max_queue", "switch_peak_link_flits"})
+
+
+@dataclasses.dataclass(frozen=True)
+class NoCConfig:
+    """CONNECT "Network and Router Options" analog (paper §VI-B).  The
+    bridge/switch fields are carried for parity with the reference config and
+    are read by the slices that port those transports."""
+
+    flit_data_width: int = 16          # bits
+    flit_buffer_depth: int = 8         # per-(src, expert) FIFO depth, in slots
+    bridge_fifo_depth: int = 64        # inter-chip bridge FIFO, in wire words
+    switch_buffer_depth: int = 4       # buffered mode: input FIFO depth, flits
+    switch_vcs: int = 2                # buffered mode: VCs per input port
+    serdes: qserdes.QuasiSerdesConfig = dataclasses.field(
+        default_factory=qserdes.QuasiSerdesConfig)
+
+    def __post_init__(self):
+        for f in ("flit_data_width", "flit_buffer_depth", "bridge_fifo_depth",
+                  "switch_buffer_depth", "switch_vcs"):
+            v = getattr(self, f)
+            if not isinstance(v, int) or v < 1:
+                raise ValueError(f"NOC012: NoCConfig.{f}={v!r} must be a "
+                                 f"positive integer")
+
+    @property
+    def flit_wire_bytes(self) -> int:
+        """On-wire/storage bytes of ONE flit: ceil(width/8)."""
+        return -(-self.flit_data_width // 8)
+
+    def flits_for(self, nbytes: int) -> int:
+        # payload capacity of a flit is the whole bytes it can carry (floor),
+        # never 0 for sub-byte widths
+        per = max(1, self.flit_data_width // 8)
+        return -(-nbytes // per)
+
+    def flit_framed_bytes(self, nbytes: int) -> int:
+        """THE flit-framing rule: payload bytes → on-link/FIFO bytes (whole
+        flits × ceiling flit storage)."""
+        return self.flits_for(nbytes) * self.flit_wire_bytes
+
+
+def wrapper_overhead(graph: TaskGraph, cfg: Optional[NoCConfig] = None) -> list[dict]:
+    """Tables I–III analog: per-PE cost without vs with the NoC wrapper."""
+    cfg = cfg or NoCConfig()
+    rows = []
+    for pe in graph.pes.values():
+        in_b = sum(p.nbytes for p in pe.inputs)
+        out_b = sum(p.nbytes for p in pe.outputs)
+        raw = in_b + out_b
+        fifo = cfg.flit_buffer_depth * cfg.flit_wire_bytes * (len(pe.inputs) + len(pe.outputs))
+        flit_b = sum(cfg.flit_framed_bytes(p.nbytes)
+                     for p in list(pe.inputs) + list(pe.outputs))
+        rows.append(dict(pe=pe.name, wo_wrapper_bytes=raw, fifo_bytes=fifo,
+                         flit_bytes=flit_b, with_wrapper_bytes=flit_b + fifo,
+                         overhead=round((flit_b + fifo - raw) / max(raw, 1), 3)))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# compiled flit program
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _MsgSlot:
+    """One channel message inside a wave's compiled layout."""
+
+    src_pe: str
+    src_port: str
+    dst_pe: str
+    dst_port: str
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    nbytes: int
+    a: int                 # [a:b) segment in the wave's payload byte vector
+    b: int
+
+
+@dataclasses.dataclass(frozen=True)
+class _WaveProgram:
+    """Static framing layout of one wave (compiled at executor construction)."""
+
+    slots: tuple[_MsgSlot, ...]
+    payload_nbytes: int       # Σ raw message bytes (the payload vector length)
+    buf_bytes: int            # per-(src,dst) buffer size incl. flit padding
+    pack_idx: torch.Tensor    # flat indices into (n, n, buf_bytes) per payload byte
+    gather_idx: torch.Tensor  # flat indices into delivered (n_dst, n_src, buf_bytes)
+    static: NoCStats          # value-independent stats increment for this wave
+
+
+def _stack(ts: list[torch.Tensor]) -> torch.Tensor:
+    """torch.stack for any dtype: the unsigned 16/32/64-bit types are stacked
+    through a same-width signed view (their op coverage is thin on CUDA)."""
+    signed = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+              torch.uint64: torch.int64}.get(ts[0].dtype)
+    if signed is None:
+        return torch.stack(ts)
+    return torch.stack([t.view(signed) for t in ts]).view(ts[0].dtype)
+
+
+class NoCExecutor:
+    def __init__(self, graph: TaskGraph, topo: Topology,
+                 placement: Optional[Mapping[str, int]] = None,
+                 plan: Optional[Any] = None,
+                 cfg: Optional[NoCConfig] = None,
+                 verify: str = "off",
+                 trace: Optional[Any] = None,
+                 device="cuda"):
+        if verify in ("strict", "warn"):
+            raise NotImplementedError(
+                f"verify={verify!r} needs the static verifier (ROADMAP Queue 1 "
+                f"item 9); the port runs with verify='off' until then")
+        if verify != "off":
+            raise ValueError(f"verify must be 'strict', 'warn', or 'off', got {verify!r}")
+        if plan is not None:
+            raise NotImplementedError("partitioned execution (plan=) is not ported "
+                                      "yet (ROADMAP Queue 1 item 7)")
+        if trace is not None:
+            raise NotImplementedError("telemetry (trace=) is not ported yet "
+                                      "(ROADMAP Queue 1 item 10)")
+        self.device = resolve_device(device)
+        self.graph = graph
+        self.topo = topo
+        self.placement = dict(placement or place_round_robin(graph, topo))
+        self.cfg = cfg or NoCConfig()
+        graph.validate()
+        self._order = graph.firing_order()
+        # group PEs into waves by dataflow depth
+        depth: dict[str, int] = {}
+        preds: dict[str, set[str]] = {n: set() for n in graph.pes}
+        for c in graph.channels:
+            if c.src_pe != c.dst_pe:
+                preds[c.dst_pe].add(c.src_pe)
+        for n in self._order:
+            depth[n] = 1 + max((depth[p] for p in preds[n]), default=-1)
+        self.waves: list[list[str]] = []
+        for n in self._order:
+            while len(self.waves) <= depth[n]:
+                self.waves.append([])
+            self.waves[depth[n]].append(n)
+        self._chan_by_src: dict[str, list] = {n: [] for n in graph.pes}
+        for c in graph.channels:
+            self._chan_by_src[c.src_pe].append(c)
+        self.programs: list[_WaveProgram] = [self._compile_wave(w) for w in self.waves]
+
+    # -- compile -------------------------------------------------------------
+    def _compile_wave(self, wave: list[str]) -> _WaveProgram:
+        g, cfg = self.graph, self.cfg
+        n = self.topo.n_nodes
+        slots: list[_MsgSlot] = []
+        pair_off: dict[tuple[int, int], int] = {}
+        static = NoCStats()
+        seg = 0
+        placed: list[tuple[int, int, int]] = []   # (src_node, dst_node, pair_offset)
+        for name in wave:
+            for c in self._chan_by_src[name]:
+                port = g.pes[c.src_pe].out_port(c.src_port)
+                nbytes = port.nbytes
+                s, d = self.placement[c.src_pe], self.placement[c.dst_pe]
+                off = pair_off.get((s, d), 0)
+                pair_off[(s, d)] = off + cfg.flit_framed_bytes(nbytes)  # flit padding
+                slots.append(_MsgSlot(c.src_pe, c.src_port, c.dst_pe, c.dst_port,
+                                      tuple(port.shape), torch_dtype(port.dtype),
+                                      nbytes, seg, seg + nbytes))
+                placed.append((s, d, off))
+                seg += nbytes
+                static.payload_bytes += nbytes
+                static.flits += cfg.flits_for(nbytes)
+        buf_bytes = max(pair_off.values(), default=0)
+        pack, gather = [], []
+        for slot, (s, d, off) in zip(slots, placed):
+            span = np.arange(off, off + slot.nbytes, dtype=np.int64)
+            pack.append((s * n + d) * buf_bytes + span)
+            gather.append((d * n + s) * buf_bytes + span)   # delivered is (dst, src)
+
+        def idx(xs):
+            arr = np.concatenate(xs) if xs else np.zeros(0, np.int64)
+            return torch.as_tensor(arr, device=self.device)
+
+        return _WaveProgram(tuple(slots), seg, buf_bytes, idx(pack), idx(gather), static)
+
+    # -- firing --------------------------------------------------------------
+    def _fire_batch(self, name: str, kwargs: dict[str, Any], B: int) -> Mapping[str, Any]:
+        """Fire one PE on each of B stacked input sets and stack the outputs."""
+        pe = self.graph.pes[name]
+        items = [pe.fn(**{k: v[b] for k, v in kwargs.items()}) for b in range(B)]
+        return {p.name: _stack([it[p.name] for it in items]) for p in pe.outputs}
+
+    # -- packing -------------------------------------------------------------
+    def _payload_segment(self, val: Any, slot: _MsgSlot, lead: tuple[int, ...]) -> torch.Tensor:
+        """A message's bytes as a (*lead, nbytes) uint8 view, after checking
+        it against its contract."""
+        if (not isinstance(val, torch.Tensor) or tuple(val.shape) != lead + slot.shape
+                or val.dtype != slot.dtype or val.device != self.device):
+            got = (f"{tuple(val.shape)}/{val.dtype}/{val.device}"
+                   if isinstance(val, torch.Tensor) else type(val).__name__)
+            raise GraphError(
+                f"message {slot.src_pe}.{slot.src_port} -> {slot.dst_pe}.{slot.dst_port}: "
+                f"value {got} violates contract {lead + slot.shape}/{slot.dtype}/{self.device}")
+        return val.contiguous().reshape(*lead, -1).view(torch.uint8)
+
+    def _to_device(self, inputs: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v, device=self.device) for k, v in inputs.items()}
+
+    @staticmethod
+    def _check_mode(mode: str) -> None:
+        if mode in _LATER_MODES:
+            raise NotImplementedError(f"mode={mode!r} is not ported yet: {_LATER_MODES[mode]}")
+        if mode not in ("direct", "sim"):
+            raise GraphError(f"unknown mode {mode!r}; use 'direct'|'sim'")
+
+    # ------------------------------------------------------------------
+    def run(self, inputs: Mapping[str, Any], mode: str = "sim") -> tuple[dict[str, Any], NoCStats]:
+        self._check_mode(mode)
+        inputs = self._to_device(inputs)
+        if mode == "direct":
+            return self.graph.run(inputs), NoCStats()
+        mailbox = {tuple(k.split(".")): v for k, v in inputs.items()}
+        return self._run_compiled(mailbox, B=None)
+
+    def run_batch(self, inputs: Mapping[str, Any],
+                  mode: str = "sim") -> tuple[dict[str, Any], NoCStats]:
+        """Run B independent input sets at once; every input carries a leading
+        batch axis ``(B, *port.shape)`` and so does every output.
+
+        ``sim`` moves all B message sets through the topology in a single
+        ``(B, n, n, bytes)`` :func:`simulate_schedule` call.  Stats:
+        waves/rounds are physical (counted once — the batch shares the
+        schedule), while payload/flit/link byte counters scale with B."""
+        self._check_mode(mode)
+        if not inputs:
+            raise GraphError("run_batch needs at least one input")
+        inputs = self._to_device(inputs)
+        B = int(next(iter(inputs.values())).shape[0])
+        for k, v in inputs.items():
+            if v.shape[0] != B:
+                raise GraphError(f"input {k} batch axis {v.shape[0]} != {B}")
+        if mode == "direct":
+            items = [self.graph.run({k: v[b] for k, v in inputs.items()}) for b in range(B)]
+            return {k: _stack([it[k] for it in items]) for k in items[0]}, NoCStats()
+        mailbox = {tuple(k.split(".")): v for k, v in inputs.items()}
+        return self._run_compiled(mailbox, B=B)
+
+    def _run_compiled(self, mailbox: dict[tuple[str, str], Any],
+                      B: Optional[int]) -> tuple[dict[str, Any], NoCStats]:
+        """Execute the compiled flit program; ``B=None`` single-set, else a
+        leading batch axis rides through every pack/route/unpack step."""
+        g, topo = self.graph, self.topo
+        n = topo.n_nodes
+        lead = () if B is None else (B,)
+        scale = 1 if B is None else B
+        stats = NoCStats()
+        for wave, prog in zip(self.waves, self.programs):
+            stats.waves += 1
+            for name in wave:
+                pe = g.pes[name]
+                kwargs = {p.name: mailbox[(name, p.name)] for p in pe.inputs}
+                results = (pe.fn(**kwargs) if B is None
+                           else self._fire_batch(name, kwargs, B))
+                for p in pe.outputs:
+                    mailbox[(name, p.name)] = results[p.name]
+            if not prog.slots:
+                continue
+            payload = torch.cat([self._payload_segment(mailbox[(s.src_pe, s.src_port)], s, lead)
+                                 for s in prog.slots], dim=-1)
+            msgs_arr = torch.zeros(lead + (n * n * prog.buf_bytes,), dtype=torch.uint8,
+                                   device=self.device)
+            msgs_arr[..., prog.pack_idx] = payload
+            cube = msgs_arr.reshape(lead + (n, n, prog.buf_bytes))
+            delivered, sstats = simulate_schedule(topo, cube, batched=B is not None)
+            recv = delivered.reshape(lead + (-1,))[..., prog.gather_idx]
+            for slot in prog.slots:
+                seg = recv[..., slot.a:slot.b].clone()   # owns + aligns the bytes
+                mailbox[(slot.dst_pe, slot.dst_port)] = (
+                    seg.view(slot.dtype).reshape(lead + slot.shape))
+            # prog.static only carries per-message counters, so it scales by B
+            for f in dataclasses.fields(NoCStats):
+                setattr(stats, f.name,
+                        getattr(stats, f.name) + scale * getattr(prog.static, f.name))
+            stats.rounds += sstats.rounds
+            stats.link_bytes += sstats.link_bytes
+        outs = {f"{pe}.{port.name}": mailbox[(pe, port.name)] for pe, port in g.graph_outputs()}
+        return outs, stats
+
+    def run_iterative(self, inputs: Mapping[str, Any], feedback, n_iters: int,
+                      mode: str = "sim") -> tuple[dict[str, Any], NoCStats]:
+        state = dict(inputs)
+        total = NoCStats()
+        outs: dict[str, Any] = {}
+        for _ in range(n_iters):
+            outs, st = self.run(state, mode=mode)
+            total.add(st)
+            for src, dst in feedback:
+                state[dst] = outs[src]
+        return outs, total

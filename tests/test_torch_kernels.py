@@ -1,0 +1,249 @@
+"""The port's kernels against the reference: the plain versions (what a CPU
+tensor runs) held to the Pallas kernels in interpret mode and to the jnp
+oracles over the shape sweeps of tests/test_kernels.py; the wrappers' routing,
+checks and launch counters; and the CUDA build.  The kernels themselves run
+in tests/test_torch_cuda.py, on a GPU only."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import _build, gf2_bmvm, histogram, minsum  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+GF2_CASES = [(16, 4, 1), (32, 4, 3), (64, 8, 5), (128, 4, 2), (128, 8, 8)]
+MINSUM_SHAPES = [(1, 3), (7, 3), (64, 6), (200, 4), (1000, 8)]
+HIST_CASES = [(1, 64, 8), (10, 300, 16), (33, 517, 12), (8, 1024, 32)]
+
+
+# -- GF(2) BMVM ---------------------------------------------------------------
+
+@pytest.mark.parametrize("n,k,m", GF2_CASES)
+def test_gf2_bmvm_matches_pallas_and_oracle(n, k, m):
+    rng = np.random.default_rng(n + k)
+    A = rng.integers(0, 2, (n, n)).astype(np.uint8)
+    V = rng.integers(0, 2, (m, n)).astype(np.uint8)
+    lut_j = jref.gf2_preprocess(jnp.asarray(A), k)
+    lut_t = tref.gf2_preprocess(torch.as_tensor(A), k)
+    assert lut_t.dtype == torch.int32
+    assert np.array_equal(lut_t.numpy().astype(np.uint32), np.asarray(lut_j))
+    vw_j = jref.gf2_pack_vector(jnp.asarray(V), k).astype(jnp.uint32)
+    vw_t = tref.gf2_pack_vector(torch.as_tensor(V), k)
+    assert np.array_equal(vw_t.numpy().astype(np.uint32), np.asarray(vw_j))
+    out_pallas = np.asarray(jops.gf2_bmvm(lut_j, vw_j, use_kernel=True))
+    out_t = tops.gf2_bmvm(lut_t, vw_t)
+    assert np.array_equal(out_t.numpy().astype(np.uint32), out_pallas)
+    assert np.array_equal(tref.gf2_unpack_vector(out_t, k).numpy(),
+                          np.asarray(jref.gf2_matmul_oracle(jnp.asarray(A), jnp.asarray(V))))
+    assert np.array_equal(tref.gf2_matmul_oracle(torch.as_tensor(A), torch.as_tensor(V)).numpy(),
+                          np.asarray(jref.gf2_matmul_oracle(jnp.asarray(A), jnp.asarray(V))))
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_gf2_linearity(seed):
+    """A(u ⊕ v) == Au ⊕ Av through the port's LUT datapath."""
+    rng = np.random.default_rng(seed)
+    n, k = 32, 4
+    A = torch.as_tensor(rng.integers(0, 2, (n, n)).astype(np.uint8))
+    u = torch.as_tensor(rng.integers(0, 2, (1, n)).astype(np.uint8))
+    v = torch.as_tensor(rng.integers(0, 2, (1, n)).astype(np.uint8))
+    lut = tref.gf2_preprocess(A, k)
+
+    def f(x):
+        return tref.gf2_unpack_vector(tops.gf2_bmvm(lut, tref.gf2_pack_vector(x, k)), k)
+    assert torch.equal(f(u ^ v), f(u) ^ f(v))
+
+
+@pytest.mark.parametrize("k", [4, 8, 16])
+def test_gf2_pack_unpack_roundtrip(k):
+    rng = np.random.default_rng(7)
+    v = rng.integers(0, 2, (3, 64)).astype(np.uint8)
+    w = tref.gf2_pack_vector(torch.as_tensor(v), k)
+    assert np.array_equal(w.numpy().astype(np.uint32),
+                          np.asarray(jref.gf2_pack_vector(jnp.asarray(v), k)))
+    assert np.array_equal(tref.gf2_unpack_vector(w, k).numpy(), v)
+    # uint32 words (the NoC contract dtype) unpack to the same bits
+    assert np.array_equal(tref.gf2_unpack_vector(w.view(torch.uint32), k).numpy(), v)
+
+
+def test_gf2_preprocess_chunked_equals_unchunked(monkeypatch):
+    A = torch.as_tensor(np.random.default_rng(3).integers(0, 2, (64, 64)).astype(np.uint8))
+    whole = tref.gf2_preprocess(A, 8)
+    monkeypatch.setattr(tref, "_PREPROCESS_CHUNK_ELEMS", 1)   # one LUT column per chunk
+    assert torch.equal(tref.gf2_preprocess(A, 8), whole)
+
+
+# -- LDPC min-sum -------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", MINSUM_SHAPES)
+def test_minsum_matches_pallas(shape):
+    rng = np.random.default_rng(shape[0])
+    u = (rng.normal(size=shape) * 4).astype(np.float32)
+    out_t = tops.minsum_check(torch.as_tensor(u)).numpy()
+    assert np.allclose(out_t, np.asarray(jops.minsum_check(jnp.asarray(u), use_kernel=True)),
+                       atol=1e-6)
+    assert np.allclose(out_t, np.asarray(jref.minsum_check(jnp.asarray(u))), atol=1e-6)
+
+
+def test_minsum_sign_and_tie_rules_match_reference():
+    """sign(-0.0) = +1, first-index argmin on ties, infinities — bit for bit."""
+    u = np.array([[-0.0, 1.0, 2.0], [1.0, 1.0, 3.0], [2.0, -2.0, 5.0],
+                  [np.inf, np.inf, 5.0], [-3.0, -0.5, -0.5], [0.0, -0.0, 4.0]], np.float32)
+    out_t = tref.minsum_check(torch.as_tensor(u)).numpy()
+    out_j = np.asarray(jref.minsum_check(jnp.asarray(u)))
+    assert np.array_equal(out_t, out_j)
+    assert np.array_equal(np.signbit(out_t), np.signbit(out_j))
+
+
+def test_bitnode_sum_matches_reference():
+    rng = np.random.default_rng(4)
+    u0 = rng.normal(size=(5,)).astype(np.float32)
+    v = rng.normal(size=(5, 3)).astype(np.float32)
+    tt, tu = tref.bitnode_sum(torch.as_tensor(u0), torch.as_tensor(v))
+    jt, ju = jref.bitnode_sum(jnp.asarray(u0), jnp.asarray(v))
+    assert np.allclose(tt.numpy(), np.asarray(jt), atol=1e-6)
+    assert np.allclose(tu.numpy(), np.asarray(ju), atol=1e-6)
+
+
+# -- particle filter histogram ------------------------------------------------
+
+@pytest.mark.parametrize("N,px,B", HIST_CASES)
+def test_histogram_matches_pallas(N, px, B):
+    rng = np.random.default_rng(N + px)
+    bins = rng.integers(0, B, (N, px)).astype(np.int32)
+    w = rng.uniform(0.1, 1, (px,)).astype(np.float32)
+    rh = rng.uniform(0, 1, (B,)).astype(np.float32)
+    rh = rh / rh.sum()
+    h_t, bc_t = tops.particle_histogram(torch.as_tensor(bins), torch.as_tensor(w),
+                                        torch.as_tensor(rh))
+    h_p, bc_p = jops.particle_histogram(jnp.asarray(bins), jnp.asarray(w), jnp.asarray(rh),
+                                        use_kernel=True)
+    h_r = jref.weighted_histogram(jnp.asarray(bins), jnp.asarray(w), B)
+    for h, bc in ((h_p, bc_p), (h_r, jref.bhattacharyya(h_r, jnp.asarray(rh)))):
+        assert np.allclose(h_t.numpy(), np.asarray(h), atol=1e-5)
+        assert np.allclose(bc_t.numpy(), np.asarray(bc), atol=1e-5)
+
+
+def test_histogram_out_of_range_bins_count_nowhere():
+    bins = np.array([[0, 1, -1, 8, 3], [7, 7, 100, 2, -5]], np.int32)
+    w = np.linspace(0.2, 1.0, 5).astype(np.float32)
+    h_t = tref.weighted_histogram(torch.as_tensor(bins), torch.as_tensor(w), 8).numpy()
+    h_j = np.asarray(jref.weighted_histogram(jnp.asarray(bins), jnp.asarray(w), 8))
+    assert np.allclose(h_t, h_j, atol=1e-6)
+    assert np.allclose(h_t.sum(-1), 1.0, atol=1e-6)
+
+
+def test_particle_weights_matches_reference():
+    rng = np.random.default_rng(5)
+    bins = rng.integers(0, 8, (6, 40)).astype(np.int32)
+    w = rng.uniform(0.1, 1, (40,)).astype(np.float32)
+    rh = np.full(8, 1 / 8, np.float32)
+    t = tref.particle_weights(torch.as_tensor(bins), torch.as_tensor(w), torch.as_tensor(rh))
+    j = jref.particle_weights(jnp.asarray(bins), jnp.asarray(w), jnp.asarray(rh))
+    assert np.allclose(t.numpy(), np.asarray(j), atol=1e-5)
+
+
+# -- wrappers: routing, checks, counters ----------------------------------------
+
+def _sample_args():
+    rng = np.random.default_rng(0)
+    lut = tref.gf2_preprocess(torch.as_tensor(rng.integers(0, 2, (32, 32)).astype(np.uint8)), 4)
+    vw = tref.gf2_pack_vector(torch.as_tensor(rng.integers(0, 2, (3, 32)).astype(np.uint8)), 4)
+    u = torch.as_tensor(rng.normal(size=(9, 3)).astype(np.float32))
+    bins = torch.as_tensor(rng.integers(0, 8, (4, 50)).astype(np.int32))
+    w = torch.ones(50)
+    rh = torch.full((8,), 1 / 8)
+    return lut, vw, u, bins, w, rh
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    lut, vw, u, bins, w, rh = _sample_args()
+    tops.reset_launch_counts()
+    assert torch.equal(tops.gf2_bmvm(lut, vw), gf2_bmvm.gf2_bmvm_plain(lut, vw))
+    assert torch.equal(tops.minsum_check(u), minsum.minsum_check_plain(u))
+    h, bc = tops.particle_histogram(bins, w, rh)
+    hp, bcp = histogram.particle_histogram_plain(bins, w, rh, 8)
+    assert torch.equal(h, hp) and torch.equal(bc, bcp)
+    assert tops.launch_counts() == {"gf2_bmvm": 0, "minsum_check": 0,
+                                    "particle_histogram": 0}
+
+
+def test_use_kernel_false_selects_the_plain_version():
+    lut, vw, u, bins, w, rh = _sample_args()
+    assert torch.equal(tops.gf2_bmvm(lut, vw, use_kernel=False), tref.gf2_bmvm(lut, vw))
+    assert torch.equal(tops.minsum_check(u, use_kernel=False), tref.minsum_check(u))
+    h, _ = tops.particle_histogram(bins, w, rh, use_kernel=False)
+    assert torch.equal(h, tref.weighted_histogram(bins, w, 8))
+
+
+@pytest.mark.parametrize("call", ["gf2_bmvm", "minsum_check", "particle_histogram"])
+def test_wrappers_do_not_fall_back_off_the_cpu(call):
+    """A tensor that is neither on the CPU nor on a GPU is refused, never
+    quietly computed with the plain version."""
+    lut, vw, u, bins, w, rh = (t.to("meta") for t in _sample_args())
+    fn = {"gf2_bmvm": lambda: gf2_bmvm.gf2_bmvm(lut, vw),
+          "minsum_check": lambda: minsum.minsum_check(u),
+          "particle_histogram": lambda: histogram.particle_histogram(bins, w, rh, 8)}[call]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn()
+
+
+def test_check_cuda_tensor_rejects_cpu_tensor():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _build.check_cuda_tensor("x", torch.zeros(3, 3), torch.float32, 2)
+
+
+def test_check_cuda_tensor_rejects_non_tensor():
+    with pytest.raises(TypeError):
+        _build.check_cuda_tensor("x", np.zeros(3), torch.float32, 1)
+
+
+def test_build_uses_nvcc_for_sm90a(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    cmd = _build.build_command(tmp_path / "lib.so")
+    assert cmd[0] == "nvcc" and "arch=compute_90a,code=sm_90a" in cmd
+    assert {"-shared", "-O3"} <= set(cmd) and cmd[-1] == str(_build.SOURCE)
+    assert _build.SOURCE.is_file()
+    src = _build.SOURCE.read_text()
+    for name in _build._SIGNATURES:
+        assert f"int {name}(" in src
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.Path, "is_file", lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+# -- import hygiene --------------------------------------------------------------
+
+def _imports(path: pathlib.Path) -> set[str]:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            mods.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            mods.add(node.module.split(".")[0])
+        elif isinstance(node, ast.ImportFrom) and node.level >= 3:
+            mods.add("<outside the package>")   # from ...x climbs out of repro_torch
+    return mods
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in
+    list((REPO / "src" / "repro_torch").rglob("*.py")) + list((REPO / "scripts").glob("*.py"))
+    + [REPO / "chip_smoke.py"]))
+def test_port_imports_neither_jax_nor_repro(path):
+    mods = _imports(REPO / path)
+    assert not mods & {"jax", "jaxlib", "repro", "<outside the package>"}, (path, mods)

@@ -1,0 +1,366 @@
+"""The port's NoC framework against the reference: topology copy, the
+round-by-round schedule simulator (plain and batched), placement, serdes
+accounting, the compiled flit-program executor (direct == sim == run_batch on
+the diamond and mixed-dtype graphs rebuilt with torch PE bodies), the golden
+NoCStats, and the options that later slices port."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+import repro.core as jcore  # noqa: E402
+import repro_torch.core as tcore  # noqa: E402
+from repro.apps import bmvm as jbmvm  # noqa: E402
+from repro.apps import ldpc as jldpc  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.apps import bmvm as tbmvm  # noqa: E402
+from repro_torch.apps import ldpc as tldpc  # noqa: E402
+from repro_torch.apps import particle_filter as tpf  # noqa: E402
+
+TOPOLOGIES = ["ring", "mesh", "torus", "fattree"]
+CPU = "cpu"
+GOLDEN_LDPC_FANO = dict(
+    waves=20, rounds=60, link_bytes=92160, payload_bytes=840, flits=420,
+    cross_pod_msgs=0, cross_pod_wire_bytes=0, cross_pod_beats=0,
+    bridge_beats=0, bridge_wire_bytes=0, bridge_stall_rounds=0,
+    bridge_peak_fifo=0, switch_cycles=0, switch_stall_cycles=0,
+    switch_arb_losses=0, switch_max_queue=0, switch_peak_link_flits=0)
+GOLDEN_BMVM = dict(
+    waves=4, rounds=8, link_bytes=5632, payload_bytes=256, flits=128,
+    cross_pod_msgs=0, cross_pod_wire_bytes=0, cross_pod_beats=0,
+    bridge_beats=0, bridge_wire_bytes=0, bridge_stall_rounds=0,
+    bridge_peak_fifo=0, switch_cycles=0, switch_stall_cycles=0,
+    switch_arb_losses=0, switch_max_queue=0, switch_peak_link_flits=0)
+
+
+# -- topology ------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", TOPOLOGIES)
+@pytest.mark.parametrize("n", [4, 6, 9, 16])
+def test_topology_copy_matches_reference(name, n):
+    t, j = tcore.make_topology(name, n), jcore.make_topology(name, n)
+    assert type(t).__name__ == type(j).__name__
+    for i in range(n):
+        assert sorted(t.neighbors(i)) == sorted(j.neighbors(i))
+        assert [t.hops(i, d) for d in range(n)] == [j.hops(i, d) for d in range(n)]
+    assert (t.a2a_rounds(), t.n_links(), t.bisection_links(), t.a2a_link_bytes(12)) == \
+        (j.a2a_rounds(), j.n_links(), j.bisection_links(), j.a2a_link_bytes(12))
+    assert [dataclass_tuple(a) for a in t.axis_schedules()] == \
+        [dataclass_tuple(a) for a in j.axis_schedules()]
+
+
+def dataclass_tuple(a):
+    return (a.axis, a.size, a.wrap, a.unidir, a.fwd_pairs(), a.bwd_pairs())
+
+
+def test_topology_compare_table_matches_reference():
+    assert tcore.compare(16, 64) == jcore.compare(16, 64)
+
+
+# -- routing -------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", TOPOLOGIES)
+@pytest.mark.parametrize("n,c", [(2, 1), (4, 3), (6, 5), (9, 2), (12, 4), (16, 1)])
+def test_simulate_schedule_matches_reference(name, n, c):
+    """Every message delivered exactly once (== transpose), and rounds and
+    link_bytes counted exactly as the numpy reference counts them."""
+    rng = np.random.default_rng(n * 100 + c)
+    msgs = rng.integers(0, 255, size=(n, n, c), dtype=np.uint8)
+    out_t, st_t = tcore.simulate_schedule(tcore.make_topology(name, n), torch.as_tensor(msgs))
+    out_j, st_j = jcore.simulate_schedule(jcore.make_topology(name, n), msgs)
+    assert np.array_equal(out_t.numpy(), msgs.swapaxes(0, 1))
+    assert np.array_equal(out_t.numpy(), out_j)
+    assert (st_t.rounds, st_t.link_bytes) == (st_j.rounds, st_j.link_bytes)
+
+
+@pytest.mark.parametrize("name,n", [("ring", 5), ("mesh", 6), ("torus", 8), ("fattree", 7)])
+def test_simulate_schedule_batched_matches_reference(name, n):
+    rng = np.random.default_rng(0)
+    msgs = rng.integers(0, 255, (3, n, n, 4)).astype(np.uint8)
+    out_t, st_t = tcore.simulate_schedule(tcore.make_topology(name, n), torch.as_tensor(msgs),
+                                          batched=True)
+    out_j, st_j = jcore.simulate_schedule(jcore.make_topology(name, n), msgs, batched=True)
+    assert np.array_equal(out_t.numpy(), msgs.swapaxes(1, 2))
+    assert np.array_equal(out_t.numpy(), out_j)
+    assert (st_t.rounds, st_t.link_bytes) == (st_j.rounds, st_j.link_bytes)
+    for b in range(3):
+        single, _ = tcore.simulate_schedule(tcore.make_topology(name, n), torch.as_tensor(msgs[b]))
+        assert torch.equal(out_t[b], single)
+
+
+def test_round_counts_match_model():
+    for name in TOPOLOGIES:
+        topo = tcore.make_topology(name, 16)
+        _, stats = tcore.simulate_schedule(topo, torch.ones((16, 16, 4), dtype=torch.uint8))
+        assert stats.rounds == topo.a2a_rounds(), name
+
+
+# -- placement and serdes accounting -------------------------------------------
+
+@pytest.mark.parametrize("spec", ["rr", "greedy"])
+@pytest.mark.parametrize("name", TOPOLOGIES)
+def test_placement_matches_reference(spec, name):
+    H = tldpc.fano_plane_H()
+    gt, _ = tldpc.build_ldpc_graph(H)
+    gj, _ = jldpc.build_ldpc_graph(H)
+    pt = tcore.resolve_placement(gt, tcore.make_topology(name, 16), spec)
+    pj = jcore.resolve_placement(gj, jcore.make_topology(name, 16), spec)
+    assert pt == pj
+
+
+def test_explicit_placement_is_validated():
+    g, _ = tldpc.build_ldpc_graph(tldpc.fano_plane_H())
+    topo = tcore.make_topology("mesh", 16)
+    with pytest.raises(ValueError, match="missing"):
+        tcore.resolve_placement(g, topo, {"chk0": 0})
+    with pytest.raises(ValueError, match="out-of-range"):
+        tcore.resolve_placement(g, topo, {p: 99 for p in g.pes})
+
+
+@pytest.mark.parametrize("compress", ["none", "bf16", "int8"])
+@pytest.mark.parametrize("wire_bits,lanes", [(8, 1), (16, 8), (32, 4)])
+def test_serdes_accounting_matches_reference(compress, wire_bits, lanes):
+    ct = tcore.QuasiSerdesConfig(wire_bits=wire_bits, lanes=lanes, compress=compress)
+    cj = jcore.QuasiSerdesConfig(wire_bits=wire_bits, lanes=lanes, compress=compress)
+    for shape, dtype in [((1,), np.float32), ((7, 3), np.uint32), ((300,), np.int8),
+                         ((4, 4, 4), np.float32)]:
+        mt, mj = tcore.plan(shape, dtype, ct), jcore.plan(shape, dtype, cj)
+        assert (mt.shape, mt.n_words, mt.n_scale_words) == (mj.shape, mj.n_words, mj.n_scale_words)
+        assert tcore.link_wire_beats(shape, dtype, ct) == jcore.link_wire_beats(shape, dtype, cj)
+        assert tcore.link_bytes_on_wire(shape, dtype, ct) == \
+            jcore.link_bytes_on_wire(shape, dtype, cj)
+        assert tcore.compression_ratio(shape, dtype, ct) == \
+            jcore.compression_ratio(shape, dtype, cj)
+
+
+def test_serdes_config_validates():
+    with pytest.raises(ValueError):
+        tcore.QuasiSerdesConfig(wire_bits=12)
+    with pytest.raises(ValueError):
+        tcore.QuasiSerdesConfig(compress="zip")
+
+
+@pytest.mark.parametrize("width", [8, 12, 16, 24])
+def test_wrapper_overhead_matches_reference(width):
+    H = tldpc.fano_plane_H()
+    gt, _ = tldpc.build_ldpc_graph(H)
+    gj, _ = jldpc.build_ldpc_graph(H)
+    assert tcore.wrapper_overhead(gt, tcore.NoCConfig(flit_data_width=width)) == \
+        jcore.wrapper_overhead(gj, jcore.NoCConfig(flit_data_width=width))
+
+
+# -- executor -------------------------------------------------------------------
+
+def _diamond(core, lib):
+    g = core.TaskGraph("diamond")
+    g.add(core.PE("src", lambda x: {"a": x + 1, "b": x * 3}, (core.Port("x", (4,)),),
+                  (core.Port("a", (4,)), core.Port("b", (4,)))))
+    g.add(core.PE("l", lambda a: {"o": a * a}, (core.Port("a", (4,)),), (core.Port("o", (4,)),)))
+    g.add(core.PE("r", lambda b: {"o": b - 2}, (core.Port("b", (4,)),), (core.Port("o", (4,)),)))
+    g.add(core.PE("join", lambda l, r: {"out": l + r},
+                  (core.Port("l", (4,)), core.Port("r", (4,))), (core.Port("out", (4,)),)))
+    g.connect("src.a", "l.a")
+    g.connect("src.b", "r.b")
+    g.connect("l.o", "join.l")
+    g.connect("r.o", "join.r")
+    return g, {"src.x": np.arange(4.0, dtype=np.float32)}
+
+
+def _mixed(core, lib):
+    """Non-float32 contracts through the byte-level framing; ``lib`` is the
+    array library of the PE bodies (jnp for the reference, torch for the port)."""
+    i32, u8 = (jnp.int32, jnp.uint8) if lib is jnp else (torch.int32, torch.uint8)
+
+    def cast(x, d):
+        return x.astype(d) if lib is jnp else x.to(d)
+    g = core.TaskGraph("mixed")
+    g.add(core.PE("a", lambda x: {"i": cast(x * 2, i32), "u": cast(x + 1, u8)},
+                  (core.Port("x", (3,)),),
+                  (core.Port("i", (3,), np.int32), core.Port("u", (3,), np.uint8))))
+    g.add(core.PE("b", lambda i: {"y": cast(i * i, i32)},
+                  (core.Port("i", (3,), np.int32),), (core.Port("y", (3,), np.int32),)))
+    g.add(core.PE("c", lambda u: {"z": cast(u + 3, u8)},
+                  (core.Port("u", (3,), np.uint8),), (core.Port("z", (3,), np.uint8),)))
+    g.connect("a.i", "b.i")
+    g.connect("a.u", "c.u")
+    return g, {"a.x": np.arange(3.0, dtype=np.float32)}
+
+
+@pytest.mark.parametrize("builder", [_diamond, _mixed])
+@pytest.mark.parametrize("name", TOPOLOGIES)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_executor_direct_sim_batch_match_reference(builder, name, seed):
+    gt, inp = builder(tcore, torch)
+    gj, _ = builder(jcore, jnp)
+    n_nodes = 6
+    rng = np.random.default_rng(seed)
+    placement = {p: int(rng.integers(0, n_nodes)) for p in gt.pes}
+    ex = tcore.NoCExecutor(gt, tcore.make_topology(name, n_nodes), placement=placement,
+                           device=CPU)
+    exj = jcore.NoCExecutor(gj, jcore.make_topology(name, n_nodes), placement=placement,
+                            verify="off")
+    direct, st_d = ex.run(inp, mode="direct")
+    sim, st = ex.run(inp, mode="sim")
+    ref_out, st_j = exj.run({k: jnp.asarray(v) for k, v in inp.items()}, mode="sim")
+    assert st_d.as_dict() == tcore.NoCStats().as_dict()
+    assert st.as_dict() == st_j.as_dict()
+    for k in ref_out:
+        assert sim[k].dtype == direct[k].dtype
+        assert torch.equal(sim[k], direct[k]), (name, k)
+        assert np.array_equal(sim[k].numpy(), np.asarray(ref_out[k])), (name, k)
+    B = 3
+    binp = {k: np.stack([v * (b + 1) for b in range(B)]) for k, v in inp.items()}
+    bouts, st_b = ex.run_batch(binp)
+    bdirect, _ = ex.run_batch(binp, mode="direct")
+    _, st_bj = exj.run_batch({k: jnp.asarray(v) for k, v in binp.items()})
+    assert st_b.as_dict() == st_bj.as_dict()
+    assert st_b.rounds == st.rounds and st_b.payload_bytes == B * st.payload_bytes
+    for b in range(B):
+        d = gt.run({k: torch.as_tensor(v[b]) for k, v in binp.items()})
+        for k in d:
+            assert torch.equal(bouts[k][b], d[k]) and torch.equal(bdirect[k][b], d[k])
+
+
+def test_run_iterative_matches_reference():
+    gt, inp = _diamond(tcore, torch)
+    gj, _ = _diamond(jcore, jnp)
+    feedback = [("join.out", "src.x")]
+    ex = tcore.NoCExecutor(gt, tcore.make_topology("torus", 4), device=CPU)
+    exj = jcore.NoCExecutor(gj, jcore.make_topology("torus", 4), verify="off")
+    out_d, _ = ex.run_iterative(inp, feedback, 4, mode="direct")
+    out_s, st = ex.run_iterative(inp, feedback, 4, mode="sim")
+    out_j, st_j = exj.run_iterative({"src.x": jnp.asarray(inp["src.x"])}, feedback, 4)
+    assert torch.equal(out_s["join.out"], out_d["join.out"])
+    assert np.array_equal(out_s["join.out"].numpy(), np.asarray(out_j["join.out"]))
+    assert st.as_dict() == st_j.as_dict() and st.waves == 4 * 3
+
+
+def test_contract_violation_is_rejected():
+    g = tcore.TaskGraph("bad")
+    g.add(tcore.PE("a", lambda x: {"y": x.to(torch.float64)}, (tcore.Port("x", (2,)),),
+                   (tcore.Port("y", (2,)),)))
+    g.add(tcore.PE("b", lambda y: {"z": y}, (tcore.Port("y", (2,)),), (tcore.Port("z", (2,)),)))
+    g.connect("a.y", "b.y")
+    ex = tcore.NoCExecutor(g, tcore.make_topology("ring", 2), device=CPU)
+    with pytest.raises(tcore.GraphError, match="violates contract"):
+        ex.run({"a.x": np.zeros(2, np.float32)})
+
+
+def test_port_torch_dtype():
+    assert tcore.Port("p", (2,), np.uint32).torch_dtype == torch.uint32
+    assert tcore.Port("p", (2,)).torch_dtype == torch.float32
+    with pytest.raises(TypeError):
+        tcore.torch_dtype(np.complex64)
+
+
+def test_nocstats_add_mixed_semantics():
+    a = tcore.NoCStats(rounds=10, switch_cycles=7, switch_max_queue=5,
+                       switch_peak_link_flits=4, bridge_peak_fifo=9)
+    b = tcore.NoCStats(rounds=5, switch_cycles=8, switch_max_queue=3,
+                       switch_peak_link_flits=11, bridge_peak_fifo=2)
+    a.add(b)
+    assert (a.rounds, a.switch_cycles) == (15, 15)                 # flows sum
+    assert (a.switch_max_queue, a.switch_peak_link_flits, a.bridge_peak_fifo) == (5, 11, 9)
+    assert len(a.as_dict()) == 17
+    assert set(a.as_dict()) == set(jcore.NoCStats().as_dict())
+
+
+def test_noc_config_matches_reference():
+    for width in (4, 12, 16):
+        t, j = tcore.NoCConfig(flit_data_width=width), jcore.NoCConfig(flit_data_width=width)
+        assert t.flit_wire_bytes == j.flit_wire_bytes
+        assert [t.flit_framed_bytes(b) for b in range(40)] == \
+            [j.flit_framed_bytes(b) for b in range(40)]
+    with pytest.raises(ValueError, match="NOC012"):
+        tcore.NoCConfig(switch_vcs=0)
+    assert tcore.NoCConfig().serdes is not tcore.NoCConfig().serdes
+
+
+# -- golden NoCStats --------------------------------------------------------------
+
+def test_golden_stats_ldpc_fano():
+    rng = np.random.default_rng(0)
+    llr = tldpc.awgn_llr(np.zeros(7, np.int8), 3.0, rng)
+    bits, _, st = tldpc.decode_on_noc(tldpc.fano_plane_H(), llr, 10, device=CPU)
+    _, _, st_j = jldpc.decode_on_noc(jldpc.fano_plane_H(), llr, 10)
+    assert not bits.any()
+    assert st.as_dict() == GOLDEN_LDPC_FANO == st_j.as_dict()
+    assert convert.stats_to_torch(st_j.as_dict()) == st
+
+
+def test_golden_stats_bmvm():
+    rng = np.random.default_rng(0)
+    cfg = tbmvm.BMVMConfig(n=64, k=8, fold=2)
+    A = rng.integers(0, 2, (64, 64)).astype(np.uint8)
+    v = rng.integers(0, 2, (64,)).astype(np.uint8)
+    lut = tbmvm.preprocess(A, cfg, device=CPU)
+    out, st = tbmvm.iterate_noc_sim(lut, v, cfg, 2, topology="mesh", device=CPU)
+    assert np.array_equal(out.reshape(1, -1), jbmvm.software_ref(A, v[None], 2))
+    assert st.as_dict() == GOLDEN_BMVM
+
+
+# -- what later slices port raises --------------------------------------------------
+
+def _graph_and_topo():
+    g, inp = _diamond(tcore, torch)
+    return g, tcore.make_topology("mesh", 4), inp
+
+
+@pytest.mark.parametrize("mode", ["sim_python", "spmd", "buffered"])
+def test_later_modes_raise(mode):
+    g, topo, inp = _graph_and_topo()
+    ex = tcore.NoCExecutor(g, topo, device=CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ex.run(inp, mode=mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ex.run_batch({k: v[None] for k, v in inp.items()}, mode=mode)
+
+
+def test_unknown_mode_is_an_error():
+    g, topo, inp = _graph_and_topo()
+    with pytest.raises(tcore.GraphError, match="unknown mode"):
+        tcore.NoCExecutor(g, topo, device=CPU).run(inp, mode="warp")
+
+
+@pytest.mark.parametrize("kwargs,err", [
+    (dict(verify="strict"), NotImplementedError), (dict(verify="warn"), NotImplementedError),
+    (dict(verify="maybe"), ValueError), (dict(plan=object()), NotImplementedError),
+    (dict(trace=True), NotImplementedError)])
+def test_later_executor_options_raise(kwargs, err):
+    g, topo, _ = _graph_and_topo()
+    with pytest.raises(err):
+        tcore.NoCExecutor(g, topo, device=CPU, **kwargs)
+
+
+def test_opt_placement_raises():
+    g, topo, _ = _graph_and_topo()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcore.resolve_placement(g, topo, "opt")
+
+
+@pytest.mark.parametrize("option", ["pods", "serdes_cfg", "tracer"])
+@pytest.mark.parametrize("app", ["bmvm", "ldpc", "pf"])
+def test_app_later_options_raise(option, app):
+    value = {"pods": [0] * 8 + [1] * 8, "serdes_cfg": tcore.QuasiSerdesConfig(),
+             "tracer": object()}[option]
+    if app == "bmvm":
+        cfg = tbmvm.BMVMConfig(n=16, k=4, fold=1)
+        lut = tbmvm.preprocess(np.eye(16, dtype=np.uint8), cfg, device=CPU)
+        call = lambda: tbmvm.iterate_noc_sim(lut, np.ones(16, np.uint8), cfg, 1, device=CPU,
+                                             **{option: value})
+    elif app == "ldpc":
+        call = lambda: tldpc.decode_on_noc(tldpc.fano_plane_H(), np.ones(7, np.float32), 1,
+                                           device=CPU, **{option: value})
+    else:
+        cfg = tpf.PFConfig(img=32, roi=8, n_particles=8)
+        call = lambda: tpf.track_on_noc(np.zeros((2, 32, 32), np.float32), cfg, device=CPU,
+                                        **{option: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call()
+
+
+def test_bmvm_iterate_spmd_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbmvm.iterate_spmd(None, None, tbmvm.BMVMConfig(), 1)
