@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's three case-study datapaths, on one GPU.
+"""Where the time goes on the port's main paths, on one GPU.
 
     python3 scripts/profile_main_path.py
 
 At the sizes ``chip_smoke.py`` drives (BMVM n=4096 r=4; LDPC 7168 bits × 512
-codewords × 10 iterations; particle filter 512² × 4096 particles × 16 frames)
-it times each datapath on the host clock (median of 5 warm runs, each ending in
-``torch.cuda.synchronize()``), then traces one more run with
+codewords × 10 iterations; particle filter 512² × 4096 particles × 16 frames;
+whisper-large-v3 FULL with ``attn_impl="flash"`` at batch 4 and prompt 32: one
+prefill, one decode step, and the prefill of the plain path,
+``attn_impl="naive"``) it times each path on the host clock (median of 5 warm
+runs, each ending in ``torch.cuda.synchronize()``), then traces one more run with
 ``torch.profiler`` and reports the device busy time (sum of the kernel, copy
-and memset activities on the card), the device idle share of the traced
-window, and the device activities that take the most time.  One JSON line per
-datapath.
+and memset activities on the card), their count, the device idle share of
+the traced window, and the device activities that take the most time.  One
+JSON line per path.
 """
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -34,6 +37,9 @@ def main():
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.apps import bmvm, ldpc
     from repro_torch.apps import particle_filter as pf
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -49,11 +55,33 @@ def main():
     pcfg = pf.PFConfig(img=512, roi=64, n_particles=4096, n_bins=16, seed=0)
     frames, _ = pf.synth_video(pcfg, 16, rng)
 
+    wcfg = get_config("whisper-large-v3").replace(attn_impl="flash")
+    wparams = T.cast_params(init_params(T.abstract_params(wcfg), g), wcfg.cdtype)
+    wbatch = {"tokens": torch.randint(0, wcfg.vocab, (4, 32), generator=g, device=dev),
+              "frames": torch.randn((4, wcfg.enc_seq, wcfg.d_frontend), generator=g,
+                                    device=dev).to(wcfg.cdtype)}
+
+    def whisper_prefill(cfg):
+        with torch.inference_mode():
+            return T.prefill(wparams, wbatch, cfg, T.init_cache(cfg, 4, 48, device=dev))
+
+    state = {"cache": whisper_prefill(wcfg)[1]}     # 32 cached tokens; 16 steps of room
+
+    def whisper_decode_step():
+        with torch.inference_mode():
+            _, state["cache"] = T.decode_step(wparams, {"tokens": wbatch["tokens"][:, :1]},
+                                              wcfg, state["cache"])
+
     paths = {
         "bmvm_iterate_kernel": lambda: bmvm.iterate_kernel(lut, V, bcfg, 4),
         "ldpc_decode_minsum": lambda: ldpc.decode_minsum(idx, llr, 10),
         "pf_track": lambda: pf.track(frames, pcfg),
+        "whisper_prefill": lambda: whisper_prefill(wcfg),
+        "whisper_decode_step": whisper_decode_step,
+        "whisper_prefill_plain": lambda: whisper_prefill(wcfg.replace(attn_impl="naive")),
     }
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip())
     print(torch.cuda.get_device_name(0), f"torch {torch.__version__}")
     # all host-clock timings first, so that no profiler session precedes a
     # timed run
@@ -87,6 +115,7 @@ def main():
             path=name, wall_ms_median=statistics.median(w) * 1e3,
             wall_ms_min=min(w) * 1e3, wall_ms_max=max(w) * 1e3, runs=len(w),
             traced_wall_ms=traced_s * 1e3, device_busy_ms=busy_us / 1e3,
+            device_activities=sum(len(v) for v in by_name.values()),
             device_idle_share=1 - busy_us / 1e6 / traced_s,
             top_device_activities=[dict(name=k[:80], device_ms=sum(v) / 1e3, calls=len(v))
                                    for k, v in top])))

@@ -1,8 +1,8 @@
 """Carry the reference's state across to the port, from numpy alone.
 
-The system runs no model, so the state is the BMVM LUT, the LDPC edge index,
-the particle filter's reference histogram and `NoCStats`.  Each ``*_to_torch``
-has a ``*_to_numpy`` inverse, and the pair round-trips exactly.
+The state is the BMVM LUT, the LDPC edge index, the particle filter's
+reference histogram, `NoCStats` and the LM stack's parameter tree.  Each
+``*_to_torch`` has a ``*_to_numpy`` inverse, and the pair round-trips exactly.
 """
 from __future__ import annotations
 
@@ -70,3 +70,26 @@ def stats_to_torch(d: Mapping[str, int]) -> NoCStats:
 
 def stats_to_numpy(stats: NoCStats) -> dict:
     return stats.as_dict()
+
+
+def model_params_to_torch(tree: Mapping, device="cuda") -> dict:
+    """The reference's model params (a nested dict of arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) → the port's dict of float tensors,
+    key for key and shape for shape (``blocks``/``enc_blocks`` keep their
+    leading stacked-layers axis)."""
+    dev = resolve_device(device)
+
+    def leaf(path, x):
+        if isinstance(x, Mapping):
+            return {k: leaf(f"{path}/{k}", v) for k, v in x.items()}
+        arr = np.asarray(x)
+        if arr.dtype.kind != "f":
+            raise TypeError(f"param {path} must be floating point, got {arr.dtype}")
+        return torch.as_tensor(np.array(arr), device=dev)
+    return leaf("", tree)
+
+
+def model_params_to_numpy(tree: Mapping) -> dict:
+    """Inverse of `model_params_to_torch`."""
+    return {k: model_params_to_numpy(v) if isinstance(v, Mapping) else v.cpu().numpy()
+            for k, v in tree.items()}

@@ -32,6 +32,7 @@ _SIGNATURES = {
     "gf2_bmvm_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "minsum_check_launch": [_P, _P, _I, _I, _P],
     "particle_histogram_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 INT_MAX = 2 ** 31 - 1
 

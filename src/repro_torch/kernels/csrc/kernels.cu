@@ -1,4 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels of the case-study datapaths.
+// Hand-written Hopper (sm_90a) kernels of the port: the three case-study
+// datapaths and the flash-attention forward of the LM stack.
 //
 // Built by repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -10,6 +11,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -169,6 +171,186 @@ __global__ void particle_histogram_kernel(const int32_t* __restrict__ bins,
   }
 }
 
+// ---------------------------------------------------------------------------
+// flash_attention — attention forward with an online softmax.
+//
+// Replaces: src/repro/kernels/flash_attention.py flash_attention_pallas (body
+// _kernel).  q (B, Hq, S, D), k/v (B, Hkv, T, D), all float or all bf16, D <=
+// 128 -> out (B, Hq, S, D) in the input type; float32 math throughout.  Query
+// head h reads kv head h / (Hq / Hkv) (GQA).  Scores are q.k * D^-0.5; causal
+// rows see keys t <= q + (T - S).  m, l and acc follow the Pallas kernel's
+// online softmax (m starts at -1e30, out = acc / max(l, 1e-30)), except that
+// a key a row does not see adds exactly nothing: a row that sees no key
+// (causal with S > T) returns zeros.
+//
+// Bound on H100: operations at whisper's shapes.  The encoder's self-attention
+// (B=4, H=20, S=T=1500, D=64) does 4*B*H*S*T*D = 46 GFLOP against 61 MB of
+// bf16 q, k, v and out: 0.047 ms at the 989 TFLOP/s bf16 tensor-core peak,
+// 0.018 ms at 3.35 TB/s.  This kernel runs on the float32 CUDA cores (67
+// TFLOP/s peak), so it cannot come near that bound; tensor cores (mma.sync or
+// wgmma on bf16 tiles) are the next step.
+// Design: one block of 128 threads per (b, h, tile of queries).  A query row
+// belongs to G = ceil(D / 32) neighbouring lanes, each holding 32 of its head
+// dims of q and of the output accumulator in registers; the partial dot
+// products meet by warp shuffles.  The block walks the keys in tiles of 32:
+// K and V rows are loaded coalesced, converted to float and staged in shared
+// memory, where every lane of a warp reads the same row (a broadcast, 16 bytes
+// per load; each lane's 32-dim slice is padded to 36 floats so the G slices
+// of one row fall in different banks).  Per tile, each row takes the new
+// running max over its visible keys, rescales l and acc once, and adds the
+// tile's p * V.  Ragged S and T are bounds checks: rows past S load and write
+// nothing, keys past T or past a causal row's limit get p = 0, and a causal
+// block stops after the last key any of its rows sees.
+// ---------------------------------------------------------------------------
+constexpr int kFlashThreads = 128;
+constexpr int kFlashSlice = 32;               // head dims one thread holds
+constexpr int kFlashPitch = kFlashSlice + 4;  // floats per slice in shared memory
+constexpr int kFlashKeys = 32;                // keys per K/V tile
+constexpr int kFlashMaxD = 128;
+constexpr float kFlashMask = -1e30f;
+
+__device__ __forceinline__ float load_float(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_float(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_float(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_float(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kFlashThreads)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out, int Hq,
+                       int group, int S, int Tk, int D, int causal, float scale) {
+  constexpr int kRows = kFlashThreads / G;  // query rows per block
+  constexpr int kTile = kFlashKeys * G * kFlashPitch;
+  __shared__ __align__(16) float ks[kTile];
+  __shared__ __align__(16) float vs[kTile];
+  const int g = threadIdx.x % G;
+  const int row0 = blockIdx.x * kRows;
+  const int row = row0 + threadIdx.x / G;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int64_t q_row = (static_cast<int64_t>(b) * Hq + h) * S + row;
+  const int64_t kv_base =
+      (static_cast<int64_t>(b) * (Hq / group) + h / group) * Tk * D;
+  const int d0 = g * kFlashSlice;
+  const bool live = row < S;
+
+  // Slice columns past D are zeroed here and never written again, so they
+  // add nothing to the dot products.
+  for (int i = threadIdx.x; i < kTile; i += kFlashThreads) {
+    ks[i] = 0.0f;
+    vs[i] = 0.0f;
+  }
+  float qr[kFlashSlice];
+  float acc[kFlashSlice];
+#pragma unroll
+  for (int d = 0; d < kFlashSlice; ++d) {
+    qr[d] = (live && d0 + d < D) ? load_float(q + q_row * D + d0 + d) : 0.0f;
+    acc[d] = 0.0f;
+  }
+  // last key this row sees, and the last key any row of the block sees
+  const int offset = Tk - S;
+  const int last = causal ? min(row + offset, Tk - 1) : Tk - 1;
+  const int block_last =
+      causal ? min(min(row0 + kRows, S) - 1 + offset, Tk - 1) : Tk - 1;
+  float m = kFlashMask;
+  float l = 0.0f;
+  for (int t0 = 0; t0 <= block_last; t0 += kFlashKeys) {
+    __syncthreads();  // the zero fill, or the previous tile, is done with
+    const int count = min(kFlashKeys, Tk - t0) * D;
+    const T* kt = k + kv_base + static_cast<int64_t>(t0) * D;
+    const T* vt = v + kv_base + static_cast<int64_t>(t0) * D;
+    for (int i = threadIdx.x; i < count; i += kFlashThreads) {
+      const int j = i / D;
+      const int d = i - j * D;
+      const int at = (j * G + d / kFlashSlice) * kFlashPitch + d % kFlashSlice;
+      ks[at] = load_float(kt + i);
+      vs[at] = load_float(vt + i);
+    }
+    __syncthreads();
+
+    float s[kFlashKeys];
+    float m_new = m;
+#pragma unroll
+    for (int j = 0; j < kFlashKeys; ++j) {
+      const float4* kr =
+          reinterpret_cast<const float4*>(ks + (j * G + g) * kFlashPitch);
+      float dot = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kFlashSlice / 4; ++c) {
+        const float4 kk = kr[c];
+        dot = fmaf(qr[4 * c], kk.x, dot);
+        dot = fmaf(qr[4 * c + 1], kk.y, dot);
+        dot = fmaf(qr[4 * c + 2], kk.z, dot);
+        dot = fmaf(qr[4 * c + 3], kk.w, dot);
+      }
+#pragma unroll
+      for (int lane = 1; lane < G; lane <<= 1) {
+        dot += __shfl_xor_sync(0xffffffffu, dot, lane);
+      }
+      s[j] = dot * scale;
+      if (t0 + j <= last) m_new = fmaxf(m_new, s[j]);
+    }
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int d = 0; d < kFlashSlice; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kFlashKeys; ++j) {
+      const float p = (t0 + j <= last) ? expf(s[j] - m_new) : 0.0f;
+      l += p;
+      const float4* vr =
+          reinterpret_cast<const float4*>(vs + (j * G + g) * kFlashPitch);
+#pragma unroll
+      for (int c = 0; c < kFlashSlice / 4; ++c) {
+        const float4 vv = vr[c];
+        acc[4 * c] = fmaf(p, vv.x, acc[4 * c]);
+        acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
+        acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
+        acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
+      }
+    }
+    m = m_new;
+  }
+  if (!live) return;
+  const float denom = fmaxf(l, 1e-30f);
+  T* o = out + q_row * D + d0;
+#pragma unroll
+  for (int d = 0; d < kFlashSlice; ++d) {
+    if (d0 + d < D) store_float(o + d, acc[d] / denom);
+  }
+}
+
+template <typename T, int G>
+int flash_attention_grid(const void* q, const void* k, const void* v, void* out,
+                         int B, int Hq, int Hkv, int S, int Tk, int D,
+                         int causal, cudaStream_t stream) {
+  constexpr int kRows = kFlashThreads / G;
+  const dim3 grid((S + kRows - 1) / kRows, Hq, B);
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  flash_attention_kernel<T, G><<<grid, kFlashThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hq / Hkv, S, Tk, D,
+      causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int flash_attention_dispatch(const void* q, const void* k, const void* v,
+                             void* out, int B, int Hq, int Hkv, int S, int Tk,
+                             int D, int causal, cudaStream_t stream) {
+  if (D <= kFlashSlice) {
+    return flash_attention_grid<T, 1>(q, k, v, out, B, Hq, Hkv, S, Tk, D, causal, stream);
+  }
+  if (D <= 2 * kFlashSlice) {
+    return flash_attention_grid<T, 2>(q, k, v, out, B, Hq, Hkv, S, Tk, D, causal, stream);
+  }
+  return flash_attention_grid<T, 4>(q, k, v, out, B, Hq, Hkv, S, Tk, D, causal, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -205,6 +387,24 @@ int particle_histogram_launch(const void* bins, const void* w, const void* ref,
       static_cast<const float*>(ref), static_cast<float*>(hist),
       static_cast<float*>(bc), px, n_bins);
   return static_cast<int>(cudaGetLastError());
+}
+
+int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
+                           int B, int Hq, int Hkv, int S, int T, int D,
+                           int causal, int dtype, void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1 || T < 1 || D < 1 ||
+      D > kFlashMaxD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return flash_attention_dispatch<float>(q, k, v, out, B, Hq, Hkv, S, T, D, causal, st);
+  }
+  if (dtype == 1) {
+    return flash_attention_dispatch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, S, T, D,
+                                                   causal, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

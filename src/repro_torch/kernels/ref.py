@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of every kernel of the slice (the ``ref.py`` contract).
+"""Plain PyTorch versions of every kernel of the port (the ``ref.py`` contract).
 
 Each function carries the name of its counterpart in ``repro.kernels.ref`` and
 is the semantic ground truth the CUDA kernels are held to.  They run on any
@@ -139,3 +139,27 @@ def particle_weights(bins: torch.Tensor, weights: torch.Tensor, ref_hist: torch.
     bc = bhattacharyya(hist, ref_hist)
     w = torch.exp((bc - 1.0) / (sigma * sigma))
     return w / w.sum().clamp_min(1e-12)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (forward) — LM-stack hot spot
+# ---------------------------------------------------------------------------
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+        scale: float | None = None) -> torch.Tensor:
+    """q: (B, Hq, S, D), k/v: (B, Hkv, T, D) with Hq % Hkv == 0 (GQA).  Float32
+    math; causal masks with -inf, so a row with no visible key (S > T) is NaN,
+    as in the reference."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    g = Hq // Hkv
+    qg = q.reshape(B, Hkv, g, S, D)
+    scale = scale if scale is not None else D ** -0.5
+    logits = torch.einsum("bhgsd,bhtd->bhgst", qg.float(), k.float()) * scale
+    if causal:
+        S_, T_ = logits.shape[-2], logits.shape[-1]
+        mask = torch.ones((S_, T_), dtype=torch.bool, device=q.device).tril(T_ - S_)
+        logits = logits.masked_fill(~mask, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgst,bhtd->bhgsd", p, v.float())
+    return out.reshape(B, Hq, S, D).to(q.dtype)

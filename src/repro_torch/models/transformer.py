@@ -1,0 +1,265 @@
+"""Config-driven model assembly (counterpart of ``repro/models/transformer.py``):
+a model is a (pattern × n_periods) stack of sub-layers.
+
+The reference scans over periods; the port runs a Python loop over them and
+indexes each stacked weight at the period, so params keep the reference's
+stacked layout (leading layers axis on ``blocks`` and ``enc_blocks``).  This
+slice ports the ``attn`` mixer, the ``mlp`` ffn, cross-attention and the
+audio encoder: the whisper (encdec) serve path.  Other mixers, the MoE ffn and
+the vlm prefix raise ``NotImplementedError`` naming the family they wait for.
+
+API:
+  abstract_params(cfg)                  -> ParamSpec tree
+  forward(params, batch, cfg, cache)    -> (logits, aux, new_cache, moe_stats)
+  init_cache(cfg, batch, max_len)       -> decode cache
+  prefill / decode_step                 -> serving entry points
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..configs.base import ModelConfig
+from .attention import AttnConfig, attention, attn_specs
+from .attention import init_cache as attn_init_cache
+from .layers import ParamSpec, mlp_apply, mlp_specs, rms_norm, stack_specs
+
+MASK_LOGIT = -1e30   # padded vocab classes (pad_vocab)
+
+# the reference family each unported sub-layer kind arrives with
+_WAITS_FOR = {"mla": "the MLA family (minicpm3-4b)", "mamba": "the hybrid family (jamba)",
+              "mlstm": "the xlstm family", "slstm": "the xlstm family",
+              "moe": "the moe family (qwen3-moe, phi3.5-moe)"}
+
+
+def _unported(kind: str):
+    return NotImplementedError(f"{kind!r} sub-layers are not ported yet; they arrive "
+                               f"with {_WAITS_FOR.get(kind, 'a later slice')}")
+
+
+def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
+    return AttnConfig(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                      qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+                      use_rope=cfg.use_rope and cfg.pos_embed == "rope",
+                      impl=cfg.attn_impl, bkv=cfg.bkv,
+                      logit_softcap=cfg.logit_softcap, seq_shard=cfg.seq_shard_kv,
+                      unroll=cfg.analysis_unroll,
+                      compute_dtype=cfg.attn_compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+
+def _sublayer_specs(cfg: ModelConfig, mixer: str, ffn: str, cross: bool, dtype) -> dict:
+    d = cfg.d_model
+    sp: dict = {"norm1": ParamSpec((d,), ("embed",), dtype, init="ones")}
+    if mixer != "attn":
+        raise _unported(mixer)
+    sp["attn"] = attn_specs(_attn_cfg(cfg), dtype)
+    if cross:
+        sp["norm_x"] = ParamSpec((d,), ("embed",), dtype, init="ones")
+        sp["cross"] = attn_specs(_attn_cfg(cfg), dtype)
+    if ffn == "mlp":
+        sp["norm2"] = ParamSpec((d,), ("embed",), dtype, init="ones")
+        sp["mlp"] = mlp_specs(d, cfg.d_ff, dtype, cfg.gated_mlp)
+    elif ffn == "moe":
+        raise _unported(ffn)
+    return sp
+
+
+def _period_specs(cfg: ModelConfig, cross: bool, dtype) -> dict:
+    return {str(i): _sublayer_specs(cfg, m, f, cross and m == "attn", dtype)
+            for i, (m, f) in enumerate(cfg.pattern)}
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    dtype = torch.float32  # master weights; compute casts per cfg.cdtype
+    d, V = cfg.d_model, cfg.vocab_padded
+    sp: dict = {
+        "embed": ParamSpec((V, d), ("vocab", "embed"), dtype, init="embed", scale=0.02),
+        "blocks": stack_specs(_period_specs(cfg, cfg.family == "encdec", dtype),
+                              cfg.n_periods),
+        "final_norm": ParamSpec((d,), ("embed",), dtype, init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        sp["lm_head"] = ParamSpec((d, V), ("embed", "vocab"), dtype, init="small")
+    if cfg.family == "encdec":
+        enc_pattern_cfg = cfg.replace(pattern=(("attn", "mlp"),), n_layers=cfg.n_enc_layers)
+        sp["enc_blocks"] = stack_specs(_period_specs(enc_pattern_cfg, False, dtype),
+                                       cfg.n_enc_layers)
+        sp["enc_norm"] = ParamSpec((d,), ("embed",), dtype, init="ones")
+        sp["frontend"] = ParamSpec((cfg.d_frontend, d), (None, "embed"), dtype)
+    if cfg.family == "vlm":
+        sp["frontend"] = ParamSpec((cfg.d_frontend, d), (None, "embed"), dtype)
+    return sp
+
+
+def cast_params(params, dtype: torch.dtype):
+    """The param tree in ``dtype``.  Every weight on the forward path is cast
+    to ``cfg.cdtype`` at use, so serving from a ``cdtype`` copy made once
+    gives the same values and skips the per-step casts."""
+    if isinstance(params, torch.Tensor):
+        return params.to(dtype)
+    return {k: cast_params(v, dtype) for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
+    """Per sub-layer of the pattern: K/V stacked over periods, (P, B, Hkv,
+    max_len, D) in ``cfg.cdtype``, and the shared write index."""
+    P = cfg.n_periods
+    blocks = {}
+    for i, (mixer, _) in enumerate(cfg.pattern):
+        if mixer != "attn":
+            raise _unported(mixer)
+        # one allocation for all periods: P·batch rows, viewed as (P, batch)
+        c = attn_init_cache(_attn_cfg(cfg), P * batch, max_len, cfg.cdtype, device)
+        blocks[str(i)] = {"k": c["k"].unflatten(0, (P, batch)),
+                          "v": c["v"].unflatten(0, (P, batch)), "idx": 0}
+    return {"blocks": blocks, "pos": 0}
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _norm(x, gamma, cfg: ModelConfig):
+    return rms_norm(x, gamma.to(x.dtype), cfg.norm_eps)
+
+
+def _apply_sublayer(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
+                    positions, cache, enc_out, causal):
+    if mixer != "attn":
+        raise _unported(mixer)
+    h = _norm(x, p["norm1"], cfg)
+    o, new_cache = attention(p["attn"], h, _attn_cfg(cfg), positions=positions,
+                             cache=cache, causal=causal)
+    x = x + o
+    if enc_out is not None and "cross" in p:
+        hx = _norm(x, p["norm_x"], cfg)
+        kv_k = torch.einsum("btd,dhk->bhtk", enc_out, p["cross"]["wk"].to(x.dtype))
+        kv_v = torch.einsum("btd,dhk->bhtk", enc_out, p["cross"]["wv"].to(x.dtype))
+        o, _ = attention(p["cross"], hx, _attn_cfg(cfg), positions=positions,
+                         kv_override=(kv_k, kv_v), causal=False)
+        x = x + o
+    if ffn == "mlp":
+        h = _norm(x, p["norm2"], cfg)
+        x = x + mlp_apply(p["mlp"], h, act="silu" if cfg.act == "silu" else "gelu")
+    elif ffn == "moe":
+        raise _unported(ffn)
+    return x, new_cache
+
+
+def _at_period(tree, i: int):
+    """The period-``i`` slice of a stacked param tree (views, no copies)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return {k: _at_period(v, i) for k, v in tree.items()}
+
+
+def _run_stack(blocks, x, cfg: ModelConfig, *, pattern, positions, cache_blocks,
+               enc_out, causal):
+    """Loop over periods; each sub-layer's cache is its period's slice of the
+    stacked K/V, written in place.  Returns (x, new cache blocks or None)."""
+    n_periods = blocks["0"]["norm1"].shape[0]
+    new_idx = {}
+    for period in range(n_periods):
+        pp = _at_period(blocks, period)
+        for i, (mixer, ffn) in enumerate(pattern):
+            sub_cache = None
+            if cache_blocks is not None:
+                cb = cache_blocks[str(i)]
+                sub_cache = {"k": cb["k"][period], "v": cb["v"][period], "idx": cb["idx"]}
+            x, nc = _apply_sublayer(pp[str(i)], x, cfg, mixer, ffn, positions=positions,
+                                    cache=sub_cache, enc_out=enc_out, causal=causal)
+            if nc is not None:
+                new_idx[str(i)] = nc["idx"]
+    if cache_blocks is None:
+        return x, None
+    return x, {i: {"k": cb["k"], "v": cb["v"], "idx": new_idx[i]}
+               for i, cb in cache_blocks.items()}
+
+
+def _embed_tokens(params, tokens, cfg: ModelConfig):
+    e = params["embed"].to(cfg.cdtype)[tokens]
+    return e * torch.tensor(cfg.embed_scale, dtype=cfg.cdtype, device=e.device)
+
+
+def _sinusoidal(positions, d, dtype):
+    half = d // 2
+    freqs = 10000.0 ** (-torch.arange(half, dtype=torch.float32, device=positions.device)
+                        / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
+def encode(params, frames, cfg: ModelConfig):
+    """Audio encoder: precomputed frame embeddings (stubbed conv frontend)
+    -> frontend proj -> sinusoidal pos -> bidirectional stack."""
+    x = frames.to(cfg.cdtype) @ params["frontend"].to(cfg.cdtype)
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = x + _sinusoidal(pos, cfg.d_model, x.dtype)
+    x, _ = _run_stack(params["enc_blocks"], x, cfg, pattern=(("attn", "mlp"),),
+                      positions=pos.expand(x.shape[:2]), cache_blocks=None,
+                      enc_out=None, causal=False)
+    return _norm(x, params["enc_norm"], cfg)
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig,
+            cache: Optional[dict] = None):
+    """-> (logits (B,S,V), aux_loss, new_cache, moe_stats); ``aux_loss`` and
+    ``moe_stats`` are zeros until the MoE ffn is ported."""
+    if cfg.family == "vlm":
+        raise NotImplementedError("the vlm patch prefix arrives with the vlm family")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    pos0 = cache["pos"] if cache is not None else 0
+    positions = pos0 + torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+
+    x = _embed_tokens(params, tokens, cfg)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(positions, cfg.d_model, x.dtype)
+
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = cache.get("enc_out") if cache is not None else None
+        if enc_out is None:
+            enc_out = encode(params, batch["frames"], cfg)
+
+    cache_blocks = cache["blocks"] if cache is not None else None
+    x, new_blocks = _run_stack(params["blocks"], x, cfg, pattern=cfg.pattern,
+                               positions=positions, cache_blocks=cache_blocks,
+                               enc_out=enc_out, causal=True)
+    x = _norm(x, params["final_norm"], cfg)
+    head = (params["embed"].to(x.dtype).T if cfg.tie_embeddings
+            else params["lm_head"].to(x.dtype))
+    logits = x @ head
+    if cfg.vocab_padded != cfg.vocab:
+        logits[..., cfg.vocab:] = MASK_LOGIT
+    new_cache = None
+    if cache is not None:
+        new_cache = {"blocks": new_blocks, "pos": pos0 + S}
+        if cfg.family == "encdec":
+            new_cache["enc_out"] = enc_out
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, zero, new_cache, {"moe_drops": 0, "moe_peak_occupancy": 0}
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig, cache: dict):
+    logits, _, cache, _ = forward(params, batch, cfg, cache)
+    return logits[:, -1:], cache
+
+
+def decode_step(params: dict, batch: dict, cfg: ModelConfig, cache: dict):
+    """batch["tokens"]: (B, 1) — one new token against the cache."""
+    logits, _, cache, _ = forward(params, batch, cfg, cache)
+    return logits[:, -1], cache

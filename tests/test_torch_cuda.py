@@ -4,7 +4,8 @@
 Run on a GPU host with ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  The file imports neither jax nor the reference
 package: it holds each kernel to its plain PyTorch version on the card, and the
-GPU paths of the apps to the same paths on the CPU."""
+GPU paths of the apps and of the whisper serve path to the same paths on the
+CPU."""
 import numpy as np
 import pytest
 
@@ -12,13 +13,23 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.apps import bmvm, ldpc  # noqa: E402
 from repro_torch.apps import particle_filter as pf  # noqa: E402
-from repro_torch.kernels import gf2_bmvm, histogram, minsum, ops, ref  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import flash_attention, gf2_bmvm, histogram, minsum, ops, ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 GF2_CASES = [(16, 4, 1), (32, 4, 3), (64, 8, 5), (128, 4, 2), (128, 8, 8), (1024, 8, 64)]
 MINSUM_SHAPES = [(1, 3), (7, 3), (64, 6), (200, 4), (1000, 8), (100003, 3), (513, 32)]
 HIST_CASES = [(1, 64, 8), (10, 300, 16), (33, 517, 12), (8, 1024, 32), (257, 4096, 16)]
+# the sweep of tests/test_kernels.py, ragged S/T at whisper's T, and head dims
+# of each thread-group width (D <= 32, <= 64, <= 128, and not a multiple of 32)
+FLASH_CASES = [(1, 4, 2, 64, 64, 32), (2, 2, 2, 37, 37, 16), (1, 8, 2, 16, 128, 32),
+               (1, 2, 1, 128, 256, 64), (2, 4, 4, 100, 100, 8), (1, 2, 2, 37, 1500, 64),
+               (2, 4, 2, 129, 65, 128), (1, 3, 1, 33, 70, 96)]
+WHISPER_FLASH = [(4, 20, 1500, 1500, 64), (4, 20, 32, 1500, 64)]
 
 
 @pytest.fixture
@@ -124,3 +135,124 @@ def test_apps_on_gpu_match_cpu(dev):
     est_c = pf.track(frames, pcfg, noise=noise, device="cpu")
     est_noc, _ = pf.track_on_noc(frames, pcfg, noise=noise, device=dev)
     assert np.abs(est_g - est_c).max() < 1e-3 and np.abs(est_noc - est_c).max() < 1e-3
+
+
+def _qkv(dev, seed, B, Hq, Hkv, S, T, D, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,D", FLASH_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(dev, B, Hq, Hkv, S, T, D, causal):
+    q, k, v = _qkv(dev, S + T, B, Hq, Hkv, S, T, D)
+    before = flash_attention.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal, True)
+    assert flash_attention.flash_attention.launches == before + 1
+    plain = flash_attention.flash_attention_plain(q, k, v, causal)
+    assert torch.allclose(out, plain, atol=3e-5, rtol=0)
+    seen = max(S - T, 0) if causal else 0      # the first rows of causal S > T see no key
+    assert torch.allclose(out[:, :, seen:], ref.mha(q, k, v, causal)[:, :, seen:], atol=3e-5,
+                          rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2, 32, 32, 16)] + [
+    (B, H, H, S, T, D) for B, H, S, T, D in WHISPER_FLASH])
+def test_flash_attention_kernel_bf16(dev, shape):
+    q, k, v = _qkv(dev, 1, *shape, dtype=torch.bfloat16)
+    causal = shape[3] == 32 and shape[4] == 32
+    out = ops.flash_attention(q, k, v, causal, True)
+    assert out.dtype == torch.bfloat16
+    plain = flash_attention.flash_attention_plain(q, k, v, causal)
+    assert torch.allclose(out.float(), plain.float(), atol=3e-2, rtol=0)
+
+
+def test_flash_attention_fully_masked_rows_pinned_to_zero(dev):
+    """Causal with S > T: rows that see no key are exactly zero; the others
+    match ref.mha (which is NaN on the blind rows)."""
+    S, T = 150, 40
+    q, k, v = _qkv(dev, 7, 2, 4, 2, S, T, 64)
+    out = ops.flash_attention(q, k, v, True, True)
+    assert torch.isfinite(out).all()
+    blind = S - T
+    assert torch.equal(out[:, :, :blind], torch.zeros_like(out[:, :, :blind]))
+    assert torch.allclose(out[:, :, blind:], ref.mha(q, k, v, True)[:, :, blind:], atol=3e-5,
+                          rtol=0)
+    assert torch.allclose(out, flash_attention.flash_attention_plain(q, k, v, True), atol=3e-5,
+                          rtol=0)
+
+
+def test_flash_attention_gradient_through_the_kernel(dev):
+    q, k, v = (t.requires_grad_() for t in _qkv(dev, 3, 1, 4, 2, 40, 70, 32))
+    ops.flash_attention(q, k, v, True, True).square().sum().backward()
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ref.mha(q2, k2, v2, True).square().sum().backward()
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        assert torch.isfinite(a.grad).all()
+        assert torch.allclose(a.grad, b.grad, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed_dtype", "head_dim", "heads", "kv_shape",
+                                  "contiguity", "rank", "devices"])
+def test_flash_attention_rejects_what_the_kernel_does_not_take(dev, case):
+    q, k, v = _qkv(dev, 0, 1, 4, 2, 8, 8, 16)
+    before = flash_attention.flash_attention.launches
+    with pytest.raises((TypeError, ValueError)):
+        if case == "dtype":
+            flash_attention.flash_attention(q.half(), k.half(), v.half())
+        elif case == "mixed_dtype":
+            flash_attention.flash_attention(q, k.bfloat16(), v)
+        elif case == "head_dim":
+            flash_attention.flash_attention(*_qkv(dev, 0, 1, 2, 2, 4, 4, 129))
+        elif case == "heads":
+            flash_attention.flash_attention(*_qkv(dev, 0, 1, 3, 2, 4, 4, 16))
+        elif case == "kv_shape":
+            flash_attention.flash_attention(q, k, v[:, :, :5])
+        elif case == "contiguity":
+            flash_attention.flash_attention(q.transpose(2, 3), k, v)
+        elif case == "rank":
+            flash_attention.flash_attention(q[0], k[0], v[0])
+        else:
+            flash_attention.flash_attention(q, k.cpu(), v)
+    assert flash_attention.flash_attention.launches == before
+    torch.cuda.synchronize()
+
+
+def _to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return {k: _to(v, device) for k, v in tree.items()}
+
+
+def test_whisper_serve_path_on_gpu_matches_cpu(dev):
+    """Whisper SMOKE with the flash impl: the kernel launches once per encoder
+    layer and once per decoder layer in a prefill and never in a decode step;
+    prefill and decode logits equal the CPU run's (plain versions) to 1e-3 of
+    their scale, and serve_batch gives the CPU's tokens."""
+    cfg = get_config("whisper-large-v3", smoke=True).replace(attn_impl="flash")
+    params = model_layers.init_params(T.abstract_params(cfg), torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 10))
+    frames = rng.normal(size=(2, cfg.enc_seq, cfg.d_frontend)).astype(np.float32)
+    logits = {}
+    for d in ("cpu", dev):
+        p = _to(params, d)
+        cache = T.init_cache(cfg, 2, 12, device=d)
+        ops.reset_launch_counts()
+        lg, cache = T.prefill(p, {"tokens": torch.as_tensor(toks, device=d),
+                                  "frames": torch.as_tensor(frames, device=d)}, cfg, cache)
+        n_prefill = ops.launch_counts()["flash_attention"]
+        lg2, cache = T.decode_step(p, {"tokens": torch.as_tensor(toks[:, :1], device=d)}, cfg,
+                                   cache)
+        assert ops.launch_counts()["flash_attention"] == n_prefill
+        expect = (cfg.n_enc_layers + cfg.n_layers) if d == dev else 0
+        assert n_prefill == expect
+        logits[str(d)] = (lg.cpu(), lg2.cpu())
+    (a, b), (c, e) = logits["cpu"], logits[str(dev)]
+    scale = max(a.abs().max().item(), 1.0)
+    assert (a - c).abs().max().item() < 1e-3 * scale and (b - e).abs().max().item() < 1e-3 * scale
+    prompts = toks[:, :6]
+    assert np.array_equal(serve.serve_batch(_to(params, dev), cfg, prompts, 4, device=dev),
+                          serve.serve_batch(params, cfg, prompts, 4, device="cpu"))
+

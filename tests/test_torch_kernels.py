@@ -1,8 +1,9 @@
 """The port's kernels against the reference: the plain versions (what a CPU
 tensor runs) held to the Pallas kernels in interpret mode and to the jnp
-oracles over the shape sweeps of tests/test_kernels.py; the wrappers' routing,
-checks and launch counters; and the CUDA build.  The kernels themselves run
-in tests/test_torch_cuda.py, on a GPU only."""
+oracles over the shape sweeps of tests/test_kernels.py; the flash-attention
+gradient; the wrappers' routing, checks and launch counters; and the CUDA
+build.  The kernels themselves run in tests/test_torch_cuda.py, on a GPU
+only."""
 import ast
 import pathlib
 
@@ -11,11 +12,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.kernels import _build, gf2_bmvm, histogram, minsum  # noqa: E402
+from repro_torch.kernels import _build, flash_attention, gf2_bmvm, histogram, minsum  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -23,6 +25,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 GF2_CASES = [(16, 4, 1), (32, 4, 3), (64, 8, 5), (128, 4, 2), (128, 8, 8)]
 MINSUM_SHAPES = [(1, 3), (7, 3), (64, 6), (200, 4), (1000, 8)]
 HIST_CASES = [(1, 64, 8), (10, 300, 16), (33, 517, 12), (8, 1024, 32)]
+FLASH_CASES = [(1, 4, 2, 64, 64, 32), (2, 2, 2, 37, 37, 16), (1, 8, 2, 16, 128, 32),
+               (1, 2, 1, 128, 256, 64), (2, 4, 4, 100, 100, 8)]
 
 
 # -- GF(2) BMVM ---------------------------------------------------------------
@@ -152,6 +156,71 @@ def test_particle_weights_matches_reference():
     assert np.allclose(t.numpy(), np.asarray(j), atol=1e-5)
 
 
+# -- flash attention -------------------------------------------------------------
+
+def _qkv(rng, B, Hq, Hkv, S, T, D, dtype=np.float32):
+    return tuple(rng.normal(size=shape).astype(dtype)
+                 for shape in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,D", FLASH_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_pallas_and_mha(B, Hq, Hkv, S, T, D, causal):
+    q, k, v = _qkv(np.random.default_rng(S + T), B, Hq, Hkv, S, T, D)
+    o_t = tops.flash_attention(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+                               causal, True).numpy()
+    o_pallas = np.asarray(jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                               causal, True))
+    o_mha = np.asarray(jref.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal))
+    assert np.abs(o_t - o_pallas).max() <= 3e-5
+    assert np.abs(o_t - o_mha).max() <= 3e-5
+    o_tmha = tref.mha(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), causal=causal)
+    assert np.abs(o_tmha.numpy() - o_mha).max() <= 3e-5
+
+
+def test_flash_attention_bf16_matches_pallas():
+    rng = np.random.default_rng(1)
+    q, k, v = _qkv(rng, 1, 2, 2, 32, 32, 16)
+    to_t = [torch.as_tensor(x).bfloat16() for x in (q, k, v)]
+    to_j = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    o_t = tops.flash_attention(*to_t, True, True)
+    assert o_t.dtype == torch.bfloat16
+    o_j = np.asarray(jops.flash_attention(*to_j, True, True), np.float32)
+    assert np.abs(o_t.float().numpy() - o_j).max() <= 3e-2
+
+
+def test_flash_attention_gradient_is_finite_and_matches_reference():
+    """The backward recomputes through mha, as the reference's custom_vjp."""
+    q, k, v = _qkv(np.random.default_rng(2), 1, 4, 2, 16, 24, 8)
+    w = np.random.default_rng(3).normal(size=q.shape).astype(np.float32)
+    ts = [torch.as_tensor(x).requires_grad_() for x in (q, k, v)]
+    (tops.flash_attention(*ts, True, True) * torch.as_tensor(w)).sum().backward()
+    grads_j = jax.grad(lambda a, b, c: jnp.sum(jops.flash_attention(a, b, c, True, True) * w),
+                       argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for t, gj in zip(ts, grads_j):
+        assert torch.isfinite(t.grad).all()
+        assert np.abs(t.grad.numpy() - np.asarray(gj)).max() <= 1e-4
+
+
+def test_flash_attention_fully_masked_rows_are_zero():
+    """Causal with S > T: rows 0..S-T-1 see no key.  The port pins them to
+    zeros (ref.mha gives NaN there, the Pallas kernel a padding-dependent
+    value); every row that sees a key matches both references."""
+    q, k, v = _qkv(np.random.default_rng(4), 1, 2, 1, 6, 2, 8)
+    o_t = tops.flash_attention(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+                               True, True).numpy()
+    o_mha = np.asarray(jref.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True))
+    o_pallas = np.asarray(jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                               True, True))
+    blind = 6 - 2
+    assert np.isnan(o_mha[:, :, :blind]).all()
+    assert np.array_equal(o_t[:, :, :blind], np.zeros_like(o_t[:, :, :blind]))
+    assert np.abs(o_t[:, :, blind:] - o_mha[:, :, blind:]).max() <= 3e-5
+    assert np.abs(o_t[:, :, blind:] - o_pallas[:, :, blind:]).max() <= 3e-5
+    o_tmha = tref.mha(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), causal=True)
+    assert torch.isnan(o_tmha[:, :, :blind]).all()
+
+
 # -- wrappers: routing, checks, counters ----------------------------------------
 
 def _sample_args():
@@ -162,37 +231,43 @@ def _sample_args():
     bins = torch.as_tensor(rng.integers(0, 8, (4, 50)).astype(np.int32))
     w = torch.ones(50)
     rh = torch.full((8,), 1 / 8)
-    return lut, vw, u, bins, w, rh
+    q, k, v = (torch.as_tensor(x) for x in _qkv(rng, 1, 2, 1, 5, 7, 8))
+    return lut, vw, u, bins, w, rh, q, k, v
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    lut, vw, u, bins, w, rh = _sample_args()
+    lut, vw, u, bins, w, rh, q, k, v = _sample_args()
     tops.reset_launch_counts()
     assert torch.equal(tops.gf2_bmvm(lut, vw), gf2_bmvm.gf2_bmvm_plain(lut, vw))
     assert torch.equal(tops.minsum_check(u), minsum.minsum_check_plain(u))
     h, bc = tops.particle_histogram(bins, w, rh)
     hp, bcp = histogram.particle_histogram_plain(bins, w, rh, 8)
     assert torch.equal(h, hp) and torch.equal(bc, bcp)
+    assert torch.equal(tops.flash_attention(q, k, v, True, True),
+                       flash_attention.flash_attention_plain(q, k, v, True))
     assert tops.launch_counts() == {"gf2_bmvm": 0, "minsum_check": 0,
-                                    "particle_histogram": 0}
+                                    "particle_histogram": 0, "flash_attention": 0}
 
 
 def test_use_kernel_false_selects_the_plain_version():
-    lut, vw, u, bins, w, rh = _sample_args()
+    lut, vw, u, bins, w, rh, q, k, v = _sample_args()
     assert torch.equal(tops.gf2_bmvm(lut, vw, use_kernel=False), tref.gf2_bmvm(lut, vw))
     assert torch.equal(tops.minsum_check(u, use_kernel=False), tref.minsum_check(u))
     h, _ = tops.particle_histogram(bins, w, rh, use_kernel=False)
     assert torch.equal(h, tref.weighted_histogram(bins, w, 8))
+    assert torch.equal(tops.flash_attention(q, k, v), tref.mha(q, k, v))
 
 
-@pytest.mark.parametrize("call", ["gf2_bmvm", "minsum_check", "particle_histogram"])
+@pytest.mark.parametrize("call", ["gf2_bmvm", "minsum_check", "particle_histogram",
+                                  "flash_attention"])
 def test_wrappers_do_not_fall_back_off_the_cpu(call):
     """A tensor that is neither on the CPU nor on a GPU is refused, never
     quietly computed with the plain version."""
-    lut, vw, u, bins, w, rh = (t.to("meta") for t in _sample_args())
+    lut, vw, u, bins, w, rh, q, k, v = (t.to("meta") for t in _sample_args())
     fn = {"gf2_bmvm": lambda: gf2_bmvm.gf2_bmvm(lut, vw),
           "minsum_check": lambda: minsum.minsum_check(u),
-          "particle_histogram": lambda: histogram.particle_histogram(bins, w, rh, 8)}[call]
+          "particle_histogram": lambda: histogram.particle_histogram(bins, w, rh, 8),
+          "flash_attention": lambda: flash_attention.flash_attention(q, k, v)}[call]
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn()
 
