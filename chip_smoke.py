@@ -6,10 +6,13 @@
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc``, then runs five phases and raises on any failure:
 
-1. environment — the card, its power limit, torch/CUDA versions, build time;
+1. environment — the card, its power limit, torch/CUDA versions, build time,
+                 ptxas's registers, spills and shared memory of each kernel;
 2. kernels     — each kernel against its plain PyTorch version on the card, at
-                 the shape sweeps of tests/test_kernels.py and at the shapes
-                 the main path gives it, timed with CUDA events;
+                 the shape sweeps of tests/test_kernels.py, the bf16 grid of
+                 tests/test_torch_cuda.py for the tensor-core flash kernel,
+                 and the shapes the main path gives it, timed with CUDA
+                 events (the flash combine kernel alone too);
 3. case studies at full size through the apps' entry points — BMVM n=4096,
    LDPC 7168-bit code × 512 codewords, particle filter 512² video × 4096
    particles — with the kernels' launch counters reset just before and read
@@ -20,7 +23,8 @@ with ``nvcc``, then runs five phases and raises on any failure:
    51866, 1500 encoder frames) with ``attn_impl="flash"``, random weights from
    a seed: 16 requests served at batch 4 (prompt 32, 16 generated tokens)
    through ``launch.serve.serve_batch`` with the launch counters reset just
-   before and read just after; then every flash call of a prefill held to the
+   before and read just after (64 flash calls and 32 combines per prefill,
+   none per decode step); then every flash call of a prefill held to the
    plain version on its own inputs, the end-to-end gap to the plain path
    (``attn_impl="naive"``) printed, and the SMOKE config held to the CPU.
 
@@ -30,6 +34,7 @@ no result when no CUDA device is present or the port is not beside it.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -76,7 +81,10 @@ def hbm_rate(name):
 
 def timed(torch, fn, reps=25, warmup=3, flush=None):
     """Median milliseconds of ``fn`` over ``reps`` launches, each bracketed by
-    CUDA events, with the L2 cache overwritten before each (cold inputs)."""
+    CUDA events, with the L2 cache overwritten before each (cold inputs).
+    A spin of about 1 ms on the card precedes each start event, so the host
+    has queued all of ``fn``'s launches before the card reaches it: the
+    events time the device's work, not the host's Python around it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -84,6 +92,7 @@ def timed(torch, fn, reps=25, warmup=3, flush=None):
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -92,6 +101,26 @@ def timed(torch, fn, reps=25, warmup=3, flush=None):
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def ptxas_report(log):
+    """Kernel (with its template arguments) -> ptxas's registers, spills and
+    static shared memory, from ``nvcc -Xptxas -v`` output."""
+    names = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "float"}
+    report, current = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '.*?((?:gf2_bmvm|minsum_check|particle_"
+                          r"histogram|flash_attention_(?:f32|tc|combine))_kernel)(I.*?E)?E", line)
+        if found:
+            args = re.findall(r"Li(\d+)E|(13__nv_bfloat16|6__half|f)(?=E|L)",
+                              found.group(2) or "")
+            targs = ", ".join(n or names[t] for n, t in args)
+            current = found.group(1) + (f"<{targs}>" if targs else "")
+            report[current] = ""
+        elif current and ("spill" in line or "Used" in line):
+            report[current] = (report[current] + "; " + line.split(":", 1)[-1].strip()
+                               ).strip("; ")
+    return report
 
 
 def wall(torch, fn):
@@ -131,9 +160,12 @@ def main():
     hbm = hbm_rate(name)
     lib = _build.library()
     print(f"kernels built in {lib.build_seconds:.2f} s -> {os.path.relpath(lib.path, HERE)}")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for kname, info in ptxas_report(lib.log).items():
+        dyn = ""
+        if kname.startswith("flash_attention_tc_kernel"):
+            dp = int(kname.rstrip(">").split(", ")[-1])
+            dyn = f", {lib.cdll.flash_attention_tc_smem_bytes(dp)} bytes dynamic shared memory"
+        print(f"  ptxas: {kname}: {info}{dyn}")
 
     # -- inputs of the main path, made from seeds --------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -250,22 +282,64 @@ def main():
             check(err <= 3e-5, f"flash_attention differs by {err} at {shape} causal={causal}")
     err = flash_err(*qkv(1, 2, 2, 32, 32, 16, torch.bfloat16), True)
     check(err <= 3e-2, f"flash_attention bf16 differs by {err}")
-    print("flash_attention sweep of tests/test_kernels.py (f32, atol 3e-5) and bf16 case "
-          "(atol 3e-2): the kernel agrees with its plain version")
+    print("flash_attention sweep of tests/test_kernels.py (f32 CUDA-core kernel, atol 3e-5) "
+          "and bf16 case (atol 3e-2): the kernels agree with their plain version")
+    # the tensor-core kernel over the grid of tests/test_torch_cuda.py: head
+    # dims of both widths and two that take the wrapper's padding, lengths from
+    # 1 to 1500, GQA (4 query heads on 2), both masks; blind rows exactly zero
+    worst, n_cases = 0.0, 0
+    for D_ in (16, 40, 64, 100, 128):
+        for S_ in (1, 37, 64, 1500):
+            for T_ in (1, 37, 64, 1500):
+                q, k, v = qkv(1, 4, 2, S_, T_, D_, torch.bfloat16)
+                for causal in (True, False):
+                    out = ops.flash_attention(q, k, v, causal, True)
+                    plain = flash_attention.flash_attention_plain(q, k, v, causal)
+                    err = (out.float() - plain.float()).abs().max().item()
+                    blind = max(S_ - T_, 0) if causal else 0
+                    check(err <= 3e-2 and not out[:, :, :blind].any(),
+                          f"flash_attention bf16 differs by {err} at D={D_} S={S_} T={T_} "
+                          f"causal={causal} (or a blind row is not zero)")
+                    worst, n_cases = max(worst, err), n_cases + 1
+    q, k, v = qkv(2, 8, 2, 150, 300, 64, torch.float16)
+    err16 = max(flash_err(q, k, v, c) for c in (True, False))
+    check(err16 <= 3e-2, f"flash_attention fp16 differs by {err16}")
+    print(f"flash_attention bf16 grid ({n_cases} cases, D in 16/40/64/100/128, S and T in "
+          f"1/37/64/1500, GQA 4:2, both masks): worst max_abs_err {worst:.3e} (atol 3e-2), "
+          f"blind rows exactly zero; fp16 (2, 8:2, 150, 300, 64): {err16:.3e}")
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
     flash_rows = []
     for B_, H_, S_, T_ in [(4, 20, 1500, 1500), (4, 20, 32, 1500)]:
         q, k, v = qkv(B_, H_, H_, S_, T_, 64, torch.bfloat16)
         shape = (B_, H_, S_, T_, 64)
+        n_split = flash_attention.num_splits(B_, H_, S_, T_, sm)
+        print(f"flash_attention {shape} bf16: n_split {n_split} on {sm} SMs")
         row = measure(f"flash_attention {shape} bf16", flash_err(q, k, v, False), 3e-2,
                       lambda: ops.flash_attention(q, k, v, False, True),
                       lambda: flash_attention.flash_attention_plain(q, k, v, False),
                       2 * (q.numel() + k.numel()) * 2,     # q, out, k, v in bf16
                       4 * B_ * H_ * S_ * T_ * 64, BF16_OPS_PER_S,
                       lambda: F.scaled_dot_product_attention(q, k, v))
-        flash_rows.append(dict(row, shape=list(shape), dtype="bfloat16", causal=False))
+        flash_rows.append(dict(row, shape=list(shape), dtype="bfloat16", causal=False,
+                               n_split=n_split))
+    # the combine kernel alone, on the cross shape's partials (bf16 out, as on
+    # the main path); checked in float32 against its plain version
+    m, l, acc = flash_attention.flash_attention_partials(q, k, v, False, n_split)
+    got = flash_attention.flash_attention_combine(m, l, acc, torch.float32)
+    err = (got - flash_attention.flash_attention_combine_plain(m, l, acc)).abs().max().item()
+    combine = dict(name="flash_attention_combine", route="cuda", source=SOURCE,
+                   replaces="src/repro/kernels/flash_attention.py:64", launches=None,
+                   **measure(f"flash_attention_combine n_split={n_split} {tuple(acc.shape)}",
+                             err, 1e-6,
+                             lambda: flash_attention.flash_attention_combine(
+                                 m, l, acc, torch.bfloat16),
+                             lambda: flash_attention.flash_attention_combine_plain(
+                                 m, l, acc).bfloat16(),
+                             (m.numel() + l.numel() + acc.numel()) * 4 + got.numel() * 2,
+                             (3 * m.numel() + 2 * acc.numel()), FP32_OPS_PER_S))
     kernels.append(dict(name="flash_attention", route="cuda", source=SOURCE,
                         replaces="src/repro/kernels/flash_attention.py:68", launches=None,
-                        **flash_rows[0], other_shapes=flash_rows[1:]))
+                        **flash_rows[0], other_shapes=flash_rows[1:], combine=combine))
     del flush
 
     # -- phase 3: the case studies at full size, counted --------------------------
@@ -350,6 +424,7 @@ def main():
     for kern in kernels:
         if kern["name"] == "flash_attention":
             kern["launches"] = serve_stats["launches"]
+            kern["combine"]["launches"] = serve_stats["combine_launches"]
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -418,8 +493,14 @@ def whisper_phase(torch, dev):
     print(f"served {requests} requests x {gen_len} tokens at batch {batch} in {serve_s:.3f} s "
           f"({requests * gen_len / serve_s:.1f} tokens/s), peak memory {peak / 2**30:.2f} GiB")
     print(f"kernel launches on the serve path: {counts}")
+    combines = flash_attention.flash_attention.combine_launches
+    print(f"flash_attention_combine launches: {combines} ({combines // (requests // batch)} per "
+          f"prefill)")
     check(counts["flash_attention"] == expect,
           f"flash_attention launched {counts['flash_attention']} times, expected {expect}")
+    check(combines == requests // batch * cfg.n_layers,
+          f"flash_attention_combine launched {combines} times, expected "
+          f"{requests // batch * cfg.n_layers} (one per cross-attention call)")
     check(tokens.shape == (requests, gen_len) and tokens.min() >= 0
           and tokens.max() < cfg.vocab, f"tokens {tokens.shape} out of range")
 
@@ -486,7 +567,8 @@ def whisper_phase(torch, dev):
     print(f"prefill {pre_k * 1e3:.3f} ms (plain path {pre_p * 1e3:.3f} ms); decode "
           f"{statistics.median(dec_k) * 1e3:.3f} ms/token median of {len(dec_k)} "
           f"(plain path {statistics.median(dec_p) * 1e3:.3f})")
-    return dict(launches=counts["flash_attention"], serve_s=serve_s, peak_bytes=peak,
+    return dict(launches=counts["flash_attention"], combine_launches=combines,
+                serve_s=serve_s, peak_bytes=peak,
                 prefill_ms=pre_k * 1e3, decode_ms=statistics.median(dec_k) * 1e3)
 
 

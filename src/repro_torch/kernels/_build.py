@@ -27,12 +27,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points of kernels.cu: name -> argtypes (the stream comes last)
+# C entry points of kernels.cu: name -> argtypes (a launch's stream comes last)
 _SIGNATURES = {
     "gf2_bmvm_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "minsum_check_launch": [_P, _P, _I, _I, _P],
     "particle_histogram_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "flash_attention_f32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "flash_attention_tc_launch": [_P] * 7 + [_I] * 10 + [_P],
+    "flash_attention_combine_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flash_attention_tc_smem_bytes": [_I],
 }
 INT_MAX = 2 ** 31 - 1
 
@@ -42,7 +45,8 @@ class Library:
     cdll: ctypes.CDLL
     path: Path
     build_seconds: float   # 0.0 when an earlier build of the same source was loaded
-    log: str               # nvcc's output (ptxas register/shared-memory report)
+    log: str               # nvcc's output (ptxas register/shared-memory report), kept
+                           # beside the library so a later load reads it too
 
 
 def nvcc() -> str:
@@ -81,7 +85,10 @@ def library() -> Library:
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        path.with_suffix(".log").write_text(log)
         os.replace(tmp, path)
+    elif path.with_suffix(".log").exists():
+        log = path.with_suffix(".log").read_text()
     cdll = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(cdll, name)

@@ -7,12 +7,15 @@
 // *_launch function launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() so the Python wrapper can
 // raise on a refused launch.  The wrappers check device, dtype, shape and
-// contiguity before calling in.
+// contiguity, and allocate outputs and scratch, before calling in.
 
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -172,57 +175,78 @@ __global__ void particle_histogram_kernel(const int32_t* __restrict__ bins,
 }
 
 // ---------------------------------------------------------------------------
-// flash_attention — attention forward with an online softmax.
+// flash_attention — attention forward with an online softmax, in two kernels
+// and a combine pass.
 //
 // Replaces: src/repro/kernels/flash_attention.py flash_attention_pallas (body
-// _kernel).  q (B, Hq, S, D), k/v (B, Hkv, T, D), all float or all bf16, D <=
-// 128 -> out (B, Hq, S, D) in the input type; float32 math throughout.  Query
-// head h reads kv head h / (Hq / Hkv) (GQA).  Scores are q.k * D^-0.5; causal
-// rows see keys t <= q + (T - S).  m, l and acc follow the Pallas kernel's
-// online softmax (m starts at -1e30, out = acc / max(l, 1e-30)), except that
-// a key a row does not see adds exactly nothing: a row that sees no key
-// (causal with S > T) returns zeros.
+// _kernel).  q (B, Hq, S, D), k/v (B, Hkv, T, D), D <= 128 -> out (B, Hq, S,
+// D) in q's type.  Query head h reads kv head h / (Hq / Hkv) (GQA).  Scores
+// are q.k * D^-0.5; causal rows see keys t <= q + (T - S).  m, l and acc
+// follow the Pallas kernel's online softmax (m starts at -1e30, out = acc /
+// max(l, 1e-30)), except that a key a row does not see adds exactly nothing:
+// it gets p = 0, not exp(-1e30 - m), so a row that sees no key (causal with
+// S > T) returns zeros.
 //
-// Bound on H100: operations at whisper's shapes.  The encoder's self-attention
+// float32 inputs: flash_attention_f32_kernel, float32 CUDA cores, float32
+// products as in the reference (the tests' 3e-5 tolerance needs them; TF32
+// would not hold it).
+// bf16 and fp16 inputs: flash_attention_tc_kernel, on the tensor cores.
+//
+// Bound on H100: operations at whisper's encoder shape.  Its self-attention
 // (B=4, H=20, S=T=1500, D=64) does 4*B*H*S*T*D = 46 GFLOP against 61 MB of
 // bf16 q, k, v and out: 0.047 ms at the 989 TFLOP/s bf16 tensor-core peak,
-// 0.018 ms at 3.35 TB/s.  This kernel runs on the float32 CUDA cores (67
-// TFLOP/s peak), so it cannot come near that bound; tensor cores (mma.sync or
-// wgmma on bf16 tiles) are the next step.
-// Design: one block of 128 threads per (b, h, tile of queries).  A query row
-// belongs to G = ceil(D / 32) neighbouring lanes, each holding 32 of its head
-// dims of q and of the output accumulator in registers; the partial dot
-// products meet by warp shuffles.  The block walks the keys in tiles of 32:
-// K and V rows are loaded coalesced, converted to float and staged in shared
-// memory, where every lane of a warp reads the same row (a broadcast, 16 bytes
-// per load; each lane's 32-dim slice is padded to 36 floats so the G slices
-// of one row fall in different banks).  Per tile, each row takes the new
-// running max over its visible keys, rescales l and acc once, and adds the
-// tile's p * V.  Ragged S and T are bounds checks: rows past S load and write
-// nothing, keys past T or past a causal row's limit get p = 0, and a causal
-// block stops after the last key any of its rows sees.
+// 0.018 ms at 3.35 TB/s.  The decoder's cross-attention at prompt 32 (S=32,
+// T=1500) is bound by bytes: 31 MB of k and v, 0.0094 ms, against 0.98 GFLOP.
+//
+// What the tensor-core design does about the three limits of the CUDA-core
+// kernel it replaced (2.2188 and 0.3668 ms on these inputs, H100 SXM, 700 W):
+// 1. Arithmetic ran on the float32 CUDA cores (67 TFLOP/s peak).  Both
+//    products are now wgmma.mma_async (m64nNk16, f32 accumulators in
+//    registers) from bf16/fp16 operands.  Q.K^T takes Q and K from shared
+//    memory; P.V takes P from registers, rounded to the input type (its one
+//    new rounding, at most 2^-9 relative per p.v term in bf16), and V from
+//    shared memory in its natural (T, D) layout with B's transpose bit.  The
+//    softmax runs on the accumulator fragments: exp2 on the special-function
+//    unit, and the per-key mask only on tiles that cross T or a causal limit.
+// 2. K and V were converted one element at a time and staged behind a
+//    __syncthreads().  Now the Q tile is loaded once and K/V tiles of 64 keys
+//    stream through a ring of 4 stages (3 at DP = 128) in shared memory by TMA
+//    (cp.async.bulk.tensor, 128-byte swizzle matching the wgmma descriptors,
+//    completion on an mbarrier per stage), up to 4 tiles ahead of the one
+//    being computed.  TMA zero-fills reads past S, T and D.
+// 3. A block held one (b, h, query tile), so the cross-attention's 80 blocks
+//    left 52 of the 132 SMs idle.  A block now owns 128 query rows (two
+//    warpgroups of 64); when B * Hq * ceil(S / 128) blocks leave a wave of
+//    two blocks per SM unfilled, the wrapper splits the key tiles into
+//    n_split contiguous ranges (num_splits in flash_attention.py): each block
+//    writes its range's f32 (m, l, acc), and flash_attention_combine_kernel
+//    merges them in a fixed order, without atomics.  The cross-attention
+//    goes from 80 blocks to 240.
 // ---------------------------------------------------------------------------
+constexpr float kFlashMask = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// -- float32: CUDA cores ------------------------------------------------------
+// One block of 128 threads per (b, h, tile of queries).  A query row belongs
+// to G = ceil(D / 32) neighbouring lanes, each holding 32 of its head dims of
+// q and of the output accumulator in registers; the partial dot products meet
+// by warp shuffles.  K and V tiles of 32 keys are staged in shared memory,
+// where every lane of a warp reads the same row (a broadcast; each lane's
+// 32-dim slice is padded to 36 floats so the G slices of one row fall in
+// different banks).  Rows past S load and write nothing, keys past T or past
+// a causal row's limit get p = 0, and a causal block stops after the last key
+// any of its rows sees.
 constexpr int kFlashThreads = 128;
 constexpr int kFlashSlice = 32;               // head dims one thread holds
 constexpr int kFlashPitch = kFlashSlice + 4;  // floats per slice in shared memory
 constexpr int kFlashKeys = 32;                // keys per K/V tile
 constexpr int kFlashMaxD = 128;
-constexpr float kFlashMask = -1e30f;
 
-__device__ __forceinline__ float load_float(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_float(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_float(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_float(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename T, int G>
+template <int G>
 __global__ void __launch_bounds__(kFlashThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Hq,
-                       int group, int S, int Tk, int D, int causal, float scale) {
+flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ out, int Hq,
+                           int group, int S, int Tk, int D, int causal, float scale) {
   constexpr int kRows = kFlashThreads / G;  // query rows per block
   constexpr int kTile = kFlashKeys * G * kFlashPitch;
   __shared__ __align__(16) float ks[kTile];
@@ -248,7 +272,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[kFlashSlice];
 #pragma unroll
   for (int d = 0; d < kFlashSlice; ++d) {
-    qr[d] = (live && d0 + d < D) ? load_float(q + q_row * D + d0 + d) : 0.0f;
+    qr[d] = (live && d0 + d < D) ? __ldg(q + q_row * D + d0 + d) : 0.0f;
     acc[d] = 0.0f;
   }
   // last key this row sees, and the last key any row of the block sees
@@ -261,14 +285,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t0 = 0; t0 <= block_last; t0 += kFlashKeys) {
     __syncthreads();  // the zero fill, or the previous tile, is done with
     const int count = min(kFlashKeys, Tk - t0) * D;
-    const T* kt = k + kv_base + static_cast<int64_t>(t0) * D;
-    const T* vt = v + kv_base + static_cast<int64_t>(t0) * D;
+    const float* kt = k + kv_base + static_cast<int64_t>(t0) * D;
+    const float* vt = v + kv_base + static_cast<int64_t>(t0) * D;
     for (int i = threadIdx.x; i < count; i += kFlashThreads) {
       const int j = i / D;
       const int d = i - j * D;
       const int at = (j * G + d / kFlashSlice) * kFlashPitch + d % kFlashSlice;
-      ks[at] = load_float(kt + i);
-      vs[at] = load_float(vt + i);
+      ks[at] = __ldg(kt + i);
+      vs[at] = __ldg(vt + i);
     }
     __syncthreads();
 
@@ -317,38 +341,676 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (!live) return;
   const float denom = fmaxf(l, 1e-30f);
-  T* o = out + q_row * D + d0;
+  float* o = out + q_row * D + d0;
 #pragma unroll
   for (int d = 0; d < kFlashSlice; ++d) {
-    if (d0 + d < D) store_float(o + d, acc[d] / denom);
+    if (d0 + d < D) o[d] = acc[d] / denom;
   }
 }
 
-template <typename T, int G>
-int flash_attention_grid(const void* q, const void* k, const void* v, void* out,
-                         int B, int Hq, int Hkv, int S, int Tk, int D,
-                         int causal, cudaStream_t stream) {
+template <int G>
+int flash_attention_f32_grid(const void* q, const void* k, const void* v, void* out,
+                             int B, int Hq, int Hkv, int S, int Tk, int D,
+                             int causal, cudaStream_t stream) {
   constexpr int kRows = kFlashThreads / G;
   const dim3 grid((S + kRows - 1) / kRows, Hq, B);
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  flash_attention_kernel<T, G><<<grid, kFlashThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hq / Hkv, S, Tk, D,
-      causal, scale);
+  flash_attention_f32_kernel<G><<<grid, kFlashThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hq / Hkv, S, Tk,
+      D, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// -- bf16 / fp16: tensor cores ------------------------------------------------
+// A block is two consumer warpgroups (256 threads); warpgroup w owns query
+// rows row0 + 64 w .. + 63.  Thread 0 issues every TMA copy.  The head dim is
+// padded to DP in {64, 128} in shared memory only: TMA zero-fills columns
+// past D, so they add nothing to either product, and the scale uses the real
+// D.  Shared memory holds each operand as 64-column chunks of 128-byte rows in
+// the 128-byte swizzle (TMA writes it, wgmma reads it through descriptors):
+//   Q    kChunks x (128 rows x 128 B), loaded once;
+//   K, V kStages x kChunks x (64 keys x 128 B) each (4 stages at DP = 64,
+//        3 at DP = 128).
+// Accumulator fragments (m64nNk16, f32): thread (warp w, lane i) holds rows
+// r0 = 16 w + i / 4 and r0 + 8 of its warpgroup's 64, and in register 4 j + c
+// (row r0) or 4 j + 2 + c (row r0 + 8) the column 8 j + 2 (i % 4) + c.  A
+// row's max and sum meet across the 4 lanes of its quad.  The same fragment
+// of 16 columns of P, packed in pairs, is the A operand of the P.V wgmma.
+constexpr int kTcRows = 128;     // query rows per block
+constexpr int kTcThreads = 256;  // two warpgroups
+constexpr int kTcKeys = 64;      // keys per K/V tile: the N of Q.K^T
+constexpr int kTcChunk = 64;     // head dims per 128-byte row
+constexpr int kTcMaxSplits = 16;
+
+struct bf16_tag {};
+struct f16_tag {};
+
+template <typename T>
+struct TcType;
+template <>
+struct TcType<__nv_bfloat16> {
+  using tag = bf16_tag;
+  static constexpr CUtensorMapDataType map_type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+template <>
+struct TcType<__half> {
+  using tag = f16_tag;
+  static constexpr CUtensorMapDataType map_type = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+__device__ __forceinline__ void store_float(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_float(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store_float(__half* p, float x) { *p = __float2half(x); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+// arrive once and expect `bytes` of TMA traffic on the barrier
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the barrier's phase of this parity has completed.  A wait of
+// more than 10 s can only be a copy that never lands: trap, so that the
+// launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const uint64_t now = global_ns();
+    if (start == 0) start = now;
+    if (now - start > 10000000000ull) __trap();
+  }
+}
+
+// TMA: copy the box at (c0, c1, c2) of `map` into shared memory at dst
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor for the 128-byte swizzle (layout
+// type 1): start address, leading and stride byte offsets, all in 16 B units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32 | (1ull << 62);
+}
+
+// 2^x on the special-function unit (flushes denormal results to zero; 2^x
+// of a masked score's -1.4e30 is 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk16 with f32 accumulators: _ss reads A and B through
+// shared-memory descriptors (both K-major), _rs takes A from registers and B
+// (transposed: MN-major) through a descriptor.  scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(
+    bf16_tag, float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_rs(
+    bf16_tag, float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_rs(
+    bf16_tag, float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_ss(
+    f16_tag, float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_rs(
+    f16_tag, float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_rs(
+    f16_tag, float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <typename T, int DP>
+struct TcShape {
+  static constexpr int kChunks = DP / kTcChunk;
+  static constexpr int kQChunkBytes = kTcRows * 128;   // one 64-column chunk of Q
+  static constexpr int kKvChunkBytes = kTcKeys * 128;  // one of K or V
+  static constexpr int kQBytes = kChunks * kQChunkBytes;
+  static constexpr int kTileBytes = kChunks * kKvChunkBytes;
+  static constexpr int kStages = DP == 64 ? 4 : 3;  // depth of the K/V ring
+  // 1 KB of slack for the swizzle's 1024-byte alignment, then Q, the K ring,
+  // the V ring and 1 + kStages mbarriers: 82 KB at DP = 64 (two blocks per
+  // SM), 132 KB at DP = 128
+  static constexpr int kSmemBytes =
+      1024 + kQBytes + 2 * kStages * kTileBytes + 8 * (1 + kStages);
+};
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kTcThreads)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map, void* __restrict__ out,
+                          float* __restrict__ part_m, float* __restrict__ part_l, int Hq,
+                          int group, int S, int Tk, int D, int causal, int n_split,
+                          float scale) {
+  using Shape = TcShape<T, DP>;
+  using Tag = typename TcType<T>::tag;
+  constexpr int kChunks = Shape::kChunks;
+  constexpr int kStages = Shape::kStages;
+  constexpr int kOut = DP / 2;  // output accumulator registers per thread
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + Shape::kQBytes;           // stage s at + s * kTileBytes
+  const uint32_t v_s = k_s + kStages * Shape::kTileBytes;
+  const uint32_t q_bar = v_s + kStages * Shape::kTileBytes;  // then kStages full bars
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane % 4;
+  const int split = blockIdx.x % n_split;
+  const int row0 = (blockIdx.x / n_split) * kTcRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q_plane = b * Hq + h;
+  const int kv_plane = b * (Hq / group) + h / group;
+
+  // this block's key tiles: its split's contiguous range, cut after the last
+  // key any of its rows sees
+  const int n_all = (Tk + kTcKeys - 1) / kTcKeys;
+  const int per = (n_all + n_split - 1) / n_split;
+  const int tile_lo = split * per;
+  int tile_hi = min(tile_lo + per, n_all);
+  if (causal) {
+    const int last = min(min(row0 + kTcRows, S) - 1 + Tk - S, Tk - 1);
+    tile_hi = min(tile_hi, last < 0 ? 0 : last / kTcKeys + 1);
+  }
+  const int n_tiles = max(tile_hi - tile_lo, 0);
+
+  auto load_kv = [&](int stage, int tile) {
+    const uint32_t bar = q_bar + 8 * (1 + stage);
+    mbar_expect_tx(bar, 2 * Shape::kTileBytes);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const uint32_t at = stage * Shape::kTileBytes + c * Shape::kKvChunkBytes;
+      tma_load_3d(k_s + at, &k_map, bar, c * kTcChunk, tile * kTcKeys, kv_plane);
+      tma_load_3d(v_s + at, &v_map, bar, c * kTcChunk, tile * kTcKeys, kv_plane);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s <= kStages; ++s) mbar_init(q_bar + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, Shape::kQBytes);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      tma_load_3d(q_s + c * Shape::kQChunkBytes, &q_map, q_bar, c * kTcChunk, row0, q_plane);
+    }
+    for (int s = 0; s < kStages && s < n_tiles; ++s) load_kv(s, tile_lo + s);
+  }
+
+  // this thread's two rows, and the key each row's visible range ends before
+  const int r0 = row0 + wg * 64 + warp * 16 + lane / 4;
+  const int r1 = r0 + 8;
+  const int lim0 = causal ? min(Tk, r0 + Tk - S + 1) : Tk;
+  const int lim1 = causal ? min(Tk, r1 + Tk - S + 1) : Tk;
+  const float scale2 = scale * kLog2e;  // exp(x * scale - m) = exp2(x * scale2 - m * log2 e)
+  float m0 = kFlashMask, m1 = kFlashMask, l0 = 0.0f, l1 = 0.0f;
+  float o[kOut];
+  float sc[kTcKeys / 2];
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) o[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kTcKeys / 2; ++i) sc[i] = 0.0f;
+
+  mbar_wait(q_bar, 0);
+  const uint32_t q_wg = q_s + wg * 64 * 128;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it % kStages;
+    mbar_wait(q_bar + 8 * (1 + stage), (it / kStages) & 1);
+    const uint32_t ks = k_s + stage * Shape::kTileBytes;
+    const uint32_t vs = v_s + stage * Shape::kTileBytes;
+
+    // S = Q K^T over DP / 16 steps of 16 head dims (32 bytes along a row)
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t at = (kk % 4) * 32;
+      wgmma_m64n64k16_ss(Tag{}, sc,
+                         sw128_desc(q_wg + (kk / 4) * Shape::kQChunkBytes + at, 16, 1024),
+                         sw128_desc(ks + (kk / 4) * Shape::kKvChunkBytes + at, 16, 1024),
+                         kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // online softmax over the visible keys of this tile; a tile that every
+    // row of the block sees whole (inside T, and inside the causal limit of
+    // the block's first row) skips the per-key mask
+    const int t0 = (tile_lo + it) * kTcKeys;
+    const bool whole = t0 + kTcKeys <= Tk && (!causal || t0 + kTcKeys <= row0 + Tk - S + 1);
+    float alpha0, alpha1;
+    auto softmax = [&](auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
+      const int tq = t0 + 2 * quad;
+      float mx0 = -INFINITY, mx1 = -INFINITY;  // largest visible raw score (scale > 0)
+#pragma unroll
+      for (int j = 0; j < kTcKeys / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (!kMasked || tq + 8 * j + c < lim0) mx0 = fmaxf(mx0, sc[4 * j + c]);
+          if (!kMasked || tq + 8 * j + c < lim1) mx1 = fmaxf(mx1, sc[4 * j + 2 + c]);
+        }
+      }
+      mx0 = fmaxf(m0, fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1)) * scale);
+      mx1 = fmaxf(m1, fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1)) * scale);
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      alpha0 = fast_exp2((m0 - mx0) * kLog2e);
+      alpha1 = fast_exp2((m1 - mx1) * kLog2e);
+      m0 = mx0;
+      m1 = mx1;
+      const float mb0 = mx0 * kLog2e, mb1 = mx1 * kLog2e;
+      l0 *= alpha0;
+      l1 *= alpha1;
+#pragma unroll
+      for (int j = 0; j < kTcKeys / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float p0 = fast_exp2(sc[4 * j + c] * scale2 - mb0);
+          float p1 = fast_exp2(sc[4 * j + 2 + c] * scale2 - mb1);
+          if constexpr (kMasked) {
+            p0 = tq + 8 * j + c < lim0 ? p0 : 0.0f;
+            p1 = tq + 8 * j + c < lim1 ? p1 : 0.0f;
+          }
+          sc[4 * j + c] = p0;
+          sc[4 * j + 2 + c] = p1;
+          l0 += p0;
+          l1 += p1;
+        }
+      }
+    };
+    if (whole) {
+      softmax(std::false_type{});
+    } else {
+      softmax(std::true_type{});
+    }
+    uint32_t pa[kTcKeys / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        // registers 8 kk + 2 r, + 1: (row r0, keys 16 kk + 2 quad + {0, 1}),
+        // (r0 + 8, same), (r0, + 8), (r0 + 8, + 8) -- wgmma's A fragment
+        pa[kk][r] = TcType<T>::pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j] *= alpha0;
+      o[4 * j + 1] *= alpha0;
+      o[4 * j + 2] *= alpha1;
+      o[4 * j + 3] *= alpha1;
+    }
+
+    // O += P V over 4 steps of 16 keys (16 rows of 128 B of V)
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+      const uint64_t dv = sw128_desc(vs + kk * 16 * 128, Shape::kKvChunkBytes, 1024);
+      if constexpr (DP == 64) {
+        wgmma_m64n64k16_rs(Tag{}, o, pa[kk], dv, 1);
+      } else {
+        wgmma_m64n128k16_rs(Tag{}, o, pa[kk], dv, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+
+    __syncthreads();  // both warpgroups are done with this stage: refill it
+    if (tid == 0 && it + kStages < n_tiles) load_kv(stage, tile_lo + it + kStages);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int rows[2] = {r0, r1};
+  const float ls[2] = {l0, l1};
+  const float ms[2] = {m0, m1};
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = rows[half];
+    if (r >= S) continue;
+    if (n_split == 1) {
+      const float denom = fmaxf(ls[half], 1e-30f);
+      T* dst = static_cast<T*>(out) + (static_cast<int64_t>(q_plane) * S + r) * D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * quad + c;
+          if (col < D) store_float(dst + col, o[4 * j + 2 * half + c] / denom);
+        }
+      }
+    } else {
+      // partials (n_split, B, Hq, S) and (n_split, B, Hq, S, D), unnormalized
+      const int64_t at =
+          (static_cast<int64_t>(split) * gridDim.z * Hq + q_plane) * S + r;
+      if (quad == 0) {
+        part_m[at] = ms[half];
+        part_l[at] = ls[half];
+      }
+      float* dst = static_cast<float*>(out) + at * D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * quad + c;
+          if (col < D) dst[col] = o[4 * j + 2 * half + c];
+        }
+      }
+    }
+  }
+}
+
+// out[r, d] = sum_s exp(m_s - M) acc_s[r, d] / max(sum_s exp(m_s - M) l_s, 1e-30)
+// with M = max_s m_s, over the splits in order; a split whose keys a row does
+// not see has l = 0 and acc = 0 and adds nothing.  One thread per (row, d);
+// it issues all of its loads before it uses any, one trip to memory.
+template <typename O>
+__global__ void flash_attention_combine_kernel(const float* __restrict__ m,
+                                               const float* __restrict__ l,
+                                               const float* __restrict__ acc,
+                                               O* __restrict__ out, int n_split,
+                                               int64_t rows, int D) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= rows * D) return;
+  const int64_t r = i / D;
+  float ms[kTcMaxSplits], ls[kTcMaxSplits], as[kTcMaxSplits];
+#pragma unroll
+  for (int s = 0; s < kTcMaxSplits; ++s) {
+    if (s < n_split) {
+      ms[s] = __ldg(m + s * rows + r);
+      ls[s] = __ldg(l + s * rows + r);
+      as[s] = __ldg(acc + s * rows * D + i);
+    }
+  }
+  float mx = ms[0];
+#pragma unroll
+  for (int s = 1; s < kTcMaxSplits; ++s) {
+    if (s < n_split) mx = fmaxf(mx, ms[s]);
+  }
+  float num = 0.0f;
+  float den = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kTcMaxSplits; ++s) {
+    if (s < n_split) {
+      const float w = expf(ms[s] - mx);
+      den += w * ls[s];
+      num += w * as[s];
+    }
+  }
+  store_float(out + i, num / fmaxf(den, 1e-30f));
+}
+
+// cuTensorMapEncodeTiled, fetched from the CUDA driver at run time (the library
+// links against the runtime only)
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                           12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// TMA map of a contiguous (planes, rows, Dp) tensor: boxes of 64 columns x
+// box_rows rows of one plane, 128-byte swizzle, zero fill out of bounds
+template <typename T>
+bool encode_map(CUtensorMap* map, const void* ptr, int Dp, int rows, int planes,
+                int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Dp), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Dp) * sizeof(T),
+                                 static_cast<cuuint64_t>(Dp) * rows * sizeof(T)};
+  const cuuint32_t box[3] = {kTcChunk, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, TcType<T>::map_type, 3, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int DP>
+int flash_attention_tc_grid(const void* q, const void* k, const void* v, void* out,
+                            void* part_m, void* part_l, int B, int Hq, int Hkv, int S,
+                            int Tk, int D, int Dp, int causal, int n_split,
+                            cudaStream_t stream) {
+  constexpr int kSmem = TcShape<T, DP>::kSmemBytes;
+  static bool allowed[64] = {};  // per device: the shared-memory limit is raised
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess && (device >= 64 || !allowed[device])) {
+    e = cudaFuncSetAttribute(flash_attention_tc_kernel<T, DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e == cudaSuccess && device < 64) allowed[device] = true;
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map<T>(&q_map, q, Dp, S, B * Hq, kTcRows) ||
+      !encode_map<T>(&k_map, k, Dp, Tk, B * Hkv, kTcKeys) ||
+      !encode_map<T>(&v_map, v, Dp, Tk, B * Hkv, kTcKeys)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(((S + kTcRows - 1) / kTcRows) * n_split, Hq, B);
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  flash_attention_tc_kernel<T, DP><<<grid, kTcThreads, kSmem, stream>>>(
+      q_map, k_map, v_map, out, static_cast<float*>(part_m), static_cast<float*>(part_l), Hq,
+      Hq / Hkv, S, Tk, D, causal, n_split, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int flash_attention_dispatch(const void* q, const void* k, const void* v,
-                             void* out, int B, int Hq, int Hkv, int S, int Tk,
-                             int D, int causal, cudaStream_t stream) {
-  if (D <= kFlashSlice) {
-    return flash_attention_grid<T, 1>(q, k, v, out, B, Hq, Hkv, S, Tk, D, causal, stream);
+int flash_attention_tc_dispatch(const void* q, const void* k, const void* v, void* out,
+                                void* part_m, void* part_l, int B, int Hq, int Hkv, int S,
+                                int Tk, int D, int Dp, int causal, int n_split,
+                                cudaStream_t stream) {
+  if (Dp <= 64) {
+    return flash_attention_tc_grid<T, 64>(q, k, v, out, part_m, part_l, B, Hq, Hkv, S, Tk,
+                                          D, Dp, causal, n_split, stream);
   }
-  if (D <= 2 * kFlashSlice) {
-    return flash_attention_grid<T, 2>(q, k, v, out, B, Hq, Hkv, S, Tk, D, causal, stream);
-  }
-  return flash_attention_grid<T, 4>(q, k, v, out, B, Hq, Hkv, S, Tk, D, causal, stream);
+  return flash_attention_tc_grid<T, 128>(q, k, v, out, part_m, part_l, B, Hq, Hkv, S, Tk, D,
+                                         Dp, causal, n_split, stream);
+}
+
+template <typename O>
+int flash_attention_combine_grid(const void* m, const void* l, const void* acc, void* out,
+                                 int n_split, int rows, int D, cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  const int64_t n = static_cast<int64_t>(rows) * D;
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  flash_attention_combine_kernel<O><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(acc), static_cast<O*>(out), n_split, rows, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -389,20 +1051,72 @@ int particle_histogram_launch(const void* bins, const void* w, const void* ref,
   return static_cast<int>(cudaGetLastError());
 }
 
-int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                           int B, int Hq, int Hkv, int S, int T, int D,
-                           int causal, int dtype, void* stream) {
-  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1 || T < 1 || D < 1 ||
-      D > kFlashMaxD) {
+int flash_attention_f32_launch(const void* q, const void* k, const void* v, void* out, int B,
+                               int Hq, int Hkv, int S, int T, int D, int causal,
+                               void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1 || T < 1 || D < 1 || D > kFlashMaxD) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= kFlashSlice) {
+    return flash_attention_f32_grid<1>(q, k, v, out, B, Hq, Hkv, S, T, D, causal, st);
+  }
+  if (D <= 2 * kFlashSlice) {
+    return flash_attention_f32_grid<2>(q, k, v, out, B, Hq, Hkv, S, T, D, causal, st);
+  }
+  return flash_attention_f32_grid<4>(q, k, v, out, B, Hq, Hkv, S, T, D, causal, st);
+}
+
+// q (B, Hq, S, Dp), k/v (B, Hkv, T, Dp) bf16 (dtype 1) or fp16 (dtype 2), Dp
+// the head dim D padded to a multiple of 8 (TMA's 16-byte strides).  With
+// n_split == 1 the kernel writes out (B, Hq, S, D) in the input type.
+// Otherwise it writes the float32 partials m, l (n_split, B, Hq, S) and acc
+// (n_split, B, Hq, S, D), and then, unless out is null, the combine kernel
+// merges them into out on the same stream.
+int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out,
+                              void* m, void* l, void* acc, int B, int Hq, int Hkv, int S,
+                              int T, int D, int Dp, int causal, int n_split, int dtype,
+                              void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1 || T < 1 || D < 1 || Dp < D ||
+      Dp % 8 != 0 || Dp > kFlashMaxD || n_split < 1 || n_split > kTcMaxSplits ||
+      (dtype != 1 && dtype != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  void* dst = n_split == 1 ? out : acc;
+  const int rc =
+      dtype == 1
+          ? flash_attention_tc_dispatch<__nv_bfloat16>(q, k, v, dst, m, l, B, Hq, Hkv, S, T, D,
+                                                       Dp, causal, n_split, st)
+          : flash_attention_tc_dispatch<__half>(q, k, v, dst, m, l, B, Hq, Hkv, S, T, D, Dp,
+                                                causal, n_split, st);
+  if (rc != 0 || n_split == 1 || out == nullptr) return rc;
+  const int rows = B * Hq * S;
+  return dtype == 1
+             ? flash_attention_combine_grid<__nv_bfloat16>(m, l, acc, out, n_split, rows, D, st)
+             : flash_attention_combine_grid<__half>(m, l, acc, out, n_split, rows, D, st);
+}
+
+// dynamic shared memory of one tensor-core block at padded head dim dp
+int flash_attention_tc_smem_bytes(int dp) {
+  return dp <= 64 ? TcShape<__nv_bfloat16, 64>::kSmemBytes
+                  : TcShape<__nv_bfloat16, 128>::kSmemBytes;
+}
+
+// m, l (n_split, rows), acc (n_split, rows, D) float32 -> out (rows, D) in
+// float32 (dtype 0), bf16 (1) or fp16 (2)
+int flash_attention_combine_launch(const void* m, const void* l, const void* acc, void* out,
+                                   int n_split, int rows, int D, int dtype, void* stream) {
+  if (n_split < 1 || rows < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return flash_attention_dispatch<float>(q, k, v, out, B, Hq, Hkv, S, T, D, causal, st);
+    return flash_attention_combine_grid<float>(m, l, acc, out, n_split, rows, D, st);
   }
   if (dtype == 1) {
-    return flash_attention_dispatch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, S, T, D,
-                                                   causal, st);
+    return flash_attention_combine_grid<__nv_bfloat16>(m, l, acc, out, n_split, rows, D, st);
+  }
+  if (dtype == 2) {
+    return flash_attention_combine_grid<__half>(m, l, acc, out, n_split, rows, D, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

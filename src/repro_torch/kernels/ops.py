@@ -30,6 +30,7 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+    flash_attention_kernel.combine_launches = 0
 
 
 def launch_counts() -> dict[str, int]:

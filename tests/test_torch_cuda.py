@@ -30,6 +30,12 @@ FLASH_CASES = [(1, 4, 2, 64, 64, 32), (2, 2, 2, 37, 37, 16), (1, 8, 2, 16, 128, 
                (1, 2, 1, 128, 256, 64), (2, 4, 4, 100, 100, 8), (1, 2, 2, 37, 1500, 64),
                (2, 4, 2, 129, 65, 128), (1, 3, 1, 33, 70, 96)]
 WHISPER_FLASH = [(4, 20, 1500, 1500, 64), (4, 20, 32, 1500, 64)]
+# the tensor-core kernel (bf16/fp16): head dims of both widths (DP = 64, 128),
+# two that take the wrapper's padding to a multiple of 8 (40, 100), and query
+# and key lengths from one row to whisper's 1500, ragged against the 128-row
+# blocks and 64-key tiles; 4 query heads on 2 kv heads (GQA)
+TC_HEAD_DIMS = [16, 40, 64, 100, 128]
+TC_LENGTHS = [1, 37, 64, 1500]
 
 
 @pytest.fixture
@@ -168,6 +174,59 @@ def test_flash_attention_kernel_bf16(dev, shape):
     assert torch.allclose(out.float(), plain.float(), atol=3e-2, rtol=0)
 
 
+@pytest.mark.parametrize("D", TC_HEAD_DIMS)
+@pytest.mark.parametrize("S", TC_LENGTHS)
+@pytest.mark.parametrize("T", TC_LENGTHS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_tensor_core_grid_bf16(dev, D, S, T, causal):
+    """The tensor-core kernel over the grid, split or not as num_splits
+    decides, within 3e-2 of the plain version; with causal S > T the rows
+    that see no key are exactly zero."""
+    q, k, v = _qkv(dev, S * T + D, 1, 4, 2, S, T, D, dtype=torch.bfloat16)
+    before = flash_attention.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal, True)
+    assert flash_attention.flash_attention.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    plain = flash_attention.flash_attention_plain(q, k, v, causal)
+    assert torch.allclose(out.float(), plain.float(), atol=3e-2, rtol=0)
+    blind = max(S - T, 0) if causal else 0
+    assert torch.equal(out[:, :, :blind], torch.zeros_like(out[:, :, :blind]))
+
+
+def test_flash_attention_fp16_matches_plain(dev):
+    q, k, v = _qkv(dev, 5, 2, 8, 2, 150, 300, 64, dtype=torch.float16)
+    for causal in (True, False):
+        out = ops.flash_attention(q, k, v, causal, True)
+        assert out.dtype == torch.float16
+        plain = flash_attention.flash_attention_plain(q, k, v, causal)
+        assert torch.allclose(out.float(), plain.float(), atol=3e-2, rtol=0)
+
+
+def test_flash_attention_cross_shape_takes_the_split_path(dev):
+    """Whisper's cross-attention at prompt 32 splits the keys: one combine
+    launch per call; the combine kernel equals its plain version on the
+    kernel's own partials, whose m and l match the plain partials."""
+    B, H, S, T, D = WHISPER_FLASH[1]
+    q, k, v = _qkv(dev, 11, B, H, H, S, T, D, dtype=torch.bfloat16)
+    n = flash_attention.num_splits(B, H, S, T, torch.cuda.get_device_properties(dev)
+                                   .multi_processor_count)
+    assert n > 1
+    before = flash_attention.flash_attention.combine_launches
+    out = ops.flash_attention(q, k, v, False, True)
+    assert flash_attention.flash_attention.combine_launches == before + 1
+    plain = flash_attention.flash_attention_plain(q, k, v, False)
+    assert torch.allclose(out.float(), plain.float(), atol=3e-2, rtol=0)
+    m, l, acc = flash_attention.flash_attention_partials(q, k, v, False, n)
+    got = flash_attention.flash_attention_combine(m, l, acc, torch.float32)
+    assert torch.allclose(got, flash_attention.flash_attention_combine_plain(m, l, acc),
+                          atol=1e-6, rtol=0)
+    parts = [flash_attention.flash_attention_partial_plain(q, k, v, False, lo, hi)
+             for lo, hi in flash_attention.key_ranges(T, n)]
+    m_p, l_p = torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
+    assert torch.allclose(m, m_p, atol=1e-4, rtol=1e-5)
+    assert torch.allclose(l, l_p, atol=0, rtol=1e-4)
+
+
 def test_flash_attention_fully_masked_rows_pinned_to_zero(dev):
     """Causal with S > T: rows that see no key are exactly zero; the others
     match ref.mha (which is NaN on the blind rows)."""
@@ -200,7 +259,7 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(dev, case):
     before = flash_attention.flash_attention.launches
     with pytest.raises((TypeError, ValueError)):
         if case == "dtype":
-            flash_attention.flash_attention(q.half(), k.half(), v.half())
+            flash_attention.flash_attention(q.double(), k.double(), v.double())
         elif case == "mixed_dtype":
             flash_attention.flash_attention(q, k.bfloat16(), v)
         elif case == "head_dim":

@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro_torch.kernels import _build, flash_attention, gf2_bmvm, histogram, minsum  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -219,6 +220,86 @@ def test_flash_attention_fully_masked_rows_are_zero():
     assert np.abs(o_t[:, :, blind:] - o_pallas[:, :, blind:]).max() <= 3e-5
     o_tmha = tref.mha(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), causal=True)
     assert torch.isnan(o_tmha[:, :, :blind]).all()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float16, 3e-3)])
+def test_flash_attention_half_types_match_pallas(dtype, tol):
+    """bf16 and fp16 inputs: the port's wrapper takes both (the Pallas kernel
+    casts any input type to float32); outputs in the input type agree within
+    a step of that type."""
+    q, k, v = _qkv(np.random.default_rng(6), 1, 4, 2, 40, 72, 16)
+    jdt = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}[dtype]
+    for causal in (True, False):
+        o_t = tops.flash_attention(*(torch.as_tensor(x).to(dtype) for x in (q, k, v)), causal,
+                                   True)
+        assert o_t.dtype == dtype
+        o_j = flash_attention_pallas(*(jnp.asarray(x, jdt) for x in (q, k, v)), causal=causal,
+                                     interpret=True)
+        assert o_j.dtype == jdt
+        assert np.abs(o_t.float().numpy() - np.asarray(o_j, np.float32)).max() <= tol
+
+
+# -- the split-keys path: partials and their combine -------------------------------
+
+SPLIT_CASES = [(1, 8, 2, 37, 450, 16), (2, 8, 2, 130, 200, 24)]
+
+
+def _split_plain(q, k, v, causal, n_split):
+    parts = [flash_attention.flash_attention_partial_plain(q, k, v, causal, lo, hi)
+             for lo, hi in flash_attention.key_ranges(k.shape[2], n_split)]
+    return flash_attention.flash_attention_combine_plain(*(torch.stack(x) for x in zip(*parts)))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,D", SPLIT_CASES)
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_split_keys_match_plain_and_pallas(B, Hq, Hkv, S, T, D, n_split,
+                                                           causal):
+    """The combine of the key ranges' partials equals the whole-matrix plain
+    version within 3e-5 (GQA 8:2, ragged S and T, empty splits when n_split
+    exceeds the key tiles), and the Pallas kernel on rows that see a key."""
+    q, k, v = _qkv(np.random.default_rng(S + T + n_split), B, Hq, Hkv, S, T, D)
+    qt, kt, vt = (torch.as_tensor(x) for x in (q, k, v))
+    out = _split_plain(qt, kt, vt, causal, n_split).numpy()
+    assert np.abs(out - flash_attention.flash_attention_plain(qt, kt, vt, causal).numpy()
+                  ).max() <= 3e-5
+    o_pallas = np.asarray(flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                 causal=causal, interpret=True))
+    seen = max(S - T, 0) if causal else 0
+    assert np.abs(out[:, :, seen:] - o_pallas[:, :, seen:]).max() <= 3e-5
+
+
+def test_flash_attention_blind_splits_add_nothing():
+    """Causal with S > T: the third split is empty, the second is blind to
+    the first 228 rows and every split is blind to the first S - T = 100; those
+    rows come out exactly zero and the rest match the plain version."""
+    q, k, v = (torch.as_tensor(x) for x in _qkv(np.random.default_rng(8), 1, 4, 2, 300, 200, 8))
+    assert flash_attention.key_ranges(200, 3) == [(0, 128), (128, 200), (200, 200)]
+    m, l, acc = flash_attention.flash_attention_partial_plain(q, k, v, True, 200, 200)
+    assert (m == flash_attention.MASK_VALUE).all() and not l.any() and not acc.any()
+    out = _split_plain(q, k, v, True, 3)
+    assert torch.equal(out[:, :, :100], torch.zeros_like(out[:, :, :100]))
+    assert (out[:, :, 100:].abs().sum(-1) > 0).all()
+    assert torch.allclose(out, flash_attention.flash_attention_plain(q, k, v, True), atol=3e-5,
+                          rtol=0)
+
+
+@pytest.mark.parametrize("B,Hq,S,T", [(4, 20, 1500, 1500), (4, 20, 32, 1500), (1, 1, 37, 37),
+                                      (1, 2, 5, 300), (1, 1, 1, 100000), (64, 64, 2048, 64)])
+def test_num_splits(B, Hq, S, T):
+    """One split where the blocks fill the card (whisper's encoder), more for
+    whisper's cross-attention, never more than one wave of blocks or than the
+    key tiles, and no split left empty."""
+    n = flash_attention.num_splits(B, Hq, S, T, 132)
+    tiles = -(-T // flash_attention.KEY_TILE)
+    assert 1 <= n <= min(tiles, flash_attention.MAX_SPLITS)
+    assert all(lo < hi for lo, hi in flash_attention.key_ranges(T, n))
+    blocks = B * Hq * -(-S // flash_attention.ROWS_PER_BLOCK)
+    assert n * blocks <= max(blocks, 2 * 132)          # one wave of two blocks per SM
+    if (B, Hq, S, T) == (4, 20, 1500, 1500) or blocks >= 2 * 132:
+        assert n == 1
+    if (B, Hq, S, T) == (4, 20, 32, 1500):
+        assert n == 3                                   # 80 blocks -> 240
 
 
 # -- wrappers: routing, checks, counters ----------------------------------------
