@@ -112,9 +112,10 @@ def ptxas_report(log):
         found = re.search(r"Compiling entry function '.*?((?:gf2_bmvm|minsum_check|particle_"
                           r"histogram|flash_attention_(?:f32|tc|combine))_kernel)(I.*?E)?E", line)
         if found:
-            args = re.findall(r"Li(\d+)E|(13__nv_bfloat16|6__half|f)(?=E|L)",
+            args = re.findall(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|6__half|f)(?=E|L)",
                               found.group(2) or "")
-            targs = ", ".join(n or names[t] for n, t in args)
+            targs = ", ".join(n or ("false", "true")[int(b)] if n or b else names[t]
+                              for n, b, t in args)
             current = found.group(1) + (f"<{targs}>" if targs else "")
             report[current] = ""
         elif current and ("spill" in line or "Used" in line):
@@ -207,6 +208,16 @@ def main():
         u = torch.randn(shape, generator=g, device=dev) * 4
         err = (ops.minsum_check(u) - ops.minsum_check(u, use_kernel=False)).abs().max().item()
         check(err <= 1e-6, f"minsum_check differs by {err} at {shape}")
+    # gf2_bmvm on random int32 LUTs (its contract): C not a multiple of the
+    # chunk, R not a multiple of 4, and a LUT 4 bytes past a 16-byte boundary
+    for m, c, r in [(m, c, r) for m in (1, 64) for c in (37, 300, 1001) for r in (1, 3, 5, 512)]:
+        lt = torch.randint(-2**31, 2**31 - 1, (c * 16 * r + 1,), generator=g, device=dev,
+                           dtype=torch.int32)
+        w = torch.randint(0, 16, (m, c), generator=g, device=dev, dtype=torch.int32)
+        for lt_ in (lt[:-1].view(c, 16, r), lt[1:].view(c, 16, r)):
+            check(torch.equal(ops.gf2_bmvm(lt_, w), ops.gf2_bmvm(lt_, w, use_kernel=False)),
+                  f"gf2_bmvm differs on a random LUT at M={m} C={c} R={r} "
+                  f"(base offset {lt_.data_ptr() % 16} bytes)")
     for N, px, B in [(1, 64, 8), (10, 300, 16), (33, 517, 12), (8, 1024, 32)]:
         b = torch.randint(0, B, (N, px), generator=g, device=dev, dtype=torch.int32)
         w = torch.rand(px, generator=g, device=dev) * 0.9 + 0.1
@@ -216,7 +227,29 @@ def main():
         hp, bp = ops.particle_histogram(b, w, rh, use_kernel=False)
         err = max((hk - hp).abs().max().item(), (bk - bp).abs().max().item())
         check(err <= 1e-5, f"particle_histogram differs by {err} at {(N, px, B)}")
-    print("kernel sweeps of tests/test_kernels.py: all three kernels agree with their plain versions")
+    # particle_histogram over bin counts, rows that do not start on 16 bytes
+    # (px % 4 != 0), one to 4096 particles, bins outside [0, n_bins), and bins
+    # and weights 4 bytes past a 16-byte boundary; each repeated bit for bit
+    for N, px, B in [(N, px, B) for N in (1, 5, 4096) for px in (1, 3, 517, 4096)
+                     for B in (1, 7, 16, 32)]:
+        flat = torch.randint(-2, B + 2, (N * px + 1,), generator=g, device=dev, dtype=torch.int32)
+        wf = torch.rand(px + 1, generator=g, device=dev) * 0.9 + 0.1
+        rh = torch.rand(B, generator=g, device=dev)
+        rh = rh / rh.sum()
+        views = [(flat[:-1].view(N, px), wf[:-1])]
+        if B == 16:
+            views.append((flat[1:].view(N, px), wf[1:]))
+        for b, w in views:
+            hk, bk = ops.particle_histogram(b, w, rh)
+            hp, bp = ops.particle_histogram(b, w, rh, use_kernel=False)
+            err = max((hk - hp).abs().max().item(), (bk - bp).abs().max().item())
+            h2, b2 = ops.particle_histogram(b, w, rh)
+            check(err <= 1e-5 and torch.equal(hk, h2) and torch.equal(bk, b2),
+                  f"particle_histogram differs by {err} (or does not repeat) at {(N, px, B)} "
+                  f"(base offsets {b.data_ptr() % 16}, {w.data_ptr() % 16} bytes)")
+    print("kernel sweeps of tests/test_kernels.py and the edge cases of tests/test_torch_cuda.py "
+          "(random gf2 LUTs, unaligned bases, 1-32 bins, ragged rows): the three case-study "
+          "kernels agree with their plain versions")
 
     kernels = []
 
@@ -257,6 +290,13 @@ def main():
     hk, bk = ops.particle_histogram(bins_main, dw, ref_hist)
     hp, bp = ops.particle_histogram(bins_main, dw, ref_hist, use_kernel=False)
     err = max((hk - hp).abs().max().item(), (bk - bp).abs().max().item())
+    h2, b2 = ops.particle_histogram(bins_main, dw, ref_hist)
+    check(torch.equal(hk, h2) and torch.equal(bk, b2),
+          "particle_histogram does not repeat bit for bit at the main-path shape")
+    check(torch.equal(out_k, ops.gf2_bmvm(lut, vw)),
+          "gf2_bmvm does not repeat bit for bit at the main-path shape")
+    print(f"particle_histogram {tuple(bins_main.shape)} and gf2_bmvm {tuple(lut.shape)}: a second "
+          "launch repeats the first bit for bit")
     report("particle_histogram", "src/repro/kernels/histogram.py:48", err, 1e-5,
            lambda: ops.particle_histogram(bins_main, dw, ref_hist),
            lambda: ops.particle_histogram(bins_main, dw, ref_hist, use_kernel=False),

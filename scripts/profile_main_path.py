@@ -11,8 +11,9 @@ prefill, one decode step, and the prefill of the plain path,
 runs, each ending in ``torch.cuda.synchronize()``), then traces one more run with
 ``torch.profiler`` and reports the device busy time (sum of the kernel, copy
 and memset activities on the card), their count, the device idle share of
-the traced window, and the device activities that take the most time.  One
-JSON line per path.
+the traced window, the device activities that take the most time, and the
+device time and launches of each of the port's own kernels.  One JSON line
+per path.
 """
 import json
 import os
@@ -24,6 +25,10 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the port's own kernels (csrc/kernels.cu), whose device time each path reports
+PORT_KERNELS = ("gf2_bmvm_kernel", "minsum_check_kernel", "particle_histogram_kernel",
+                "flash_attention_tc_kernel", "flash_attention_combine_kernel",
+                "flash_attention_f32_kernel")
 
 
 def main():
@@ -110,6 +115,12 @@ def main():
                 by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
         busy_us = sum(sum(v) for v in by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
+        ours = {}
+        for k, v in by_name.items():
+            kernel = next((n for n in PORT_KERNELS if n in k), None)
+            if kernel:
+                ms, calls = ours.get(kernel, (0.0, 0))
+                ours[kernel] = (ms + sum(v) / 1e3, calls + len(v))
         w = walls[name]
         print(json.dumps(dict(
             path=name, wall_ms_median=statistics.median(w) * 1e3,
@@ -118,7 +129,8 @@ def main():
             device_activities=sum(len(v) for v in by_name.values()),
             device_idle_share=1 - busy_us / 1e6 / traced_s,
             top_device_activities=[dict(name=k[:80], device_ms=sum(v) / 1e3, calls=len(v))
-                                   for k, v in top])))
+                                   for k, v in top],
+            port_kernels={k: dict(device_ms=ms, calls=n) for k, (ms, n) in ours.items()})))
     return 0
 
 

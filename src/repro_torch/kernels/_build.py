@@ -29,9 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of kernels.cu: name -> argtypes (a launch's stream comes last)
 _SIGNATURES = {
-    "gf2_bmvm_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "gf2_bmvm_launch": [_P] * 3 + [_I] * 5 + [_P],
     "minsum_check_launch": [_P, _P, _I, _I, _P],
-    "particle_histogram_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "particle_histogram_launch": [_P] * 5 + [_I] * 6 + [_P],
     "flash_attention_f32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention_tc_launch": [_P] * 7 + [_I] * 10 + [_P],
     "flash_attention_combine_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -108,6 +108,12 @@ def launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         msg = lib.kernels_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device`` (the launch shapes are sized by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,

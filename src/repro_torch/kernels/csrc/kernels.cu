@@ -10,6 +10,7 @@
 // contiguity, and allocate outputs and scratch, before calling in.
 
 #include <cmath>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled is fetched at run time
 #include <cuda_bf16.h>
@@ -19,44 +20,119 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 // ---------------------------------------------------------------------------
 // gf2_bmvm — Williams' LUT-XOR GF(2) matrix-vector product.
 //
 // Replaces: src/repro/kernels/gf2_bmvm.py gf2_bmvm_pallas (body _kernel).
 // Computes out[m, r] = XOR_c lut[c, v[m, c], r]; lut (C, P=2^k, R), v (M, C),
 // out (M, R), all int32 words (k <= 16, so the uint32 bit patterns fit).
+// Indices are masked to k bits, so a malformed word cannot read outside its
+// LUT slab.
 //
 // Bound on H100: bytes.  Each (m, c) gathers one LUT row of R words, so the
-// work moves at most M*C*R*4 bytes of LUT rows (64 MiB at n=4096, k=8, M=64:
-// about 20 us at 3.35 TB/s) against M*C*R XORs, which are nothing beside it.
-// Design: one thread per (m, r), one block per (m, 256 r's).  The block stages
-// its row v[m, :] in shared memory (the TPU kernel's scalar prefetch), then
-// each thread walks c and XOR-accumulates in a register, so the C-long
-// reduction never leaves the SM.  Neighbouring threads read neighbouring r of
-// the same LUT row: every gather is one coalesced 1 KiB line run.  Indices are
-// masked to k bits, so a malformed word cannot read outside its LUT slab.
+// work moves at most M*C*R*4 bytes of LUT rows (64 MiB at n=4096, k=8, M=64;
+// the rows these inputs touch, 57 MiB: 17.8 us at 3.35 TB/s) against M*C*R
+// XORs, which are nothing beside it.
+//
+// What it replaces (first port): one thread per (m, r) walking all C columns
+// with 4-byte loads, a grid of (M, R/256) = 128 blocks of 256 threads on 132
+// SMs.  At most 256 threads x 8 unrolled loads x 4 B = 8 KiB were in flight
+// per SM, where Little's law asks for about 3.35 TB/s x 0.7 us / 132 = 18 KiB:
+// 0.0570 / 0.0573 / 0.0566 ms (31 % of the bound) on an H100 80GB HBM3 at
+// 700 W (chip_smoke.py phase 2).
+//
+// Design: the C-long XOR is exact in any order, so it is split.  The grid is
+// (M, C chunks, R tiles of 512 words) and the chunks of one (m, R tile) form
+// one thread-block cluster; gf2_bmvm.launch_shape in Python picks the chunk
+// (8 chunks of 64 columns, 512 blocks of 128 threads, at the main shape).  A
+// block stages its chunk of v[m, :] in shared memory (1024 columns at a time)
+// and each thread XORs 4 consecutive words of the 2 KiB LUT rows with one
+// 16-byte load per column, 8 columns unrolled: 16 KiB in flight per block,
+// about 62 KiB per SM.  m runs fastest in the grid, so the blocks that gather
+// the same rows of one chunk run together and meet in L2.  The cluster's
+// blocks then leave their partial words in shared memory, and block 0 XORs
+// them over distributed shared memory and stores out: no memset, no atomics,
+// and a second launch repeats the first bit for bit.  R % 4 != 0 or a LUT or
+// out base that is not 16-byte aligned takes the same loop with 4-byte loads.
+// Measured on the same card (scripts/case_kernels.py): 0.036-0.037 ms, 48-49 %
+// of the bound, when the timing overwrites the L2 by writing (the write-back of
+// the dirty flush costs about 6 us); 0.0296 ms, 60 %, with a clean L2.  More
+// loads in flight (16 a thread, or 16-block clusters) and fewer (4, or 4
+// chunks) were each 4-7 us slower: what is left is the DRAM locality of
+// random 2 KiB rows, not the bytes in flight.
 // ---------------------------------------------------------------------------
-constexpr int kBmvmThreads = 256;
+constexpr int kBmvmThreads = 128;
+constexpr int kBmvmTile = 4 * kBmvmThreads;  // output words of one block
+constexpr int kBmvmStage = 1024;             // columns of v staged at a time
+constexpr int kBmvmUnroll = 8;               // LUT rows in flight per thread
+constexpr int kBmvmMaxCluster = 8;           // chunks of C (portable cluster size)
 
-__global__ void gf2_bmvm_kernel(const int32_t* __restrict__ lut,
-                                const int32_t* __restrict__ v,
-                                int32_t* __restrict__ out, int C, int P, int R) {
-  extern __shared__ int32_t v_row[];
+template <bool kVec>
+__global__ void __launch_bounds__(kBmvmThreads)
+    gf2_bmvm_kernel(const int32_t* __restrict__ lut, const int32_t* __restrict__ v,
+                    int32_t* __restrict__ out, int C, int P, int R, int chunk) {
+  __shared__ int32_t v_s[kBmvmStage];
+  __shared__ int4 part[kBmvmThreads];
   const int64_t m = blockIdx.x;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    v_row[c] = v[m * C + c] & (P - 1);
-  }
-  __syncthreads();
-  const int r = blockIdx.y * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+  const int c_end = min(C, static_cast<int>(blockIdx.y) * chunk + chunk);
+  const int r = blockIdx.z * kBmvmTile + 4 * threadIdx.x;
+  const int nw = r < R ? min(4, R - r) : 0;
   const int64_t slab = static_cast<int64_t>(P) * R;
-  const int32_t* col = lut + r;
-  int32_t acc = 0;
-#pragma unroll 8
-  for (int c = 0; c < C; ++c) {
-    acc ^= __ldg(col + c * slab + static_cast<int64_t>(v_row[c]) * R);
+  int32_t acc[4] = {0, 0, 0, 0};
+  for (int s0 = blockIdx.y * chunk; s0 < c_end; s0 += kBmvmStage) {
+    const int cn = min(kBmvmStage, c_end - s0);
+    __syncthreads();  // every thread is done with the previous stage
+    for (int i = threadIdx.x; i < cn; i += kBmvmThreads) {
+      v_s[i] = __ldg(v + m * C + s0 + i) & (P - 1);
+    }
+    __syncthreads();
+    if (nw == 0) continue;
+    const int32_t* base = lut + s0 * slab + r;
+    if constexpr (kVec) {
+#pragma unroll kBmvmUnroll
+      for (int c = 0; c < cn; ++c) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(
+            base + c * slab + static_cast<int64_t>(v_s[c]) * R));
+        acc[0] ^= x.x;
+        acc[1] ^= x.y;
+        acc[2] ^= x.z;
+        acc[3] ^= x.w;
+      }
+    } else {
+#pragma unroll kBmvmUnroll
+      for (int c = 0; c < cn; ++c) {
+        const int32_t* row = base + c * slab + static_cast<int64_t>(v_s[c]) * R;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (k < nw) acc[k] ^= __ldg(row + k);
+        }
+      }
+    }
   }
-  out[m * R + r] = acc;
+  part[threadIdx.x] = make_int4(acc[0], acc[1], acc[2], acc[3]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's partial words are in its shared memory
+  if (cluster.block_rank() == 0 && nw > 0) {
+    for (unsigned q = 1; q < cluster.num_blocks(); ++q) {
+      const int4 x = cluster.map_shared_rank(part, q)[threadIdx.x];
+      acc[0] ^= x.x;
+      acc[1] ^= x.y;
+      acc[2] ^= x.z;
+      acc[3] ^= x.w;
+    }
+    int32_t* dst = out + m * R + r;
+    if constexpr (kVec) {
+      *reinterpret_cast<int4*>(dst) = make_int4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k < nw) dst[k] = acc[k];
+      }
+    }
+  }
+  cluster.sync();  // no block leaves while block 0 reads its shared memory
 }
 
 // ---------------------------------------------------------------------------
@@ -124,53 +200,136 @@ __global__ void minsum_check_kernel(const float* __restrict__ u,
 // nowhere; n_bins <= 32.
 //
 // Bound on H100: bytes.  The int32 bin map is read once, N*px*4 bytes (64 MiB
-// for 4096 particles of a 64x64 ROI: about 20 us at 3.35 TB/s); the weights
-// and reference histogram stay in L2.
-// Design: one block per particle.  Each thread strides over the pixels
-// (coalesced loads) into a private per-bin column of shared memory, so there
-// are no atomics; a fixed-order tree over the 256 columns then sums each bin,
-// and thread 0 runs the normalization and Bhattacharyya epilogue in the same
-// kernel.  The summation order is fixed, so results repeat bit for bit.
+// for 4096 particles of a 64x64 ROI: 20.1 us at 3.35 TB/s); the weights and
+// reference histogram stay in L2.
+//
+// What it replaces (first port): one block of 256 threads per particle, each
+// thread with one 4-byte load in flight before a read-modify-write of shared
+// memory, then an 8-step tree with a __syncthreads() per step and thread 0
+// alone running the epilogue, with no load in flight during either: about 2
+// KiB in flight per SM, where Little's law asks for about 3.35 TB/s x 0.7 us /
+// 132 = 18 KiB.  0.0630 / 0.0633 / 0.0626 ms (32 % of the bound) on an H100
+// 80GB HBM3 at 700 W (chip_smoke.py phase 2).
+//
+// Design: a warp owns a particle; a block of 8 warps stages w in shared memory
+// once (when it fits: histogram.launch_shape in Python decides, and picks the
+// grid, one particle per warp up to a few blocks per SM).  Each lane reads the
+// row with 16-byte loads, 8 unrolled (4 KiB per warp; with 31 warps a SM at
+// the main shape, about 120 KiB in flight), and adds each weight into its own
+// column of a per-warp shared-memory histogram: lane l's bin b sits at
+// [b][l], so the 32 lanes always hit 32 distinct banks.  A row that does not
+// start on 16 bytes (px % 4 != 0, or an unaligned base) takes a scalar head
+// up to the first 16-byte boundary and a scalar tail.  The epilogue is spread
+// over the lanes: lane b sums bin b over the 32 columns in a fixed rotated
+// order (conflict-free), then the total and the Bhattacharyya sum are fixed
+// xor-shuffle butterflies.  No atomics, and every sum has a fixed order, so a
+// second launch repeats the first bit for bit.  The first batch of loads is
+// issued before w is staged, so the stream starts at once.
+// Measured on the same card (scripts/case_kernels.py): 0.037-0.038 ms, 52-54 %
+// of the bound (0.031 ms, 64-66 %, with a clean L2); reading w through L1
+// instead of staging it took 0.050 ms, and 4 loads a lane 0.038.
 // ---------------------------------------------------------------------------
-constexpr int kHistThreads = 256;
+constexpr int kHistWarps = 8;
+constexpr int kHistUnroll = 8;  // 16-byte loads in flight per lane
+constexpr int kHistMinBlocks = 4;  // blocks an SM: caps registers at 64 a thread
 
-__global__ void particle_histogram_kernel(const int32_t* __restrict__ bins,
-                                          const float* __restrict__ w,
-                                          const float* __restrict__ ref,
-                                          float* __restrict__ hist,
-                                          float* __restrict__ bc, int px,
-                                          int n_bins) {
-  extern __shared__ float part[];  // part[b * kHistThreads + t]
-  const int t = threadIdx.x;
-  const int64_t n = blockIdx.x;
-  for (int b = 0; b < n_bins; ++b) part[b * kHistThreads + t] = 0.0f;
-  const int32_t* row = bins + n * px;
-  for (int p = t; p < px; p += kHistThreads) {
-    const int b = row[p];
-    if (static_cast<unsigned>(b) < static_cast<unsigned>(n_bins)) {
-      part[b * kHistThreads + t] += w[p];
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
+  return x;
+}
+
+template <bool kStageW>
+__global__ void __launch_bounds__(kHistWarps * 32, kHistMinBlocks)
+    particle_histogram_kernel(const int32_t* __restrict__ bins, const float* __restrict__ w,
+                              const float* __restrict__ ref, float* __restrict__ hist,
+                              float* __restrict__ bc, int N, int px, int n_bins) {
+  extern __shared__ float4 hist_smem[];  // per-warp columns, then w if staged
+  float* const smem = reinterpret_cast<float*>(hist_smem);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* const cols = smem + warp * 32 * n_bins;  // cols[b * 32 + l]: lane l, bin b
+  const int stride = gridDim.x * kHistWarps;
+  const int n0 = blockIdx.x * kHistWarps + warp;
+
+  // where a row's 16-byte body starts and ends
+  auto layout = [&](int n, const int32_t*& row, int& head, int& n4) {
+    row = bins + static_cast<int64_t>(n) * px;
+    head = min(static_cast<int>((0u - (reinterpret_cast<uintptr_t>(row) >> 2)) & 3u), px);
+    n4 = (px - head) >> 2;
+  };
+  auto load_batch = [&](const int4* row4, int i, int n4, int4 (&q)[kHistUnroll]) {
+#pragma unroll
+    for (int u = 0; u < kHistUnroll; ++u) {
+      const int j = i + u * 32;
+      q[u] = j < n4 ? __ldg(row4 + j) : make_int4(-1, -1, -1, -1);
     }
+  };
+
+  int4 q[kHistUnroll];
+  if (n0 < N) {  // the first batch is in flight while w is staged
+    const int32_t* row;
+    int head, n4;
+    layout(n0, row, head, n4);
+    load_batch(reinterpret_cast<const int4*>(row + head), lane, n4, q);
   }
-  __syncthreads();
-  for (int s = kHistThreads / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      for (int b = 0; b < n_bins; ++b) {
-        part[b * kHistThreads + t] += part[b * kHistThreads + t + s];
-      }
-    }
+  float* const w_s = smem + kHistWarps * 32 * n_bins;
+  const float* const ws = kStageW ? w_s : w;
+  if constexpr (kStageW) {
+    for (int p = threadIdx.x; p < px; p += kHistWarps * 32) w_s[p] = __ldg(w + p);
     __syncthreads();
   }
-  if (t == 0) {
-    float total = 0.0f;
-    for (int b = 0; b < n_bins; ++b) total += part[b * kHistThreads];
-    const float denom = fmaxf(total, 1e-12f);
-    float acc = 0.0f;
-    for (int b = 0; b < n_bins; ++b) {
-      const float h = part[b * kHistThreads] / denom;
-      hist[n * n_bins + b] = h;
-      acc += sqrtf(h * ref[b]);
+  const float ref_l = lane < n_bins ? __ldg(ref + lane) : 0.0f;
+
+  for (int n = n0; n < N; n += stride) {
+    const int32_t* row;
+    int head, n4;
+    layout(n, row, head, n4);
+    const int4* row4 = reinterpret_cast<const int4*>(row + head);
+    const bool vec_w = head == 0 && (reinterpret_cast<uintptr_t>(ws) & 15u) == 0;
+    float* const col = cols + lane;
+    for (int b = 0; b < n_bins; ++b) col[b * 32] = 0.0f;
+    auto add = [&](int b, float x) {
+      if (static_cast<unsigned>(b) < static_cast<unsigned>(n_bins)) col[b * 32] += x;
+    };
+    if (lane < head) add(row[lane], ws[lane]);
+    for (int i = lane; i < n4; i += 32 * kHistUnroll) {
+      if (n != n0 || i != lane) load_batch(row4, i, n4, q);
+#pragma unroll
+      for (int u = 0; u < kHistUnroll; ++u) {
+        const int j = i + u * 32;
+        if (j < n4) {
+          const int p = head + 4 * j;
+          float4 x;
+          if (vec_w) {
+            x = *reinterpret_cast<const float4*>(ws + p);
+          } else {
+            x = make_float4(ws[p], ws[p + 1], ws[p + 2], ws[p + 3]);
+          }
+          add(q[u].x, x.x);
+          add(q[u].y, x.y);
+          add(q[u].z, x.z);
+          add(q[u].w, x.w);
+        }
+      }
     }
-    bc[n] = acc;
+    const int tail = head + 4 * n4 + lane;
+    if (tail < px) add(row[tail], ws[tail]);
+    __syncwarp();
+    // lane b sums bin b over the 32 lanes' columns, rotated so that the
+    // lanes hit distinct banks
+    float h = 0.0f;
+    if (lane < n_bins) {
+      const float* bin = cols + lane * 32;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) h += bin[(lane + j) & 31];
+    }
+    const float denom = fmaxf(warp_sum(h), 1e-12f);
+    h = h / denom;
+    const float s = warp_sum(lane < n_bins ? sqrtf(h * ref_l) : 0.0f);
+    if (lane < n_bins) hist[static_cast<int64_t>(n) * n_bins + lane] = h;
+    if (lane == 0) bc[n] = s;
+    __syncwarp();  // every lane has read the columns before they are zeroed
   }
 }
 
@@ -1021,14 +1180,35 @@ const char* kernels_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int gf2_bmvm_launch(const void* lut, const void* v, void* out, int C, int P,
-                    int R, int M, void* stream) {
-  const dim3 grid(M, (R + kBmvmThreads - 1) / kBmvmThreads);
-  gf2_bmvm_kernel<<<grid, kBmvmThreads, C * sizeof(int32_t),
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(lut), static_cast<const int32_t*>(v),
-      static_cast<int32_t*>(out), C, P, R);
-  return static_cast<int>(cudaGetLastError());
+// chunk: columns of C each block reduces; the ceil(C / chunk) <= 8 chunks of
+// one (m, R tile) run as one cluster and merge in distributed shared memory.
+int gf2_bmvm_launch(const void* lut, const void* v, void* out, int C, int P, int R, int M,
+                    int chunk, void* stream) {
+  if (C < 1 || P < 1 || (P & (P - 1)) != 0 || R < 1 || M < 1 || chunk < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_chunks = (C + chunk - 1) / chunk;
+  if (n_chunks > kBmvmMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(M, n_chunks, (R + kBmvmTile - 1) / kBmvmTile);
+  config.blockDim = dim3(kBmvmThreads);
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = n_chunks;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(lut) | reinterpret_cast<uintptr_t>(out);
+  const auto* l = static_cast<const int32_t*>(lut);
+  const auto* vw = static_cast<const int32_t*>(v);
+  auto* o = static_cast<int32_t*>(out);
+  const cudaError_t e =
+      R % 4 == 0 && (bases & 15u) == 0
+          ? cudaLaunchKernelEx(&config, gf2_bmvm_kernel<true>, l, vw, o, C, P, R, chunk)
+          : cudaLaunchKernelEx(&config, gf2_bmvm_kernel<false>, l, vw, o, C, P, R, chunk);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 int minsum_check_launch(const void* u, void* out, int n, int deg, void* stream) {
@@ -1039,15 +1219,28 @@ int minsum_check_launch(const void* u, void* out, int n, int deg, void* stream) 
   return static_cast<int>(cudaGetLastError());
 }
 
-int particle_histogram_launch(const void* bins, const void* w, const void* ref,
-                              void* hist, void* bc, int N, int px, int n_bins,
-                              void* stream) {
-  particle_histogram_kernel<<<N, kHistThreads,
-                              n_bins * kHistThreads * sizeof(float),
-                              static_cast<cudaStream_t>(stream)>>>(
+// blocks: the grid (each warp walks particles warp, warp + blocks * 8, ...);
+// smem_bytes: 8 * 32 * n_bins floats of per-lane columns, plus px floats of w
+// when stage_w is set.
+int particle_histogram_launch(const void* bins, const void* w, const void* ref, void* hist,
+                              void* bc, int N, int px, int n_bins, int blocks, int smem_bytes,
+                              int stage_w, void* stream) {
+  const int64_t want = (kHistWarps * 32 * static_cast<int64_t>(n_bins) +
+                        (stage_w ? static_cast<int64_t>(px) : 0)) * sizeof(float);
+  if (N < 1 || px < 0 || n_bins < 1 || n_bins > 32 || blocks < 1 || smem_bytes != want) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  void (*kernel)(const int32_t*, const float*, const float*, float*, float*, int, int, int) =
+      stage_w ? &particle_histogram_kernel<true> : &particle_histogram_kernel<false>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<blocks, kHistWarps * 32, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(bins), static_cast<const float*>(w),
-      static_cast<const float*>(ref), static_cast<float*>(hist),
-      static_cast<float*>(bc), px, n_bins);
+      static_cast<const float*>(ref), static_cast<float*>(hist), static_cast<float*>(bc), N, px,
+      n_bins);
   return static_cast<int>(cudaGetLastError());
 }
 

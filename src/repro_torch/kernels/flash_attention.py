@@ -24,8 +24,6 @@ version), and the combine kernel merges them (``flash_attention_combine_plain``)
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
@@ -116,11 +114,6 @@ def num_splits(B: int, Hq: int, S: int, T: int, sm_count: int) -> int:
     tiles = -(-T // KEY_TILE)
     n = max(1, min(BLOCKS_PER_SM * sm_count // blocks, tiles, MAX_SPLITS))
     return -(-tiles // -(-tiles // n))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -232,7 +225,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         # with more than one split, one call launches the split kernel and then
         # the combine kernel
-        n_split = num_splits(B, Hq, S, T, _sm_count(q.device))
+        n_split = num_splits(B, Hq, S, T, _build.sm_count(q.device))
         _launch_tc(q, k, v, causal, n_split, out, _scratch(q, n_split) if n_split > 1 else None)
         if n_split > 1:
             flash_attention.combine_launches += 1

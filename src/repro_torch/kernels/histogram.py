@@ -2,9 +2,9 @@
 the Hopper kernel and its plain version.
 
 Replaces ``repro/kernels/histogram.py`` ``particle_histogram_pallas``.  The
-kernel is ``particle_histogram_kernel`` in ``csrc/kernels.cu``.
-``particle_histogram`` takes a CPU tensor to the plain version and launches the
-kernel for a CUDA tensor, with no fallback.
+kernel is ``particle_histogram_kernel`` in ``csrc/kernels.cu`` (its note gives
+the bound and the design).  ``particle_histogram`` takes a CPU tensor to the
+plain version and launches the kernel for a CUDA tensor, with no fallback.
 """
 from __future__ import annotations
 
@@ -13,6 +13,11 @@ import torch
 from . import _build, ref
 
 MAX_BINS = 32
+WARPS = 8                       # warps of one block, one particle each at a time (kHistWarps)
+MAX_STAGED_W = 96 * 1024        # w is staged in shared memory up to this many bytes
+SMEM_PER_SM = 228 * 1024        # shared memory of one H100 SM
+SMEM_PER_BLOCK_RESERVED = 1024  # what the runtime keeps of it for each block
+MIN_BLOCKS_PER_SM = 4           # __launch_bounds__ minimum: at most 64 registers a thread
 
 
 def particle_histogram_plain(bins: torch.Tensor, weights: torch.Tensor,
@@ -20,6 +25,19 @@ def particle_histogram_plain(bins: torch.Tensor, weights: torch.Tensor,
     """bins (N, px), weights (px,), ref_hist (n_bins,) → (hist (N, n_bins), bc (N,))."""
     hist = ref.weighted_histogram(bins, weights, n_bins)
     return hist, ref.bhattacharyya(hist, ref_hist)
+
+
+def launch_shape(N: int, px: int, n_bins: int, sm_count: int) -> tuple[int, int, bool]:
+    """(blocks, smem_bytes, stage_w) of the kernel's launch.  Each block holds
+    ``WARPS`` per-lane histograms of ``n_bins`` × 32 floats and, when they fit
+    in ``MAX_STAGED_W`` bytes, the px weights.  One warp per particle, as many
+    blocks as that takes, but no more than fit on the card at once (by
+    registers and by shared memory): past that the warps walk several
+    particles."""
+    stage_w = px * 4 <= MAX_STAGED_W
+    smem = WARPS * 32 * n_bins * 4 + (px * 4 if stage_w else 0)
+    per_sm = min(MIN_BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_PER_BLOCK_RESERVED))
+    return min(-(-N // WARPS), max(per_sm, 1) * sm_count), smem, stage_w
 
 
 def _check(bins, weights, ref_hist, n_bins: int) -> None:
@@ -44,9 +62,10 @@ def particle_histogram(bins: torch.Tensor, weights: torch.Tensor,
     hist = torch.empty((N, n_bins), dtype=torch.float32, device=bins.device)
     bc = torch.empty((N,), dtype=torch.float32, device=bins.device)
     if N:
+        blocks, smem, stage_w = launch_shape(N, px, n_bins, _build.sm_count(bins.device))
         _build.launch("particle_histogram_launch", bins.device, bins.data_ptr(),
                       weights.data_ptr(), ref_hist.data_ptr(), hist.data_ptr(),
-                      bc.data_ptr(), N, px, n_bins)
+                      bc.data_ptr(), N, px, n_bins, blocks, smem, int(stage_w))
         particle_histogram.launches += 1
     return hist, bc
 

@@ -95,6 +95,108 @@ def test_histogram_kernel_matches_plain(dev, N, px, B):
     assert torch.equal(h, h2) and torch.equal(bc, bc2)
 
 
+@pytest.mark.parametrize("n_bins", [1, 7, 16, 32])
+@pytest.mark.parametrize("px", [1, 3, 517, 4096])
+@pytest.mark.parametrize("N", [1, 5, 4096])
+def test_histogram_kernel_edge_cases(dev, N, px, n_bins):
+    """Rows that do not start on 16 bytes (px % 4 != 0), ragged tails, bins
+    outside [0, n_bins), one particle to the main path's 4096: within 1e-5
+    of the plain version and bit-for-bit repeatable."""
+    rng = np.random.default_rng(N * 7919 + px * 31 + n_bins)
+    bins = torch.as_tensor(rng.integers(-2, n_bins + 2, (N, px)).astype(np.int32), device=dev)
+    w = torch.as_tensor(rng.uniform(0.1, 1, (px,)).astype(np.float32), device=dev)
+    rh = torch.as_tensor(rng.uniform(0, 1, (n_bins,)).astype(np.float32), device=dev)
+    rh = rh / rh.sum()
+    h, bc = ops.particle_histogram(bins, w, rh)
+    hp, bcp = ops.particle_histogram(bins, w, rh, use_kernel=False)
+    assert torch.allclose(h, hp, atol=1e-5, rtol=0) and torch.allclose(bc, bcp, atol=1e-5, rtol=0)
+    h2, bc2 = ops.particle_histogram(bins, w, rh)
+    assert torch.equal(h, h2) and torch.equal(bc, bc2)
+
+
+@pytest.mark.parametrize("N,px", [(5, 517), (64, 4096)])
+def test_histogram_kernel_reads_unaligned_bases(dev, N, px):
+    """bins and weights that start 4 bytes past a 16-byte boundary (views
+    one element into their storage) are read correctly."""
+    rng = np.random.default_rng(px)
+    flat = torch.as_tensor(rng.integers(-1, 17, (N * px + 1,)).astype(np.int32), device=dev)
+    bins = flat[1:].view(N, px)
+    w = torch.as_tensor(rng.uniform(0.1, 1, (px + 1,)).astype(np.float32), device=dev)[1:]
+    assert bins.data_ptr() % 16 and w.data_ptr() % 16
+    rh = torch.full((16,), 1 / 16, device=dev)
+    h, bc = ops.particle_histogram(bins, w, rh)
+    hp, bcp = ops.particle_histogram(bins.clone(), w.clone(), rh, use_kernel=False)
+    assert torch.allclose(h, hp, atol=1e-5, rtol=0) and torch.allclose(bc, bcp, atol=1e-5, rtol=0)
+
+
+def test_histogram_kernel_with_weights_not_staged(dev):
+    """A ROI too large for the weights to be staged in shared memory reads
+    them from global memory."""
+    N, px = 6, 224 * 224
+    assert not histogram.launch_shape(N, px, 16, 132)[2]
+    rng = np.random.default_rng(224)
+    bins = torch.as_tensor(rng.integers(0, 16, (N, px)).astype(np.int32), device=dev)
+    w = torch.as_tensor(rng.uniform(0.1, 1, (px,)).astype(np.float32), device=dev)
+    rh = torch.full((16,), 1 / 16, device=dev)
+    h, bc = ops.particle_histogram(bins, w, rh)
+    hp, bcp = ops.particle_histogram(bins, w, rh, use_kernel=False)
+    assert torch.allclose(h, hp, atol=1e-5, rtol=0) and torch.allclose(bc, bcp, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("R", [1, 3, 5, 512])
+@pytest.mark.parametrize("C", [1, 37, 300, 1001])
+@pytest.mark.parametrize("M", [1, 64])
+def test_gf2_bmvm_kernel_random_luts(dev, M, C, R):
+    """The kernel's contract is any int32 LUT (C, 2^k, R): random words, C
+    not a multiple of the chunk, R not a multiple of 4; equal to the plain
+    version, and a second launch repeats it."""
+    k = 4
+    rng = np.random.default_rng(M * 1000003 + C * 101 + R)
+    lut = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (C, 2 ** k, R), dtype=np.int64)
+                          .astype(np.int32), device=dev)
+    vw = torch.as_tensor(rng.integers(0, 2 ** k, (M, C)).astype(np.int32), device=dev)
+    chunk, n_chunks = gf2_bmvm.launch_shape(M, C, R, torch.cuda.get_device_properties(dev)
+                                            .multi_processor_count)
+    if C >= 300:
+        assert C % chunk and n_chunks > 1
+    out = ops.gf2_bmvm(lut, vw)
+    assert torch.equal(out, ops.gf2_bmvm(lut, vw, use_kernel=False))
+    assert torch.equal(out, ops.gf2_bmvm(lut, vw))
+
+
+@pytest.mark.parametrize("R", [5, 512])
+def test_gf2_bmvm_kernel_reads_an_unaligned_lut(dev, R):
+    """A LUT that starts 4 bytes past a 16-byte boundary takes the 4-byte
+    loads and is read correctly."""
+    C, P, M = 300, 16, 64
+    rng = np.random.default_rng(R)
+    flat = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (C * P * R + 1,), dtype=np.int64)
+                           .astype(np.int32), device=dev)
+    lut = flat[1:].view(C, P, R)
+    assert lut.data_ptr() % 16
+    vw = torch.as_tensor(rng.integers(0, P, (M, C)).astype(np.int32), device=dev)
+    assert torch.equal(ops.gf2_bmvm(lut, vw), ops.gf2_bmvm(lut.clone(), vw, use_kernel=False))
+
+
+def test_gf2_bmvm_kernel_masks_indices_to_k_bits(dev):
+    """Index words with bits above k select the row of their low k bits."""
+    rng = np.random.default_rng(5)
+    lut = torch.as_tensor(rng.integers(0, 2 ** 31, (40, 16, 64)).astype(np.int32), device=dev)
+    vw = torch.as_tensor(rng.integers(0, 2 ** 20, (3, 40)).astype(np.int32), device=dev)
+    assert torch.equal(ops.gf2_bmvm(lut, vw), ops.gf2_bmvm(lut, vw & 15, use_kernel=False))
+
+
+def test_gf2_bmvm_kernel_takes_c_past_the_first_kernels_limit(dev):
+    """C = 16384 words of v (64 KiB) exceeded the first kernel's 48 KiB
+    shared-memory row; a block now stages its chunk 1024 columns at a time."""
+    C, P, R, M = 16384, 2, 8, 3
+    assert gf2_bmvm.launch_shape(M, C, R, 132)[0] > 1024
+    rng = np.random.default_rng(16384)
+    lut = torch.as_tensor(rng.integers(0, 2 ** 31, (C, P, R)).astype(np.int32), device=dev)
+    vw = torch.as_tensor(rng.integers(0, P, (M, C)).astype(np.int32), device=dev)
+    assert torch.equal(ops.gf2_bmvm(lut, vw), ops.gf2_bmvm(lut, vw, use_kernel=False))
+
+
 @pytest.mark.parametrize("case", ["dtype", "contiguity", "degree", "devices", "bins"])
 def test_wrappers_reject_what_the_kernels_do_not_take(dev, case):
     u = torch.randn(8, 3, device=dev)

@@ -302,6 +302,93 @@ def test_num_splits(B, Hq, S, T):
         assert n == 3                                   # 80 blocks -> 240
 
 
+# -- launch shapes of the case-study kernels --------------------------------------
+
+BMVM_SHAPES = [(64, 512, 512), (1, 512, 512), (1, 1, 1), (64, 1, 5), (5, 37, 3), (1, 300, 512),
+               (64, 300, 512), (64, 1000, 512), (4096, 512, 512), (1, 100000, 512),
+               (64, 2048, 2048), (3, 20000, 7)]
+
+
+@pytest.mark.parametrize("M,C,R", BMVM_SHAPES)
+def test_bmvm_launch_shape_covers_c_and_r_once(M, C, R):
+    """The chunks tile [0, C) and the R tiles [0, R) exactly once, no block
+    is empty, and the chunks of one (m, R tile) make one portable cluster."""
+    chunk, n_chunks = gf2_bmvm.launch_shape(M, C, R, 132)
+    assert chunk >= gf2_bmvm.MIN_CHUNK and chunk % gf2_bmvm.MIN_CHUNK == 0
+    assert 1 <= n_chunks <= gf2_bmvm.MAX_CHUNKS
+    seen = np.zeros(C, np.int64)
+    for i in range(n_chunks):
+        lo, hi = i * chunk, min((i + 1) * chunk, C)
+        assert lo < hi
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    r_tiles = -(-R // gf2_bmvm.R_TILE)
+    words = np.zeros(R, np.int64)
+    for z in range(r_tiles):
+        for t in range(gf2_bmvm.THREADS):
+            r = z * gf2_bmvm.R_TILE + 4 * t
+            words[r:min(r + 4, R)] += 1
+    assert (words == 1).all()
+
+
+@pytest.mark.parametrize("sm_count", [114, 132])
+def test_bmvm_launch_shape_fills_the_card_at_the_main_shape(sm_count):
+    """BMVM n=4096, k=8, M=64 (LUT (512, 256, 512)): at least one block per
+    SM, chunks of whole unrolled batches, no more blocks than the target."""
+    chunk, n_chunks = gf2_bmvm.launch_shape(64, 512, 512, sm_count)
+    blocks = 64 * n_chunks
+    assert sm_count <= blocks <= gf2_bmvm.BLOCKS_PER_SM * sm_count
+    assert chunk % gf2_bmvm.MIN_CHUNK == 0
+    assert (chunk, n_chunks) == (64, 8)                  # 128 blocks of 256 -> 512 of 128
+
+
+@pytest.mark.parametrize("M,C,R", [(1, 1, 1), (1, 1, 4), (1, 7, 1)])
+def test_bmvm_launch_shape_degenerate_sizes(M, C, R):
+    chunk, n_chunks = gf2_bmvm.launch_shape(M, C, R, 132)
+    assert n_chunks == 1 and chunk >= C
+
+
+HIST_SHAPES = [(4096, 4096, 16), (1, 1, 1), (1, 3, 7), (5, 517, 32), (4096, 517, 7),
+               (100000, 4096, 32), (10, 50176, 16), (4096, 24576, 16), (4096, 24577, 16),
+               (3, 0, 4)]
+
+
+@pytest.mark.parametrize("N,px,n_bins", HIST_SHAPES)
+def test_histogram_launch_shape_covers_each_particle_once(N, px, n_bins):
+    """Warp (b, w) walks particles b * WARPS + w + k * blocks * WARPS: every
+    particle once; the block's shared memory holds the per-lane columns and,
+    when staged, w, and fits one SM."""
+    blocks, smem, stage_w = histogram.launch_shape(N, px, n_bins, 132)
+    assert 1 <= blocks <= 2 ** 31 - 1
+    stride = blocks * histogram.WARPS
+    seen = np.zeros(N, np.int64)
+    for n0 in range(min(stride, N)):
+        seen[n0::stride] += 1
+    assert (seen == 1).all()
+    assert stage_w == (px * 4 <= histogram.MAX_STAGED_W)
+    assert smem == histogram.WARPS * 32 * n_bins * 4 + (px * 4 if stage_w else 0)
+    assert smem + histogram.SMEM_PER_BLOCK_RESERVED <= histogram.SMEM_PER_SM
+
+
+@pytest.mark.parametrize("sm_count", [114, 132])
+def test_histogram_launch_shape_fills_the_card_at_the_main_shape(sm_count):
+    """Particle filter 4096 particles of a 64x64 ROI, 16 bins: w staged, all
+    blocks resident at once (by registers and shared memory), one warp per
+    particle where the card holds 512 blocks (132 SMs), at most two where it
+    does not (114)."""
+    blocks, smem, stage_w = histogram.launch_shape(4096, 4096, 16, sm_count)
+    per_sm = min(histogram.MIN_BLOCKS_PER_SM,
+                 histogram.SMEM_PER_SM // (smem + histogram.SMEM_PER_BLOCK_RESERVED))
+    assert stage_w and sm_count <= blocks <= per_sm * sm_count
+    assert -(-4096 // (blocks * histogram.WARPS)) == (1 if sm_count == 132 else 2)
+
+
+@pytest.mark.parametrize("N", [1, 7, 8, 9])
+def test_histogram_launch_shape_degenerate_sizes(N):
+    blocks, _, _ = histogram.launch_shape(N, 64, 8, 132)
+    assert blocks == -(-N // histogram.WARPS)
+
+
 # -- wrappers: routing, checks, counters ----------------------------------------
 
 def _sample_args():
