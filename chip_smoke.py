@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, then runs five phases and raises on any failure:
+with ``nvcc``, then runs six phases and raises on any failure:
 
 1. environment — the card, its power limit, torch/CUDA versions, build time,
                  ptxas's registers, spills and shared memory of each kernel;
@@ -26,7 +26,14 @@ with ``nvcc``, then runs five phases and raises on any failure:
    before and read just after (64 flash calls and 32 combines per prefill,
    none per decode step); then every flash call of a prefill held to the
    plain version on its own inputs, the end-to-end gap to the plain path
-   (``attn_impl="naive"``) printed, and the SMOKE config held to the CPU.
+   (``attn_impl="naive"``) printed, and the SMOKE config held to the CPU;
+6. partitioned execution on the card — the BMVM NoC cut into 2 and 4 pods over
+   quasi-SERDES bridges (table 8's gates: every wire width x compression,
+   outputs and non-bridge NoCStats equal to the uncut run, analytic bridge
+   stats equal to the simulator, every counter equal to the CPU run), the
+   64-node BMVM n=1024 NoC cut in 2 and 4 pods, the LDPC and particle-filter
+   NoCs cut, the seed loop ``sim_python`` against ``sim``, the placement
+   search and pod-cut co-optimizer, and the serdes endpoints on the card.
 
 Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
@@ -143,7 +150,7 @@ def main():
     from repro_torch.apps import bmvm, ldpc
     from repro_torch.apps import particle_filter as pf
     import torch.nn.functional as F
-    from repro_torch.kernels import _build, flash_attention, ops, ref
+    from repro_torch.kernels import _build, flash_attention, histogram, ops, ref
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -208,6 +215,13 @@ def main():
         u = torch.randn(shape, generator=g, device=dev) * 4
         err = (ops.minsum_check(u) - ops.minsum_check(u, use_kernel=False)).abs().max().item()
         check(err <= 1e-6, f"minsum_check differs by {err} at {shape}")
+    # degrees past 32 and the bf16/fp16 instances: bit for bit in every dtype
+    for shape in [(100, 33), (513, 64), (20, 1000), (3, 20000)]:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            u = (torch.randn(shape, generator=g, device=dev) * 4).to(dt)
+            out = ops.minsum_check(u)
+            check(out.dtype == dt and torch.equal(out, ops.minsum_check(u, use_kernel=False)),
+                  f"minsum_check {dt} differs from its plain version at {shape}")
     # gf2_bmvm on random int32 LUTs (its contract): C not a multiple of the
     # chunk, R not a multiple of 4, and a LUT 4 bytes past a 16-byte boundary
     for m, c, r in [(m, c, r) for m in (1, 64) for c in (37, 300, 1001) for r in (1, 3, 5, 512)]:
@@ -247,9 +261,24 @@ def main():
             check(err <= 1e-5 and torch.equal(hk, h2) and torch.equal(bk, b2),
                   f"particle_histogram differs by {err} (or does not repeat) at {(N, px, B)} "
                   f"(base offsets {b.data_ptr() % 16}, {w.data_ptr() % 16} bytes)")
+    # more bins than lanes: a warp's columns take 1 KB a bin, so a block holds
+    # fewer warps (down to one at 1816 bins) and the weights may stay unstaged
+    for N, px, B in [(5, 517, 33), (4096, 517, 64), (64, 4096, 100), (33, 517, 256),
+                     (7, 4096, 1816)]:
+        b = torch.randint(-2, B + 2, (N, px), generator=g, device=dev, dtype=torch.int32)
+        w = torch.rand(px, generator=g, device=dev) * 0.9 + 0.1
+        rh = torch.rand(B, generator=g, device=dev)
+        rh = rh / rh.sum()
+        hk, bk = ops.particle_histogram(b, w, rh)
+        hp, bp = ops.particle_histogram(b, w, rh, use_kernel=False)
+        err = max((hk - hp).abs().max().item(), (bk - bp).abs().max().item())
+        h2, b2 = ops.particle_histogram(b, w, rh)
+        check(err <= 1e-5 and torch.equal(hk, h2) and torch.equal(bk, b2),
+              f"particle_histogram differs by {err} (or does not repeat) at {(N, px, B)}")
     print("kernel sweeps of tests/test_kernels.py and the edge cases of tests/test_torch_cuda.py "
-          "(random gf2 LUTs, unaligned bases, 1-32 bins, ragged rows): the three case-study "
-          "kernels agree with their plain versions")
+          "(random gf2 LUTs, unaligned bases, 1-1816 bins, ragged rows, min-sum degrees up to "
+          "20000 in float32/bf16/fp16): the three case-study kernels agree with their plain "
+          "versions")
 
     kernels = []
 
@@ -284,6 +313,18 @@ def main():
     report("minsum_check", "src/repro/kernels/minsum.py:31", err, 1e-6,
            lambda: ops.minsum_check(u_main), lambda: ops.minsum_check(u_main, use_kernel=False),
            2 * n_chk * deg * 4, 8 * n_chk * deg, FP32_OPS_PER_S)
+    # the same elements at degree 64, and the main shape in bf16
+    minsum_rows = []
+    for shape, dt in (((n_chk * deg // 64, 64), torch.float32), ((n_chk, deg), torch.bfloat16)):
+        u_x = u_main.reshape(shape).to(dt)
+        err = (ops.minsum_check(u_x).float() - ops.minsum_check(u_x, use_kernel=False).float()
+               ).abs().max().item()
+        row = measure(f"minsum_check {shape} {dt}", err, 1e-6 if dt == torch.float32 else 0,
+                      lambda: ops.minsum_check(u_x),
+                      lambda: ops.minsum_check(u_x, use_kernel=False),
+                      2 * u_x.numel() * u_x.element_size(), 8 * u_x.numel(), FP32_OPS_PER_S)
+        minsum_rows.append(dict(row, shape=list(shape), dtype=str(dt).split(".")[-1]))
+    kernels[-1]["other_shapes"] = minsum_rows
 
     N, px = bins_main.shape
     nb = pcfg.n_bins
@@ -302,6 +343,26 @@ def main():
            lambda: ops.particle_histogram(bins_main, dw, ref_hist, use_kernel=False),
            N * px * 4 + px * 4 + nb * 4 + N * nb * 4 + N * 4, N * px + 4 * N * nb,
            FP32_OPS_PER_S)
+    # the main shape's bin map at 64 and 256 bins (fewer warps a block, w
+    # unstaged at 256)
+    hist_rows = []
+    for nb_x in (64, 256):
+        b_x = torch.randint(0, nb_x, (N, px), generator=g, device=dev, dtype=torch.int32)
+        r_x = torch.rand(nb_x, generator=g, device=dev)
+        r_x = r_x / r_x.sum()
+        hk, bk = ops.particle_histogram(b_x, dw, r_x)
+        hp, bp = ops.particle_histogram(b_x, dw, r_x, use_kernel=False)
+        err = max((hk - hp).abs().max().item(), (bk - bp).abs().max().item())
+        del hp, bp
+        row = measure(f"particle_histogram {(N, px)} {nb_x} bins", err, 1e-5,
+                      lambda: ops.particle_histogram(b_x, dw, r_x),
+                      lambda: ops.particle_histogram(b_x, dw, r_x, use_kernel=False),
+                      N * px * 4 + px * 4 + nb_x * 4 + N * nb_x * 4 + N * 4,
+                      N * px + 4 * N * nb_x, FP32_OPS_PER_S)
+        hist_rows.append(dict(row, shape=[N, px], n_bins=nb_x,
+                              launch_shape=list(histogram.launch_shape(N, px, nb_x,
+                                                                  _build.sm_count(dev)))))
+    kernels[-1]["other_shapes"] = hist_rows
 
     # flash attention: the sweep of tests/test_kernels.py (f32, both masks), a
     # bf16 case, then whisper's two shapes in bf16 (non-causal): the encoder's
@@ -344,6 +405,22 @@ def main():
     q, k, v = qkv(2, 8, 2, 150, 300, 64, torch.float16)
     err16 = max(flash_err(q, k, v, c) for c in (True, False))
     check(err16 <= 3e-2, f"flash_attention fp16 differs by {err16}")
+    # head dims past 128: the f32 kernel's 8-lane instance (3e-5) and the
+    # tensor-core kernel's DP = 256 instance (3e-2), each counted as such
+    wide = {}
+    for D_ in (160, 192, 256):
+        for dt, tol, inst in ((torch.float32, 3e-5, "f32_g8"), (torch.bfloat16, 3e-2, "tc256")):
+            for S_, T_ in ((37, 64), (130, 129), (1, 1500)):
+                for causal in (True, False):
+                    before = flash_attention.flash_attention.instance_launches.get(inst, 0)
+                    err = flash_err(*qkv(1, 4, 2, S_, T_, D_, dt), causal)
+                    check(err <= tol and flash_attention.flash_attention.instance_launches[inst]
+                          == before + 1, f"flash_attention {dt} differs by {err} at D={D_} "
+                          f"S={S_} T={T_} causal={causal} (or did not take {inst})")
+                    wide[(D_, str(dt))] = max(wide.get((D_, str(dt)), 0.0), err)
+    print("flash_attention at D = 160/192/256 (f32 8-lane instance, atol 3e-5; bf16 DP = 256 "
+          "tensor-core instance, atol 3e-2): worst max_abs_err " +
+          ", ".join(f"D={d} {t.split('.')[-1]} {e:.2e}" for (d, t), e in sorted(wide.items())))
     print(f"flash_attention bf16 grid ({n_cases} cases, D in 16/40/64/100/128, S and T in "
           f"1/37/64/1500, GQA 4:2, both masks): worst max_abs_err {worst:.3e} (atol 3e-2), "
           f"blind rows exactly zero; fp16 (2, 8:2, 150, 300, 64): {err16:.3e}")
@@ -362,6 +439,19 @@ def main():
                       lambda: F.scaled_dot_product_attention(q, k, v))
         flash_rows.append(dict(row, shape=list(shape), dtype="bfloat16", causal=False,
                                n_split=n_split))
+    # gemma-7b's head dim (D = 256, causal), the DP = 256 instance unsplit
+    B_, H_, S_, D_ = 1, 16, 1024, 256
+    qg, kg, vg = qkv(B_, H_, H_, S_, S_, D_, torch.bfloat16)
+    row = measure(f"flash_attention {(B_, H_, S_, S_, D_)} bf16 causal",
+                  flash_err(qg, kg, vg, True), 3e-2,
+                  lambda: ops.flash_attention(qg, kg, vg, True, True),
+                  lambda: flash_attention.flash_attention_plain(qg, kg, vg, True),
+                  2 * (qg.numel() + kg.numel()) * 2,
+                  4 * B_ * H_ * D_ * S_ * (S_ + 1) // 2, BF16_OPS_PER_S,
+                  lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=True))
+    flash_rows.append(dict(row, shape=[B_, H_, S_, S_, D_], dtype="bfloat16", causal=True,
+                           n_split=flash_attention.num_splits(B_, H_, S_, S_, sm, D_)))
+    del qg, kg, vg
     # the combine kernel alone, on the cross shape's partials (bf16 out, as on
     # the main path); checked in float32 against its plain version
     m, l, acc = flash_attention.flash_attention_partials(q, k, v, False, n_split)
@@ -465,6 +555,9 @@ def main():
         if kern["name"] == "flash_attention":
             kern["launches"] = serve_stats["launches"]
             kern["combine"]["launches"] = serve_stats["combine_launches"]
+
+    # -- phase 6: partitioned execution on the card --------------------------------
+    partition_phase(torch, dev)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -610,6 +703,169 @@ def whisper_phase(torch, dev):
     return dict(launches=counts["flash_attention"], combine_launches=combines,
                 serve_s=serve_s, peak_bytes=peak,
                 prefill_ms=pre_k * 1e3, decode_ms=statistics.median(dec_k) * 1e3)
+
+
+def partition_phase(torch, dev):
+    """Phase 6: the NoC cut into pods over quasi-SERDES bridges, on the card,
+    held to the uncut run and to the port's own CPU run."""
+    from repro_torch import core
+    from repro_torch.apps import bmvm, ldpc
+    from repro_torch.apps import particle_filter as pf
+    from repro_torch.core import serdes
+
+    t_phase = time.perf_counter()
+
+    def bridge_free(st):
+        return {k: v for k, v in st.as_dict().items()
+                if not k.startswith(("bridge_", "cross_pod_"))}
+
+    # table 8's gates: BMVM n=64 on the 8-node mesh, 2 and 4 pods, every wire
+    # width x compression at 2 lanes
+    rng = np.random.default_rng(8)
+    cfg = bmvm.BMVMConfig(n=64, k=8, fold=2)
+    A = rng.integers(0, 2, (64, 64)).astype(np.uint8)
+    v = rng.integers(0, 2, (64,)).astype(np.uint8)
+    lut, lut_cpu = bmvm.preprocess(A, cfg), bmvm.preprocess(A, cfg, device="cpu")
+    sw = bmvm.software_ref(A, v[None], 2)
+    g, _ = bmvm.build_bmvm_graph(lut, cfg)
+    topo = core.make_topology("mesh", 8)
+    out0, st0 = bmvm.iterate_noc_sim(lut, v, cfg, 2, topology="mesh")
+    cuts = {2: [0] * 4 + [1] * 4, 4: [0, 0, 1, 1, 2, 2, 3, 3]}
+    beats = {}
+    for n_pods, pods in cuts.items():
+        for wb in (8, 16, 32):
+            for comp in ("none", "bf16"):
+                scfg = core.QuasiSerdesConfig(wire_bits=wb, lanes=2, compress=comp)
+                out, st = bmvm.iterate_noc_sim(lut, v, cfg, 2, topology="mesh", pods=pods,
+                                               serdes_cfg=scfg)
+                _, st_cpu = bmvm.iterate_noc_sim(lut_cpu, v, cfg, 2, topology="mesh", pods=pods,
+                                                 serdes_cfg=scfg, device="cpu")
+                what = f"BMVM n=64 cut into {n_pods} pods, wire {wb} bits, {comp}"
+                check(np.array_equal(out, out0) and np.array_equal(out.reshape(1, -1), sw),
+                      f"{what}: outputs differ from the uncut run or software_ref")
+                check(bridge_free(st) == bridge_free(st0),
+                      f"{what}: non-bridge NoCStats differ from the uncut run")
+                check(st.as_dict() == st_cpu.as_dict() and st.bridge_beats > 0,
+                      f"{what}: NoCStats differ from the CPU run: {st.as_dict()} vs "
+                      f"{st_cpu.as_dict()}")
+                plan = core.cut(g, core.place_round_robin(g, topo), pods, scfg)
+                bprog = core.compile_bridges(core.compile_routes(topo), plan,
+                                             core.BridgeConfig(serdes=scfg, fifo_depth=8))
+                cube = torch.as_tensor(rng.integers(0, 255, (8, 8, 16), dtype=np.uint8),
+                                       device=dev)
+                d, _, b_sim = core.simulate_bridged_program(bprog, cube)
+                check(torch.equal(d, cube.transpose(0, 1)) and
+                      core.bridge_program_stats(bprog, cube.numel()).as_dict()
+                      == b_sim.as_dict(), f"{what}: bridged cube delivery or stats differ")
+                beats[(n_pods, wb, comp)] = (st.bridge_beats, st.bridge_stall_rounds)
+    print("table 8 on the card: BMVM n=64 cut into 2 and 4 pods x wire 8/16/32 x none/bf16 "
+          "equal to the uncut run and software_ref, non-bridge NoCStats unchanged, every "
+          "counter equal to the CPU run, analytic bridge stats == the simulator; (beats, "
+          "stall rounds): " + ", ".join(f"p{p}w{w}{c}={b}" for (p, w, c), b in beats.items()))
+
+    # at full NoC size: BMVM n=1024 fold=4 (32 + 32 PEs) on the 8x8 mesh
+    big = bmvm.BMVMConfig(n=1024, k=8, fold=4)
+    Ab = rng.integers(0, 2, (1024, 1024)).astype(np.uint8)
+    vb = rng.integers(0, 2, (1024,)).astype(np.uint8)
+    lut_b, lut_b_cpu = bmvm.preprocess(Ab, big), bmvm.preprocess(Ab, big, device="cpu")
+    swb = bmvm.software_ref(Ab, vb[None], 2)
+    walls = {}
+    for name, pods in (("uncut", None), ("2 pods", [0] * 32 + [1] * 32),
+                       ("4 pods", [i // 16 for i in range(64)])):
+        bmvm.iterate_noc_sim(lut_b, vb, big, 1, topology="mesh", n_nodes=64, pods=pods)
+        (out, st), secs = wall(torch, lambda: bmvm.iterate_noc_sim(
+            lut_b, vb, big, 2, topology="mesh", n_nodes=64, pods=pods))
+        _, st_cpu = bmvm.iterate_noc_sim(lut_b_cpu, vb, big, 2, topology="mesh", n_nodes=64,
+                                         pods=pods, device="cpu")
+        check(np.array_equal(out.reshape(1, -1), swb), f"BMVM n=1024 {name}: differs from "
+              "software_ref")
+        check(st.as_dict() == st_cpu.as_dict(), f"BMVM n=1024 {name}: NoCStats differ from "
+              f"the CPU run: {st.as_dict()} vs {st_cpu.as_dict()}")
+        if pods is None:
+            out_uncut, st_uncut = out, st
+        else:
+            check(np.array_equal(out, out_uncut) and bridge_free(st) == bridge_free(st_uncut),
+                  f"BMVM n=1024 {name}: differs from the uncut run")
+        walls[name] = secs
+        print(f"  BMVM n=1024 fold=4 on the 8x8 mesh, {name}, r=2: {secs * 1e3:.3f} ms wall, "
+              f"equal to software_ref and NoCStats equal to the CPU run: rounds={st.rounds} "
+              f"bridge_beats={st.bridge_beats} bridge_wire_bytes={st.bridge_wire_bytes} "
+              f"bridge_stall_rounds={st.bridge_stall_rounds} bridge_peak_fifo="
+              f"{st.bridge_peak_fifo}")
+
+    # the other two apps, cut
+    llr7 = ldpc.awgn_llr(np.zeros(7, np.int8), 3.0, rng)
+    H = ldpc.fano_plane_H()
+    bits0, post0, st0 = ldpc.decode_on_noc(H, llr7, 10, topology="mesh", n_nodes=16)
+    for pods in ([0] * 8 + [1] * 8, [i // 4 for i in range(16)]):
+        bits, post, st = ldpc.decode_on_noc(H, llr7, 10, topology="mesh", n_nodes=16, pods=pods)
+        check(np.array_equal(bits, bits0) and np.array_equal(post, post0)
+              and bridge_free(st) == bridge_free(st0) and st.bridge_beats > 0,
+              f"Fano LDPC cut into {max(pods) + 1} pods differs from the uncut run")
+    scfg = pf.PFConfig(img=128, roi=32, n_particles=256, n_bins=16)
+    frames, _ = pf.synth_video(scfg, 8, rng)
+    noise = [rng.normal(size=(256, 2)).astype(np.float32) for _ in range(7)]
+    c0, st0 = pf.track_on_noc(frames, scfg, n_pe=4, topology="torus", n_nodes=8, noise=noise)
+    c1, st1 = pf.track_on_noc(frames, scfg, n_pe=4, topology="torus", n_nodes=8, noise=noise,
+                              pods=[0] * 4 + [1] * 4)
+    check(np.array_equal(c1, c0) and bridge_free(st1) == bridge_free(st0)
+          and st1.bridge_beats > 0, "PF track_on_noc cut into 2 pods differs from the uncut run")
+    print("Fano LDPC (16-node mesh, 2 and 4 pods) and PF track_on_noc (img 128, roi 32, 256 "
+          "particles, 4 PEs, 8-node torus, 2 pods): equal to their uncut runs")
+
+    # the seed loop and the placement search
+    for name in ("ring", "mesh", "torus", "fattree"):
+        for pods in (None, cuts[2]):
+            runs = {m: bmvm.iterate_noc_sim(lut, v, cfg, 2, topology=name, pods=pods, mode=m)
+                    for m in ("sim", "sim_python")}
+            check(np.array_equal(runs["sim"][0], runs["sim_python"][0])
+                  and runs["sim"][1].as_dict() == runs["sim_python"][1].as_dict(),
+                  f"sim_python differs from sim on {name} (pods {pods})")
+    g_cpu, _ = bmvm.build_bmvm_graph(lut_cpu, cfg)
+    g_ldpc, _ = ldpc.build_ldpc_graph(H)
+    for gname, gg, gg_cpu, tp in (("BMVM n=64", g, g_cpu, topo),
+                                  ("Fano LDPC", g_ldpc, g_ldpc, core.make_topology("mesh", 16))):
+        pl = core.optimize_placement(gg, tp, iters=4000, seed=0)
+        check(pl == core.optimize_placement(gg_cpu, tp, iters=4000, seed=0),
+              f"{gname}: the placement search differs from the CPU-built graph's")
+        c_opt = core.placement_cost(gg, tp, pl)
+        c_rr = core.placement_cost(gg, tp, core.place_round_robin(gg, tp))
+        check(c_opt <= c_rr, f"{gname}: annealed cost {c_opt} above round-robin {c_rr}")
+        print(f"  placement search {gname}: cost {c_opt} (round-robin {c_rr})")
+    tp16 = core.make_topology("mesh", 16)
+    plan, cost = core.optimize_pod_cut(g_ldpc, tp16, n_pods=2)
+    naive = core.placement_cost(g_ldpc, tp16, core.place_round_robin(g_ldpc, tp16),
+                                core.candidate_cuts(tp16, 2)[0], core.QuasiSerdesConfig())
+    check(cost <= naive, f"pod-cut co-optimizer cost {cost} above the naive cut's {naive}")
+    print(f"sim_python == sim on 4 topologies with and without a plan; pod-cut co-optimizer "
+          f"(Fano, 2 pods): cost {cost} <= naive {naive}, serdes {plan.serdes_cfg}")
+
+    # serdes endpoints on the card, against the CPU
+    x = torch.as_tensor(rng.normal(size=(1000,)).astype(np.float32) * 3)
+    res0 = torch.as_tensor(rng.normal(size=(1000,)).astype(np.float32) * 0.01)
+    for comp in ("none", "bf16", "int8"):
+        for wb in (8, 16, 32):
+            c = core.QuasiSerdesConfig(wire_bits=wb, lanes=4, compress=comp, block=64)
+            meta = serdes.plan(x.shape, x.dtype, c)
+            res_in = res0 if comp == "int8" else None
+            w, sw_, res = serdes.encode(x.to(dev), c, meta,
+                                        None if res_in is None else res_in.to(dev))
+            w_c, sw_c, res_c = serdes.encode(x, c, meta, res_in)
+            y = serdes.decode(w, sw_, c, meta)
+            same = (torch.equal(w.cpu().view(torch.uint8), w_c.view(torch.uint8))
+                    and torch.equal(sw_.cpu().view(torch.uint8), sw_c.view(torch.uint8)))
+            if comp == "none":
+                check(same and torch.equal(y.cpu(), x), f"serdes none, {wb} bits: no round trip")
+            elif comp == "bf16":
+                check(same, f"serdes bf16, {wb} bits: words differ from the CPU run")
+            else:
+                err = (res.cpu() - res_c).abs().max().item()
+                check(same and err <= 1e-6, f"serdes int8, {wb} bits: codes or residual "
+                      f"({err}) differ from the CPU run")
+    print("serdes on the card (none/bf16/int8 x wire 8/16/32): none round-trips bit for bit, "
+          "bf16 words and int8 codes equal the CPU run's, int8 residual within 1e-6")
+    print(f"partition phase {time.perf_counter() - t_phase:.2f} s; BMVM n=1024 wall: " +
+          ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in walls.items()))
 
 
 def _to(x, device):

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's main paths, on one GPU.
 
-    python3 scripts/profile_main_path.py
+    python3 scripts/profile_main_path.py [--only PATH[,PATH...]]
 
 At the sizes ``chip_smoke.py`` drives (BMVM n=4096 r=4; LDPC 7168 bits × 512
 codewords × 10 iterations; particle filter 512² × 4096 particles × 16 frames;
 whisper-large-v3 FULL with ``attn_impl="flash"`` at batch 4 and prompt 32: one
 prefill, one decode step, and the prefill of the plain path,
-``attn_impl="naive"``) it times each path on the host clock (median of 5 warm
+``attn_impl="naive"``; the BMVM n=1024 NoC on the 8×8 mesh, r=2, uncut and cut
+into 2 and 4 pods over quasi-SERDES bridges) it times each path on the host clock (median of 5 warm
 runs, each ending in ``torch.cuda.synchronize()``), then traces one more run with
 ``torch.profiler`` and reports the device busy time (sum of the kernel, copy
 and memset activities on the card), their count, the device idle share of
@@ -15,6 +16,7 @@ the traced window, the device activities that take the most time, and the
 device time and launches of each of the port's own kernels.  One JSON line
 per path.
 """
+import argparse
 import json
 import os
 import statistics
@@ -31,7 +33,10 @@ PORT_KERNELS = ("gf2_bmvm_kernel", "minsum_check_kernel", "particle_histogram_ke
                 "flash_attention_f32_kernel")
 
 
-def main():
+def main(argv=None):
+    args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    args.add_argument("--only", default="", help="comma-separated path names (default: all)")
+    only = [p for p in args.parse_args(argv).only.split(",") if p]
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -77,6 +82,15 @@ def main():
             _, state["cache"] = T.decode_step(wparams, {"tokens": wbatch["tokens"][:, :1]},
                                               wcfg, state["cache"])
 
+    big = bmvm.BMVMConfig(n=1024, k=8, fold=4)
+    lut_big = bmvm.preprocess(torch.randint(0, 2, (1024, 1024), generator=g, device=dev,
+                                            dtype=torch.uint8), big)
+    v_big = rng.integers(0, 2, (1024,)).astype(np.uint8)
+
+    def bmvm_noc(pods):
+        return lambda: bmvm.iterate_noc_sim(lut_big, v_big, big, 2, topology="mesh",
+                                            n_nodes=64, pods=pods)
+
     paths = {
         "bmvm_iterate_kernel": lambda: bmvm.iterate_kernel(lut, V, bcfg, 4),
         "ldpc_decode_minsum": lambda: ldpc.decode_minsum(idx, llr, 10),
@@ -84,7 +98,14 @@ def main():
         "whisper_prefill": lambda: whisper_prefill(wcfg),
         "whisper_decode_step": whisper_decode_step,
         "whisper_prefill_plain": lambda: whisper_prefill(wcfg.replace(attn_impl="naive")),
+        "bmvm_noc_n1024_uncut": bmvm_noc(None),
+        "bmvm_noc_n1024_2pods": bmvm_noc([0] * 32 + [1] * 32),
+        "bmvm_noc_n1024_4pods": bmvm_noc([i // 16 for i in range(64)]),
     }
+    unknown = set(only) - set(paths)
+    if unknown:
+        raise SystemExit(f"unknown paths {sorted(unknown)}; choose from {sorted(paths)}")
+    paths = {k: v for k, v in paths.items() if not only or k in only}
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     print(torch.cuda.get_device_name(0), f"torch {torch.__version__}")

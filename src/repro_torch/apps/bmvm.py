@@ -13,7 +13,7 @@ choice dominates performance (the paper's Table V).  Two realizations here:
 Words are int32 on the device (k ≤ 16); the NoC message contracts stay
 ``np.uint32`` as in the reference — same bytes on the wire — and the PEs move
 between the two with bit-preserving views.  ``iterate_spmd`` waits for the
-device-mesh slice (ROADMAP Queue 1 item 11).
+device-mesh slice (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -24,10 +24,10 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..core import NoCExecutor, PE, Port, TaskGraph, make_topology, resolve_placement
+from ..core import PE, Port, TaskGraph, make_topology
 from ..kernels import ops as kops
 from ..kernels import ref as kref
-from . import reject_later_options
+from . import noc_executor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,18 +122,20 @@ def iterate_noc_sim(lut, v_bits, cfg: BMVMConfig, r: int,
                     tracer=None, device="cuda"):
     """(decoded vector (n,) uint8, NoCStats) — the Table-V measurement path.
 
-    ``placement``: 'rr' | 'greedy' or an explicit PE→node mapping.  ``mode``:
-    'sim' or 'direct'.  ``pods``, ``serdes_cfg`` and ``tracer`` raise
-    ``NotImplementedError`` until their slices land."""
-    reject_later_options(pods, serdes_cfg, tracer)
+    ``placement``: 'rr' | 'greedy' | 'opt' (annealing search, cut-aware when
+    ``pods`` is given) or an explicit PE→node mapping.  ``mode``: 'sim',
+    'sim_python' or 'direct'.  ``pods`` (node→pod) turns on partitioned
+    execution: cut links run through quasi-SERDES bridge endpoints
+    (``serdes_cfg``), results stay bit-identical and NoCStats gain the
+    ``bridge_*`` counters.  ``tracer`` raises ``NotImplementedError`` until
+    the telemetry slice lands."""
     dev = resolve_device(device)
     lut = torch.as_tensor(lut, device=dev)
     topo_name = topology or cfg.topology
     n_nodes = n_nodes or 2 * cfg.n_pe
     g, feedback = build_bmvm_graph(lut, cfg)
     topo = make_topology(topo_name, n_nodes)
-    place = resolve_placement(g, topo, placement)
-    ex = NoCExecutor(g, topo, placement=place, device=dev)
+    ex = noc_executor(g, topo, placement, pods, serdes_cfg, tracer, dev)
     v1 = torch.as_tensor(v_bits, device=dev).reshape(-1)   # single vector (n,)
     vw = kref.gf2_pack_vector(v1, cfg.k).view(torch.uint32)
     f = cfg.fold
@@ -147,4 +149,4 @@ def iterate_spmd(*args, **kwargs):
     """The shard_map realization of the reference runs the PEs over a device
     mesh; it belongs to the device-mesh slice of the port."""
     raise NotImplementedError("bmvm.iterate_spmd is not ported yet: device-mesh "
-                              "execution (ROADMAP Queue 1 item 11)")
+                              "execution (ROADMAP Queue 1 item 7)")

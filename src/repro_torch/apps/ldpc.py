@@ -11,8 +11,7 @@ Two realizations, as in ``repro.apps.ldpc``:
   permutation (what the NoC routes).
 
 Channel simulation (``awgn_llr``) and the code tables stay in numpy, as in the
-reference.  The 2-pod cut of Fig. 9 waits for partitioned execution (ROADMAP
-Queue 1 item 7).
+reference.  ``decode_on_noc(pods=...)`` runs the 2-pod cut of Fig. 9.
 """
 from __future__ import annotations
 
@@ -23,10 +22,10 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..core import NoCExecutor, PE, Port, TaskGraph, make_topology, resolve_placement
+from ..core import PE, Port, TaskGraph, make_topology
 from ..kernels import ops as kops
 from ..kernels import ref as kref
-from . import reject_later_options
+from . import noc_executor
 
 
 def fano_plane_H() -> np.ndarray:
@@ -150,16 +149,17 @@ def decode_on_noc(H: np.ndarray, llr: np.ndarray, n_iters: int,
     """Full paper flow: graph → placement → sim.  Returns (bits int8 (N,),
     posterior (N,), NoCStats) as numpy.
 
-    ``placement``: 'rr' | 'greedy' or an explicit PE→node mapping.  Initial
-    check inputs are the channel LLRs of the connected bits (the standard
-    initialization u_ij^{(0)} = llr_j).  ``pods``, ``serdes_cfg`` and
-    ``tracer`` raise ``NotImplementedError`` until their slices land."""
-    reject_later_options(pods, serdes_cfg, tracer)
+    ``placement``: 'rr' | 'greedy' | 'opt' (annealing search, cut-aware when
+    ``pods`` is given) or an explicit PE→node mapping.  Initial check inputs
+    are the channel LLRs of the connected bits (the standard initialization
+    u_ij^{(0)} = llr_j).  With ``pods`` the decode runs partitioned: cut links
+    go through quasi-SERDES bridge endpoints (``serdes_cfg``), bit-identically
+    to the uncut run, and the NoCStats carry the ``bridge_*`` counters.
+    ``tracer`` raises ``NotImplementedError`` until the telemetry slice lands."""
     dev = resolve_device(device)
     g, feedback = build_ldpc_graph(H)
     topo = make_topology(topology, n_nodes)
-    place = resolve_placement(g, topo, placement)
-    ex = NoCExecutor(g, topo, placement=place, device=dev)
+    ex = noc_executor(g, topo, placement, pods, serdes_cfg, tracer, dev)
     M, N = H.shape
     llr_t = torch.as_tensor(np.asarray(llr, np.float32), device=dev)
     inputs = {}

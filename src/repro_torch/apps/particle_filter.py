@@ -21,10 +21,10 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..core import NoCExecutor, PE, Port, TaskGraph, make_topology, resolve_placement
+from ..core import PE, Port, TaskGraph, make_topology
 from ..kernels import ops as kops
 from ..kernels import ref as kref
-from . import reject_later_options
+from . import noc_executor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,15 +180,15 @@ def track_on_noc(frames: np.ndarray, cfg: PFConfig, n_pe: int = 4,
                  tracer=None, noise: Optional[Sequence] = None, device="cuda"):
     """Paper-faithful NoC execution; returns (centers (F, 2), total NoCStats).
 
-    ``placement``: 'rr' | 'greedy' or an explicit PE→node mapping.  ``noise``
-    as in `track`.  ``pods``, ``serdes_cfg`` and ``tracer`` raise
-    ``NotImplementedError`` until their slices land."""
-    reject_later_options(pods, serdes_cfg, tracer)
+    ``placement``: 'rr' | 'greedy' | 'opt' or an explicit PE→node mapping.
+    ``noise`` as in `track`.  ``pods`` (node→pod) runs the tracker
+    partitioned: cut links go through quasi-SERDES bridges (``serdes_cfg``)
+    with identical tracks and ``bridge_*`` counters in the stats.  ``tracer``
+    raises ``NotImplementedError`` until the telemetry slice lands."""
     dev = resolve_device(device)
     g = build_pf_graph(cfg, n_pe)
     topo = make_topology(topology, n_nodes)
-    place = resolve_placement(g, topo, placement)
-    ex = NoCExecutor(g, topo, placement=place, device=dev)
+    ex = noc_executor(g, topo, placement, pods, serdes_cfg, tracer, dev)
     frames_t = torch.as_tensor(frames, device=dev)
     draws = _motion_noise(cfg, frames.shape[0] - 1, noise, dev)
     c = _first_center(frames_t[0])

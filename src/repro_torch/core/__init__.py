@@ -2,16 +2,23 @@
 
 graph      — phase-1 message-passing application model (PEs, channels)
 topology   — CONNECT-analog virtual topologies (ring/mesh/torus/fat-tree)
-routing    — round-by-round schedule simulator on a device message cube
-serdes     — quasi-SERDES framing plan and wire accounting (analytic half)
-partition  — phase-2 placement (round-robin, greedy, explicit)
+routing    — schedule simulator and compiled route programs on a device cube
+serdes     — quasi-SERDES cut-link endpoints (framing, compression, accounting)
+partition  — phase-2 placement (rr, greedy, annealing search) and pod cutting
+interchip  — bridge subsystem: compiled route programs across pod cuts
 noc        — the executor + flit accounting (Tables I–V analogs)
 """
 from .graph import PE, Channel, GraphError, Port, TaskGraph, torch_dtype
+from .interchip import (BridgeConfig, BridgedProgram, BridgeLink, BridgeStats,
+                        PodProgram, bridge_program_stats, compile_bridges,
+                        simulate_bridged_program)
 from .noc import NoCConfig, NoCExecutor, NoCStats, wrapper_overhead
-from .partition import place_greedy, place_round_robin, resolve_placement
-from .routing import ScheduleStats, simulate_schedule
-from .serdes import (LinkMeta, QuasiSerdesConfig, compression_ratio,
+from .partition import (PartitionPlan, candidate_cuts, cut, optimize_placement,
+                        optimize_pod_cut, pair_cut_weights, place_greedy,
+                        place_round_robin, placement_cost, resolve_placement)
+from .routing import (RouteProgram, ScheduleStats, compile_routes, route_program_stats,
+                      simulate_route_program, simulate_schedule, topology_axes)
+from .serdes import (LinkMeta, QuasiSerdesConfig, compression_ratio, decode, encode,
                      link_bytes_on_wire, link_wire_beats, plan)
 from .topology import (AxisSchedule, FatTree, Mesh2D, Ring, Topology, Torus2D,
                        bwd_pairs, compare, fwd_pairs, make_topology)

@@ -1,28 +1,45 @@
-"""NoC executor: run a TaskGraph over a Topology (port of ``repro.core.noc``).
+"""NoC executor: run a TaskGraph over a Topology, optionally cut across pods
+(port of ``repro.core.noc``).
 
 PEs from phase 1 (`core.graph`) are placed on a CONNECT-style topology
 (`core.topology`, `core.partition`) and every message moves through the
-topology's routing schedule (`core.routing.simulate_schedule`) as bytes of a
-device-resident ``(n, n, buf_bytes)`` uint8 message cube.
+topology's routing schedule (`core.routing`) as bytes of a device-resident
+``(n, n, buf_bytes)`` uint8 message cube.
 
 Modes of this port:
 
-* ``direct`` — `TaskGraph.run`, the pure-software oracle.  No NoC, no stats.
-* ``sim``    — the compiled **flit-program engine**: PEs fire wave by wave and
-  each wave's messages are framed into the cube with one scatter, moved round
-  by round with `simulate_schedule`, and gathered back with one gather.
+* ``direct``     — `TaskGraph.run`, the pure-software oracle.  No NoC, no stats.
+* ``sim``        — the compiled **flit-program engine**: PEs fire wave by wave
+  and each wave's messages are framed into the cube with one scatter, moved
+  round by round with `simulate_schedule`, and gathered back with one gather.
   Outputs equal ``direct`` bit for bit; `NoCStats` equal the reference's
   field for field.
+* ``sim_python`` — the seed per-message loop (framing re-derived every wave,
+  one copy per message), the baseline the engine is held against: the same
+  outputs and `NoCStats` as ``sim``.
 
 ``run_batch`` moves B independent input sets through one ``(B, n, n, bytes)``
 simulation (PEs fire per input set), and ``run_iterative`` reuses the
 compiled program across iterations.  PEs fire eagerly on the executor's device.
 
+Partitioned execution (``plan=``)
+---------------------------------
+A `partition.PartitionPlan` splits the compiled route program at the pod cut
+into per-pod programs joined by bridge endpoints (`core.interchip`): every
+pod-crossing hop serializes its traffic through a quasi-SERDES link of
+``lanes`` narrow beats with a FIFO of ``NoCConfig.bridge_fifo_depth`` words.
+The cut is transparent: outputs and every pre-existing `NoCStats` field are
+identical to the uncut run; the static ``cross_pod_*`` counters count the
+messages that cross, and the ``bridge_*`` counters record what the serial
+links did.  ``sim`` and ``run_batch`` really serialize every crossing buffer
+(`interchip.simulate_bridged_program`); ``sim_python`` routes uncut and rolls
+in the analytic `interchip.bridge_program_stats`, which equal the simulator's.
+
 Not in this slice, and raising ``NotImplementedError`` rather than being
-ignored: modes ``sim_python``, ``spmd`` and ``buffered``; partitioned execution
-(``plan=``); telemetry (``trace=``); and static verification
-(``verify="strict"``/``"warn"`` — the port's default is ``"off"`` until the
-analysis slice lands, a planned divergence from the reference's ``"strict"``).
+ignored: modes ``spmd`` and ``buffered`` (with or without a plan); telemetry
+(``trace=``); and static verification (``verify="strict"``/``"warn"`` — the
+port's default is ``"off"`` until the analysis slice lands, a planned
+divergence from the reference's ``"strict"``).
 
 The flit-program compile step
 -----------------------------
@@ -32,7 +49,7 @@ wave, a :class:`_WaveProgram`: the flit-padded byte offset of every message in
 its (src, dst) node buffer (``flit_data_width`` granularity), flat
 ``pack_idx``/``gather_idx`` device index vectors into the cube and the
 delivered ``(n_dst, n_src, buf_bytes)`` cube, and the wave's value-independent
-`NoCStats` increment (payload bytes, flits).
+`NoCStats` increment (payload bytes, flits, cross-pod messages and wire bytes).
 """
 from __future__ import annotations
 
@@ -45,15 +62,16 @@ import torch
 from .._device import resolve_device
 from . import serdes as qserdes
 from .graph import GraphError, TaskGraph, torch_dtype
-from .partition import place_round_robin
-from .routing import simulate_schedule
+from .interchip import (BridgeConfig, BridgedProgram, bridge_program_stats, compile_bridges,
+                        simulate_bridged_program)
+from .partition import PartitionPlan, place_round_robin
+from .routing import _nbytes, compile_routes, simulate_schedule
 from .topology import Topology
 
 # modes of the reference executor that later slices port (ROADMAP Queue 1)
 _LATER_MODES = {
-    "sim_python": "the seed per-message loop (ROADMAP Queue 1 item 5, deferred)",
-    "spmd": "device-mesh execution (ROADMAP Queue 1 item 11)",
-    "buffered": "the buffered wormhole switch (ROADMAP Queue 1 item 8)",
+    "spmd": "device-mesh execution (ROADMAP Queue 1 item 7)",
+    "buffered": "the buffered wormhole switch (ROADMAP Queue 1 item 4)",
 }
 
 
@@ -90,6 +108,16 @@ class NoCStats:
                     max(a, b) if f.name in _MAX_MERGE_FIELDS else a + b)
         return self
 
+    def bridge_counters(self) -> dict:
+        return {k: v for k, v in self.as_dict().items() if k.startswith("bridge_")}
+
+    def _roll_bridge(self, b) -> None:
+        """Fold one wave's BridgeStats in (peak merged by max)."""
+        self.bridge_beats += b.beats
+        self.bridge_wire_bytes += b.wire_bytes
+        self.bridge_stall_rounds += b.stall_rounds
+        self.bridge_peak_fifo = max(self.bridge_peak_fifo, b.peak_fifo)
+
 
 # high-water-mark fields: NoCStats.add merges these by max, not sum
 _MAX_MERGE_FIELDS = frozenset(
@@ -98,9 +126,9 @@ _MAX_MERGE_FIELDS = frozenset(
 
 @dataclasses.dataclass(frozen=True)
 class NoCConfig:
-    """CONNECT "Network and Router Options" analog (paper §VI-B).  The
-    bridge/switch fields are carried for parity with the reference config and
-    are read by the slices that port those transports."""
+    """CONNECT "Network and Router Options" analog (paper §VI-B).  The switch
+    fields are carried for parity with the reference config and are read by
+    the slice that ports the buffered switch."""
 
     flit_data_width: int = 16          # bits
     flit_buffer_depth: int = 8         # per-(src, expert) FIFO depth, in slots
@@ -196,7 +224,7 @@ def _stack(ts: list[torch.Tensor]) -> torch.Tensor:
 class NoCExecutor:
     def __init__(self, graph: TaskGraph, topo: Topology,
                  placement: Optional[Mapping[str, int]] = None,
-                 plan: Optional[Any] = None,
+                 plan: Optional[PartitionPlan] = None,
                  cfg: Optional[NoCConfig] = None,
                  verify: str = "off",
                  trace: Optional[Any] = None,
@@ -204,19 +232,18 @@ class NoCExecutor:
         if verify in ("strict", "warn"):
             raise NotImplementedError(
                 f"verify={verify!r} needs the static verifier (ROADMAP Queue 1 "
-                f"item 9); the port runs with verify='off' until then")
+                f"item 5); the port runs with verify='off' until then")
         if verify != "off":
             raise ValueError(f"verify must be 'strict', 'warn', or 'off', got {verify!r}")
-        if plan is not None:
-            raise NotImplementedError("partitioned execution (plan=) is not ported "
-                                      "yet (ROADMAP Queue 1 item 7)")
         if trace is not None:
             raise NotImplementedError("telemetry (trace=) is not ported yet "
-                                      "(ROADMAP Queue 1 item 10)")
+                                      "(ROADMAP Queue 1 item 6)")
         self.device = resolve_device(device)
         self.graph = graph
         self.topo = topo
-        self.placement = dict(placement or place_round_robin(graph, topo))
+        self.placement = dict(placement or (plan.placement if plan
+                                            else place_round_robin(graph, topo)))
+        self.plan = plan
         self.cfg = cfg or NoCConfig()
         graph.validate()
         self._order = graph.firing_order()
@@ -237,11 +264,23 @@ class NoCExecutor:
         for c in graph.channels:
             self._chan_by_src[c.src_pe].append(c)
         self.programs: list[_WaveProgram] = [self._compile_wave(w) for w in self.waves]
+        # the bridged program is compiled on the first partitioned run
+        self._bridge_prog: Optional[BridgedProgram] = None
+
+    def _ensure_bridge(self) -> BridgedProgram:
+        """Compile the partitioned (bridged) program once per executor."""
+        if self._bridge_prog is None:
+            self._bridge_prog = compile_bridges(
+                compile_routes(self.topo), self.plan,
+                BridgeConfig(serdes=self.plan.serdes_cfg,
+                             fifo_depth=self.cfg.bridge_fifo_depth))
+        return self._bridge_prog
 
     # -- compile -------------------------------------------------------------
     def _compile_wave(self, wave: list[str]) -> _WaveProgram:
         g, cfg = self.graph, self.cfg
         n = self.topo.n_nodes
+        pod_of = self.plan.pod_of_node if self.plan is not None else None
         slots: list[_MsgSlot] = []
         pair_off: dict[tuple[int, int], int] = {}
         static = NoCStats()
@@ -261,6 +300,11 @@ class NoCExecutor:
                 seg += nbytes
                 static.payload_bytes += nbytes
                 static.flits += cfg.flits_for(nbytes)
+                if pod_of is not None and pod_of[s] != pod_of[d]:
+                    static.cross_pod_msgs += 1
+                    static.cross_pod_wire_bytes += qserdes.link_bytes_on_wire(
+                        tuple(port.shape), port.dtype, cfg.serdes)
+                    static.cross_pod_beats += cfg.serdes.lanes
         buf_bytes = max(pair_off.values(), default=0)
         pack, gather = [], []
         for slot, (s, d, off) in zip(slots, placed):
@@ -298,18 +342,20 @@ class NoCExecutor:
         return {k: torch.as_tensor(v, device=self.device) for k, v in inputs.items()}
 
     @staticmethod
-    def _check_mode(mode: str) -> None:
+    def _check_mode(mode: str, modes: tuple[str, ...]) -> None:
         if mode in _LATER_MODES:
             raise NotImplementedError(f"mode={mode!r} is not ported yet: {_LATER_MODES[mode]}")
-        if mode not in ("direct", "sim"):
-            raise GraphError(f"unknown mode {mode!r}; use 'direct'|'sim'")
+        if mode not in modes:
+            raise GraphError(f"unknown mode {mode!r}; use {'|'.join(map(repr, modes))}")
 
     # ------------------------------------------------------------------
     def run(self, inputs: Mapping[str, Any], mode: str = "sim") -> tuple[dict[str, Any], NoCStats]:
-        self._check_mode(mode)
+        self._check_mode(mode, ("direct", "sim", "sim_python"))
         inputs = self._to_device(inputs)
         if mode == "direct":
             return self.graph.run(inputs), NoCStats()
+        if mode == "sim_python":
+            return self._run_sim_python(inputs)
         mailbox = {tuple(k.split(".")): v for k, v in inputs.items()}
         return self._run_compiled(mailbox, B=None)
 
@@ -321,8 +367,8 @@ class NoCExecutor:
         ``sim`` moves all B message sets through the topology in a single
         ``(B, n, n, bytes)`` :func:`simulate_schedule` call.  Stats:
         waves/rounds are physical (counted once — the batch shares the
-        schedule), while payload/flit/link byte counters scale with B."""
-        self._check_mode(mode)
+        schedule), while payload/flit/link/cross-pod byte counters scale with B."""
+        self._check_mode(mode, ("direct", "sim"))
         if not inputs:
             raise GraphError("run_batch needs at least one input")
         inputs = self._to_device(inputs)
@@ -362,7 +408,14 @@ class NoCExecutor:
                                    device=self.device)
             msgs_arr[..., prog.pack_idx] = payload
             cube = msgs_arr.reshape(lead + (n, n, prog.buf_bytes))
-            delivered, sstats = simulate_schedule(topo, cube, batched=B is not None)
+            bstats = None
+            if self.plan is not None:
+                # partitioned: same schedule, pod-crossing hops serialized
+                # through the bridge endpoints
+                delivered, sstats, bstats = simulate_bridged_program(
+                    self._ensure_bridge(), cube, batched=B is not None)
+            else:
+                delivered, sstats = simulate_schedule(topo, cube, batched=B is not None)
             recv = delivered.reshape(lead + (-1,))[..., prog.gather_idx]
             for slot in prog.slots:
                 seg = recv[..., slot.a:slot.b].clone()   # owns + aligns the bytes
@@ -374,6 +427,71 @@ class NoCExecutor:
                         getattr(stats, f.name) + scale * getattr(prog.static, f.name))
             stats.rounds += sstats.rounds
             stats.link_bytes += sstats.link_bytes
+            if bstats is not None:
+                stats._roll_bridge(bstats)
+        outs = {f"{pe}.{port.name}": mailbox[(pe, port.name)] for pe, port in g.graph_outputs()}
+        return outs, stats
+
+    # ------------------------------------------------------------------
+    def _run_sim_python(self, inputs: dict[str, torch.Tensor]) -> tuple[dict[str, Any], NoCStats]:
+        """The seed per-message loop: every wave's framing is re-derived from
+        the values, and each message is copied into and out of the cube on
+        its own."""
+        g, topo, cfg = self.graph, self.topo, self.cfg
+        n = topo.n_nodes
+        stats = NoCStats()
+        mailbox = {tuple(k.split(".")): v for k, v in inputs.items()}
+        pod_of = self.plan.pod_of_node if self.plan is not None else None
+        for wave in self.waves:
+            stats.waves += 1
+            # fire: (value, src_node, dst_node, dst_pe, dst_port) per message
+            outbox: list[tuple[torch.Tensor, int, int, str, str]] = []
+            for name in wave:
+                pe = g.pes[name]
+                results = pe.fn(**{p.name: mailbox[(name, p.name)] for p in pe.inputs})
+                for p in pe.outputs:
+                    mailbox[(name, p.name)] = results[p.name]
+                for c in self._chan_by_src[name]:
+                    outbox.append((results[c.src_port], self.placement[c.src_pe],
+                                   self.placement[c.dst_pe], c.dst_pe, c.dst_port))
+            if not outbox:
+                continue
+            # frame messages into per-(src, dst) flit buffers and route them
+            per_pair: dict[tuple[int, int], list] = {}
+            for val, s, d, dpe, dport in outbox:
+                per_pair.setdefault((s, d), []).append((val, dpe, dport))
+                stats.payload_bytes += _nbytes(val)
+                stats.flits += cfg.flits_for(_nbytes(val))
+                if pod_of is not None and pod_of[s] != pod_of[d]:
+                    stats.cross_pod_msgs += 1
+                    stats.cross_pod_wire_bytes += qserdes.link_bytes_on_wire(
+                        tuple(val.shape), val.dtype, cfg.serdes)
+                    stats.cross_pod_beats += cfg.serdes.lanes
+            buf_bytes = max(sum(cfg.flit_framed_bytes(_nbytes(v)) for v, _, _ in msgs)
+                            for msgs in per_pair.values())
+            if not buf_bytes:
+                continue
+            msgs_arr = torch.zeros((n, n, buf_bytes), dtype=torch.uint8, device=self.device)
+            for (s, d), msgs in per_pair.items():
+                off = 0
+                for v, _, _ in msgs:
+                    raw = v.contiguous().reshape(-1).view(torch.uint8)
+                    msgs_arr[s, d, off:off + raw.numel()] = raw
+                    off += cfg.flit_framed_bytes(raw.numel())   # flit padding
+            delivered, sstats = simulate_schedule(topo, msgs_arr)
+            stats.rounds += sstats.rounds
+            stats.link_bytes += sstats.link_bytes
+            if pod_of is not None:
+                # the analytic bridge counters equal the bridged simulator's,
+                # so the seed loop stays comparable field for field
+                stats._roll_bridge(bridge_program_stats(self._ensure_bridge(),
+                                                        _nbytes(msgs_arr)))
+            for (s, d), msgs in per_pair.items():
+                off = 0
+                for v, dpe, dport in msgs:
+                    seg = delivered[d, s, off:off + _nbytes(v)].clone()
+                    mailbox[(dpe, dport)] = seg.view(v.dtype).reshape(v.shape)
+                    off += cfg.flit_framed_bytes(_nbytes(v))
         outs = {f"{pe}.{port.name}": mailbox[(pe, port.name)] for pe, port in g.graph_outputs()}
         return outs, stats
 

@@ -30,8 +30,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of kernels.cu: name -> argtypes (a launch's stream comes last)
 _SIGNATURES = {
     "gf2_bmvm_launch": [_P] * 3 + [_I] * 5 + [_P],
-    "minsum_check_launch": [_P, _P, _I, _I, _P],
-    "particle_histogram_launch": [_P] * 5 + [_I] * 6 + [_P],
+    "minsum_check_launch": [_P, _P] + [_I] * 5 + [_P],
+    "particle_histogram_launch": [_P] * 5 + [_I] * 7 + [_P],
     "flash_attention_f32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention_tc_launch": [_P] * 7 + [_I] * 10 + [_P],
     "flash_attention_combine_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

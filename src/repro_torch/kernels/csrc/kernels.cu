@@ -22,6 +22,9 @@ namespace {
 
 namespace cg = cooperative_groups;
 
+// dynamic shared memory one block may use on an H100 (227 KB)
+constexpr int64_t kMaxBlockSmem = 232448;
+
 // ---------------------------------------------------------------------------
 // gf2_bmvm — Williams' LUT-XOR GF(2) matrix-vector product.
 //
@@ -139,38 +142,64 @@ __global__ void __launch_bounds__(kBmvmThreads)
 // minsum_check — LDPC min-sum check-node update (two-min trick).
 //
 // Replaces: src/repro/kernels/minsum.py minsum_check_pallas (body _kernel).
-// out[c, j] = prod_{i!=j} sign(u_ci) * min_{i!=j} |u_ci| for u (n, deg) f32,
-// deg <= 32.  sign(x) = (x < 0 ? -1 : +1), so -0.0 counts as positive; the
-// argmin is the first index of the minimum (strict <), as in the reference.
+// out[c, j] = prod_{i!=j} sign(u_ci) * min_{i!=j} |u_ci| for u (n, deg) in
+// float32, bf16 or fp16, any deg.  sign(x) = (x < 0 ? -1 : +1), so -0.0
+// counts as positive; the argmin is the first index of the minimum (strict
+// <), as in the reference.  bf16 and fp16 load, compare in float32 and store
+// in their own type: min, argmin and sign flips are exact in any float type,
+// so every type is bit-exact against the plain version.
 //
-// Bound on H100: bytes.  One read and one write of n*deg floats (88 MB for
-// 3.67 M checks of degree 3: about 26 us at 3.35 TB/s); the arithmetic is a
-// handful of compares per element.
-// Design: a block of 128 check rows is copied into shared memory with
-// consecutive threads on consecutive floats (coalesced whatever deg is), one
-// thread then runs the whole two-min pass over its row out of shared memory,
-// writes the row back in place, and the block stores the tile coalesced.
+// Bound on H100: bytes.  One read and one write of n*deg elements (88 MB for
+// 3.67 M float32 checks of degree 3: about 26 us at 3.35 TB/s); the
+// arithmetic is a handful of compares per element.
+// Design: a block of `rows` check rows (128, or fewer when 128 rows of deg
+// elements would pass the 227 KB a block can hold: minsum.launch_shape in
+// Python) is copied into shared memory with consecutive threads on
+// consecutive elements (coalesced whatever deg is), one thread then runs the
+// two-min pass over its whole row out of shared memory, writes the row back
+// in place, and the block stores the tile coalesced.  The pass walks the row
+// one element at a time, so a degree has no limit but the shared memory.
+// Rows sit `pitch` elements apart: deg, or deg + 1 where a row of deg
+// elements is a whole number of 8-byte words, which would put the 32 threads
+// of a warp on one bank (deg = 64 in float32: 32-way conflicts); the main
+// path (deg = 3) keeps pitch = deg and its straight copy loops.
 // ---------------------------------------------------------------------------
-constexpr int kMinsumRows = 128;
+constexpr int kMinsumThreads = 128;
 
-__global__ void minsum_check_kernel(const float* __restrict__ u,
-                                    float* __restrict__ out, int n, int deg) {
-  extern __shared__ float tile[];
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kMinsumRows;
+__device__ __forceinline__ float load_float(float x) { return x; }
+__device__ __forceinline__ float load_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float load_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ void store_float(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_float(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store_float(__half* p, float x) { *p = __float2half(x); }
+
+template <typename T>
+__global__ void __launch_bounds__(kMinsumThreads)
+    minsum_check_kernel(const T* __restrict__ u, T* __restrict__ out, int n, int deg,
+                        int rows_per_block, int pitch) {
+  extern __shared__ __align__(16) uint8_t minsum_smem[];
+  T* const tile = reinterpret_cast<T*>(minsum_smem);
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
   const int left = n - static_cast<int>(row0);
-  const int rows = left < kMinsumRows ? left : kMinsumRows;
+  const int rows = left < rows_per_block ? left : rows_per_block;
   const int count = rows * deg;
-  const float* src = u + row0 * deg;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) tile[i] = src[i];
+  const T* src = u + row0 * deg;
+  if (pitch == deg) {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) tile[i] = src[i];
+  } else {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) tile[i / deg * pitch + i % deg] = src[i];
+  }
   __syncthreads();
-  if (threadIdx.x < rows) {
-    float* row = tile + threadIdx.x * deg;
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    T* row = tile + static_cast<int64_t>(r) * pitch;
     float sign = 1.0f;
     float min1 = INFINITY;
     float min2 = INFINITY;
     int amin = 0;
     for (int j = 0; j < deg; ++j) {
-      const float x = row[j];
+      const float x = load_float(row[j]);
       const float mag = fabsf(x);
       if (x < 0.0f) sign = -sign;
       if (mag < min1) {
@@ -182,13 +211,17 @@ __global__ void minsum_check_kernel(const float* __restrict__ u,
       }
     }
     for (int j = 0; j < deg; ++j) {
-      const float sj = row[j] < 0.0f ? -1.0f : 1.0f;
-      row[j] = (sign * sj) * (j == amin ? min2 : min1);
+      const float sj = load_float(row[j]) < 0.0f ? -1.0f : 1.0f;
+      store_float(row + j, (sign * sj) * (j == amin ? min2 : min1));
     }
   }
   __syncthreads();
-  float* dst = out + row0 * deg;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = tile[i];
+  T* dst = out + row0 * deg;
+  if (pitch == deg) {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = tile[i];
+  } else {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = tile[i / deg * pitch + i % deg];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -197,7 +230,8 @@ __global__ void minsum_check_kernel(const float* __restrict__ u,
 // Replaces: src/repro/kernels/histogram.py particle_histogram_pallas (body
 // _kernel).  hist[n, b] = sum_{p: bins[n,p]==b} w[p] / max(sum, 1e-12) and
 // bc[n] = sum_b sqrt(hist[n, b] * ref[b]); bins outside [0, n_bins) count
-// nowhere; n_bins <= 32.
+// nowhere; n_bins up to what one warp's columns fit in a block (1816 bins,
+// 227 KB: histogram.MAX_BINS).
 //
 // Bound on H100: bytes.  The int32 bin map is read once, N*px*4 bytes (64 MiB
 // for 4096 particles of a 64x64 ROI: 20.1 us at 3.35 TB/s); the weights and
@@ -213,23 +247,28 @@ __global__ void minsum_check_kernel(const float* __restrict__ u,
 //
 // Design: a warp owns a particle; a block of 8 warps stages w in shared memory
 // once (when it fits: histogram.launch_shape in Python decides, and picks the
-// grid, one particle per warp up to a few blocks per SM).  Each lane reads the
+// grid, one particle per warp up to a few blocks per SM; past 28 bins a warp's
+// columns take 1 KB a bin, and it gives a block fewer warps so that they fit).  Each lane reads the
 // row with 16-byte loads, 8 unrolled (4 KiB per warp; with 31 warps a SM at
 // the main shape, about 120 KiB in flight), and adds each weight into its own
 // column of a per-warp shared-memory histogram: lane l's bin b sits at
 // [b][l], so the 32 lanes always hit 32 distinct banks.  A row that does not
 // start on 16 bytes (px % 4 != 0, or an unaligned base) takes a scalar head
 // up to the first 16-byte boundary and a scalar tail.  The epilogue is spread
-// over the lanes: lane b sums bin b over the 32 columns in a fixed rotated
-// order (conflict-free), then the total and the Bhattacharyya sum are fixed
-// xor-shuffle butterflies.  No atomics, and every sum has a fixed order, so a
+// over the lanes: lane l sums bins l, l + 32, ... over the 32 columns in a
+// fixed rotated order (conflict-free), then the total and the Bhattacharyya
+// sum are fixed xor-shuffle butterflies.  Past 32 bins (the kWide instances)
+// bins past the first 32 park their sums in their row's first column (only
+// their lane reads that row) for a second pass that normalizes them; up to
+// 32 bins the kernel is the one-bin-a-lane code with 8 warps a block, whose
+// registers the wide epilogue would push past the 64 of the launch bounds.  No atomics, and every sum has a fixed order, so a
 // second launch repeats the first bit for bit.  The first batch of loads is
 // issued before w is staged, so the stream starts at once.
 // Measured on the same card (scripts/case_kernels.py): 0.037-0.038 ms, 52-54 %
 // of the bound (0.031 ms, 64-66 %, with a clean L2); reading w through L1
 // instead of staging it took 0.050 ms, and 4 loads a lane 0.038.
 // ---------------------------------------------------------------------------
-constexpr int kHistWarps = 8;
+constexpr int kHistWarps = 8;  // most warps a block: one per particle
 constexpr int kHistUnroll = 8;  // 16-byte loads in flight per lane
 constexpr int kHistMinBlocks = 4;  // blocks an SM: caps registers at 64 a thread
 
@@ -239,7 +278,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <bool kStageW>
+template <bool kStageW, bool kWide>
 __global__ void __launch_bounds__(kHistWarps * 32, kHistMinBlocks)
     particle_histogram_kernel(const int32_t* __restrict__ bins, const float* __restrict__ w,
                               const float* __restrict__ ref, float* __restrict__ hist,
@@ -248,9 +287,10 @@ __global__ void __launch_bounds__(kHistWarps * 32, kHistMinBlocks)
   float* const smem = reinterpret_cast<float*>(hist_smem);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int warps = kWide ? static_cast<int>(blockDim.x >> 5) : kHistWarps;
   float* const cols = smem + warp * 32 * n_bins;  // cols[b * 32 + l]: lane l, bin b
-  const int stride = gridDim.x * kHistWarps;
-  const int n0 = blockIdx.x * kHistWarps + warp;
+  const int stride = gridDim.x * warps;
+  const int n0 = blockIdx.x * warps + warp;
 
   // where a row's 16-byte body starts and ends
   auto layout = [&](int n, const int32_t*& row, int& head, int& n4) {
@@ -273,10 +313,10 @@ __global__ void __launch_bounds__(kHistWarps * 32, kHistMinBlocks)
     layout(n0, row, head, n4);
     load_batch(reinterpret_cast<const int4*>(row + head), lane, n4, q);
   }
-  float* const w_s = smem + kHistWarps * 32 * n_bins;
+  float* const w_s = smem + warps * 32 * n_bins;
   const float* const ws = kStageW ? w_s : w;
   if constexpr (kStageW) {
-    for (int p = threadIdx.x; p < px; p += kHistWarps * 32) w_s[p] = __ldg(w + p);
+    for (int p = threadIdx.x; p < px; p += warps * 32) w_s[p] = __ldg(w + p);
     __syncthreads();
   }
   const float ref_l = lane < n_bins ? __ldg(ref + lane) : 0.0f;
@@ -316,19 +356,50 @@ __global__ void __launch_bounds__(kHistWarps * 32, kHistMinBlocks)
     const int tail = head + 4 * n4 + lane;
     if (tail < px) add(row[tail], ws[tail]);
     __syncwarp();
-    // lane b sums bin b over the 32 lanes' columns, rotated so that the
-    // lanes hit distinct banks
-    float h = 0.0f;
-    if (lane < n_bins) {
-      const float* bin = cols + lane * 32;
+    float* const out = hist + static_cast<int64_t>(n) * n_bins;
+    if constexpr (!kWide) {
+      // lane b sums bin b over the 32 lanes' columns, rotated so that the
+      // lanes hit distinct banks
+      float h = 0.0f;
+      if (lane < n_bins) {
+        const float* bin = cols + lane * 32;
 #pragma unroll
-      for (int j = 0; j < 32; ++j) h += bin[(lane + j) & 31];
+        for (int j = 0; j < 32; ++j) h += bin[(lane + j) & 31];
+      }
+      const float denom = fmaxf(warp_sum(h), 1e-12f);
+      h = h / denom;
+      const float s = warp_sum(lane < n_bins ? sqrtf(h * ref_l) : 0.0f);
+      if (lane < n_bins) out[lane] = h;
+      if (lane == 0) bc[n] = s;
+    } else {
+      // lane l sums bins l, l + 32, ... the same way; the sums past bin 31
+      // wait in their row's first column for the normalizing pass
+      float h = 0.0f;     // bin `lane`
+      float part = 0.0f;  // this lane's bins
+      for (int b = lane; b < n_bins; b += 32) {
+        const float* bin = cols + b * 32;
+        float hb = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) hb += bin[(lane + j) & 31];
+        if (b == lane) {
+          h = hb;
+        } else {
+          cols[b * 32] = hb;
+        }
+        part += hb;
+      }
+      const float denom = fmaxf(warp_sum(part), 1e-12f);
+      h = h / denom;
+      float s = sqrtf(h * ref_l);
+      for (int b = lane + 32; b < n_bins; b += 32) {
+        const float hb = cols[b * 32] / denom;
+        out[b] = hb;
+        s += sqrtf(hb * __ldg(ref + b));
+      }
+      s = warp_sum(s);
+      out[lane] = h;
+      if (lane == 0) bc[n] = s;
     }
-    const float denom = fmaxf(warp_sum(h), 1e-12f);
-    h = h / denom;
-    const float s = warp_sum(lane < n_bins ? sqrtf(h * ref_l) : 0.0f);
-    if (lane < n_bins) hist[static_cast<int64_t>(n) * n_bins + lane] = h;
-    if (lane == 0) bc[n] = s;
     __syncwarp();  // every lane has read the columns before they are zeroed
   }
 }
@@ -338,7 +409,7 @@ __global__ void __launch_bounds__(kHistWarps * 32, kHistMinBlocks)
 // and a combine pass.
 //
 // Replaces: src/repro/kernels/flash_attention.py flash_attention_pallas (body
-// _kernel).  q (B, Hq, S, D), k/v (B, Hkv, T, D), D <= 128 -> out (B, Hq, S,
+// _kernel).  q (B, Hq, S, D), k/v (B, Hkv, T, D), D <= 256 -> out (B, Hq, S,
 // D) in q's type.  Query head h reads kv head h / (Hq / Hkv) (GQA).  Scores
 // are q.k * D^-0.5; causal rows see keys t <= q + (T - S).  m, l and acc
 // follow the Pallas kernel's online softmax (m starts at -1e30, out = acc /
@@ -387,9 +458,11 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // -- float32: CUDA cores ------------------------------------------------------
 // One block of 128 threads per (b, h, tile of queries).  A query row belongs
-// to G = ceil(D / 32) neighbouring lanes, each holding 32 of its head dims of
-// q and of the output accumulator in registers; the partial dot products meet
-// by warp shuffles.  K and V tiles of 32 keys are staged in shared memory,
+// to G = 1, 2, 4 or 8 neighbouring lanes (D up to 32, 64, 128 or 256), each
+// holding 32 of its head dims of q and of the output accumulator in
+// registers; the partial dot products meet by warp shuffles.  K and V tiles
+// of 32 keys (16 at G = 8, so that both fit the 48 KB of static shared
+// memory) are staged in shared memory,
 // where every lane of a warp reads the same row (a broadcast; each lane's
 // 32-dim slice is padded to 36 floats so the G slices of one row fall in
 // different banks).  Rows past S load and write nothing, keys past T or past
@@ -398,15 +471,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kFlashThreads = 128;
 constexpr int kFlashSlice = 32;               // head dims one thread holds
 constexpr int kFlashPitch = kFlashSlice + 4;  // floats per slice in shared memory
-constexpr int kFlashKeys = 32;                // keys per K/V tile
-constexpr int kFlashMaxD = 128;
+constexpr int kFlashMaxD = 256;
 
 template <int G>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ out, int Hq,
                            int group, int S, int Tk, int D, int causal, float scale) {
-  constexpr int kRows = kFlashThreads / G;  // query rows per block
+  constexpr int kRows = kFlashThreads / G;           // query rows per block
+  constexpr int kFlashKeys = G <= 4 ? 32 : 16;       // keys per K/V tile
   constexpr int kTile = kFlashKeys * G * kFlashPitch;
   __shared__ __align__(16) float ks[kTile];
   __shared__ __align__(16) float vs[kTile];
@@ -525,13 +598,17 @@ int flash_attention_f32_grid(const void* q, const void* k, const void* v, void* 
 // -- bf16 / fp16: tensor cores ------------------------------------------------
 // A block is two consumer warpgroups (256 threads); warpgroup w owns query
 // rows row0 + 64 w .. + 63.  Thread 0 issues every TMA copy.  The head dim is
-// padded to DP in {64, 128} in shared memory only: TMA zero-fills columns
-// past D, so they add nothing to either product, and the scale uses the real
-// D.  Shared memory holds each operand as 64-column chunks of 128-byte rows in
-// the 128-byte swizzle (TMA writes it, wgmma reads it through descriptors):
+// padded to DP in {64, 128, 256} in shared memory only: TMA zero-fills columns
+// past D (whole 64-column boxes past D included), so they add nothing to
+// either product, and the scale uses the real D.  Shared memory holds each
+// operand as 64-column chunks of 128-byte rows in the 128-byte swizzle (TMA
+// writes it, wgmma reads it through descriptors):
 //   Q    kChunks x (128 rows x 128 B), loaded once;
 //   K, V kStages x kChunks x (64 keys x 128 B) each (4 stages at DP = 64,
-//        3 at DP = 128).
+//        3 at DP = 128, 2 at DP = 256).
+// At DP = 256 the block holds 64 KB of Q and two 64 KB K/V stages (193 KB:
+// one block an SM), and each thread keeps 128 output accumulators; P.V is
+// two m64n128k16 wgmmas a step, on the two 128-column halves of V.
 // Accumulator fragments (m64nNk16, f32): thread (warp w, lane i) holds rows
 // r0 = 16 w + i / 4 and r0 + 8 of its warpgroup's 64, and in register 4 j + c
 // (row r0) or 4 j + 2 + c (row r0 + 8) the column 8 j + 2 (i % 4) + c.  A
@@ -566,12 +643,6 @@ struct TcType<__half> {
     return *reinterpret_cast<const uint32_t*>(&v);
   }
 };
-
-__device__ __forceinline__ void store_float(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_float(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-__device__ __forceinline__ void store_float(__half* p, float x) { *p = __float2half(x); }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -787,10 +858,10 @@ struct TcShape {
   static constexpr int kKvChunkBytes = kTcKeys * 128;  // one of K or V
   static constexpr int kQBytes = kChunks * kQChunkBytes;
   static constexpr int kTileBytes = kChunks * kKvChunkBytes;
-  static constexpr int kStages = DP == 64 ? 4 : 3;  // depth of the K/V ring
+  static constexpr int kStages = DP == 64 ? 4 : DP == 128 ? 3 : 2;  // K/V ring depth
   // 1 KB of slack for the swizzle's 1024-byte alignment, then Q, the K ring,
   // the V ring and 1 + kStages mbarriers: 82 KB at DP = 64 (two blocks per
-  // SM), 132 KB at DP = 128
+  // SM), 132 KB at DP = 128, 193 KB at DP = 256
   static constexpr int kSmemBytes =
       1024 + kQBytes + 2 * kStages * kTileBytes + 8 * (1 + kStages);
 };
@@ -977,8 +1048,15 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       const uint64_t dv = sw128_desc(vs + kk * 16 * 128, Shape::kKvChunkBytes, 1024);
       if constexpr (DP == 64) {
         wgmma_m64n64k16_rs(Tag{}, o, pa[kk], dv, 1);
-      } else {
+      } else if constexpr (DP == 128) {
         wgmma_m64n128k16_rs(Tag{}, o, pa[kk], dv, 1);
+      } else {
+        // columns 128 + 8 j + ... of the upper half sit in registers 64 + 4 j
+        // + ..., the same fragment layout as one n = 256 product
+        const uint64_t dv_hi =
+            sw128_desc(vs + 2 * Shape::kKvChunkBytes + kk * 16 * 128, Shape::kKvChunkBytes, 1024);
+        wgmma_m64n128k16_rs(Tag{}, *reinterpret_cast<float(*)[64]>(o), pa[kk], dv, 1);
+        wgmma_m64n128k16_rs(Tag{}, *reinterpret_cast<float(*)[64]>(o + 64), pa[kk], dv_hi, 1);
       }
     }
     wgmma_commit();
@@ -1156,7 +1234,11 @@ int flash_attention_tc_dispatch(const void* q, const void* k, const void* v, voi
     return flash_attention_tc_grid<T, 64>(q, k, v, out, part_m, part_l, B, Hq, Hkv, S, Tk,
                                           D, Dp, causal, n_split, stream);
   }
-  return flash_attention_tc_grid<T, 128>(q, k, v, out, part_m, part_l, B, Hq, Hkv, S, Tk, D,
+  if (Dp <= 128) {
+    return flash_attention_tc_grid<T, 128>(q, k, v, out, part_m, part_l, B, Hq, Hkv, S, Tk,
+                                           D, Dp, causal, n_split, stream);
+  }
+  return flash_attention_tc_grid<T, 256>(q, k, v, out, part_m, part_l, B, Hq, Hkv, S, Tk, D,
                                          Dp, causal, n_split, stream);
 }
 
@@ -1211,33 +1293,59 @@ int gf2_bmvm_launch(const void* lut, const void* v, void* out, int C, int P, int
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-int minsum_check_launch(const void* u, void* out, int n, int deg, void* stream) {
-  const int blocks = (n + kMinsumRows - 1) / kMinsumRows;
-  minsum_check_kernel<<<blocks, kMinsumRows, kMinsumRows * deg * sizeof(float),
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(u), static_cast<float*>(out), n, deg);
-  return static_cast<int>(cudaGetLastError());
+// rows: check rows of one block (<= 128), `pitch` (>= deg) elements apart in
+// rows * pitch elements of shared memory; dtype 0 float32, 1 bf16, 2 fp16.
+int minsum_check_launch(const void* u, void* out, int n, int deg, int rows, int pitch,
+                        int dtype, void* stream) {
+  const int size = dtype == 0 ? 4 : 2;
+  const int64_t smem = static_cast<int64_t>(rows) * pitch * size;
+  if (n < 1 || deg < 1 || rows < 1 || rows > kMinsumThreads || pitch < deg ||
+      smem > kMaxBlockSmem || dtype < 0 || dtype > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (n + rows - 1) / rows;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto* typed) -> int {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(typed)>>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          minsum_check_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    minsum_check_kernel<T><<<blocks, kMinsumThreads, smem, st>>>(
+        static_cast<const T*>(u), static_cast<T*>(out), n, deg, rows, pitch);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (dtype == 1) return go(static_cast<__nv_bfloat16*>(nullptr));
+  if (dtype == 2) return go(static_cast<__half*>(nullptr));
+  return go(static_cast<float*>(nullptr));
 }
 
-// blocks: the grid (each warp walks particles warp, warp + blocks * 8, ...);
-// smem_bytes: 8 * 32 * n_bins floats of per-lane columns, plus px floats of w
-// when stage_w is set.
+// blocks: the grid and warps the warps of a block (each warp walks particles
+// warp, warp + blocks * warps, ...); smem_bytes: warps * 32 * n_bins floats of
+// per-lane columns, plus px floats of w when stage_w is set.
 int particle_histogram_launch(const void* bins, const void* w, const void* ref, void* hist,
-                              void* bc, int N, int px, int n_bins, int blocks, int smem_bytes,
-                              int stage_w, void* stream) {
-  const int64_t want = (kHistWarps * 32 * static_cast<int64_t>(n_bins) +
+                              void* bc, int N, int px, int n_bins, int blocks, int warps,
+                              int smem_bytes, int stage_w, void* stream) {
+  const int64_t want = (warps * 32 * static_cast<int64_t>(n_bins) +
                         (stage_w ? static_cast<int64_t>(px) : 0)) * sizeof(float);
-  if (N < 1 || px < 0 || n_bins < 1 || n_bins > 32 || blocks < 1 || smem_bytes != want) {
+  const bool wide = n_bins > 32;
+  if (N < 1 || px < 0 || n_bins < 1 || blocks < 1 || warps < 1 || warps > kHistWarps ||
+      (!wide && warps != kHistWarps) || smem_bytes != want || want > kMaxBlockSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   void (*kernel)(const int32_t*, const float*, const float*, float*, float*, int, int, int) =
-      stage_w ? &particle_histogram_kernel<true> : &particle_histogram_kernel<false>;
+      wide ? (stage_w ? &particle_histogram_kernel<true, true>
+                      : &particle_histogram_kernel<false, true>)
+           : (stage_w ? &particle_histogram_kernel<true, false>
+                      : &particle_histogram_kernel<false, false>);
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<blocks, kHistWarps * 32, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, warps * 32, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(bins), static_cast<const float*>(w),
       static_cast<const float*>(ref), static_cast<float*>(hist), static_cast<float*>(bc), N, px,
       n_bins);
@@ -1257,7 +1365,10 @@ int flash_attention_f32_launch(const void* q, const void* k, const void* v, void
   if (D <= 2 * kFlashSlice) {
     return flash_attention_f32_grid<2>(q, k, v, out, B, Hq, Hkv, S, T, D, causal, st);
   }
-  return flash_attention_f32_grid<4>(q, k, v, out, B, Hq, Hkv, S, T, D, causal, st);
+  if (D <= 4 * kFlashSlice) {
+    return flash_attention_f32_grid<4>(q, k, v, out, B, Hq, Hkv, S, T, D, causal, st);
+  }
+  return flash_attention_f32_grid<8>(q, k, v, out, B, Hq, Hkv, S, T, D, causal, st);
 }
 
 // q (B, Hq, S, Dp), k/v (B, Hkv, T, Dp) bf16 (dtype 1) or fp16 (dtype 2), Dp
@@ -1292,8 +1403,9 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v, void*
 
 // dynamic shared memory of one tensor-core block at padded head dim dp
 int flash_attention_tc_smem_bytes(int dp) {
-  return dp <= 64 ? TcShape<__nv_bfloat16, 64>::kSmemBytes
-                  : TcShape<__nv_bfloat16, 128>::kSmemBytes;
+  return dp <= 64    ? TcShape<__nv_bfloat16, 64>::kSmemBytes
+         : dp <= 128 ? TcShape<__nv_bfloat16, 128>::kSmemBytes
+                     : TcShape<__nv_bfloat16, 256>::kSmemBytes;
 }
 
 // m, l (n_split, rows), acc (n_split, rows, D) float32 -> out (rows, D) in

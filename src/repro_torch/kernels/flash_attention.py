@@ -5,7 +5,9 @@ kernels are in ``csrc/kernels.cu``: ``flash_attention_tc_kernel`` (bf16 and
 fp16, on the tensor cores, with ``flash_attention_combine_kernel`` when the
 keys are split) and ``flash_attention_f32_kernel`` (float32, on the CUDA
 cores).  ``flash_attention`` takes a CPU tensor to the plain version and
-launches a kernel for a CUDA tensor, with no fallback.
+launches a kernel for a CUDA tensor, with no fallback.  Head dims up to
+``MAX_HEAD_DIM`` = 256; a larger one raises ``ValueError`` (no registered
+config has one).
 
 All compute, per query row, softmax(q·kᵀ · D^-0.5) · v over the keys the row
 sees, with float32 scores and sums, and cast to q's dtype: GQA reads kv head
@@ -29,13 +31,13 @@ import torch.nn.functional as F
 
 from . import _build
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 MAX_GRID_YZ = 65535          # CUDA's limit on gridDim.y (heads) and gridDim.z (batch)
 MASK_VALUE = -1e30
 ROWS_PER_BLOCK = 128         # query rows of one tensor-core block (two warpgroups)
 KEY_TILE = 64                # keys per K/V tile of the tensor-core kernel
 MAX_SPLITS = 16
-BLOCKS_PER_SM = 2            # blocks of the tensor-core kernel one SM holds at once
+BLOCKS_PER_SM = 2            # blocks of the tensor-core kernel one SM holds at once (DP = 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -104,15 +106,27 @@ def key_ranges(T: int, n_split: int) -> list[tuple[int, int]]:
             for i in range(n_split)]
 
 
-def num_splits(B: int, Hq: int, S: int, T: int, sm_count: int) -> int:
+def instance(dtype: torch.dtype, D: int) -> str:
+    """The kernel instance a call takes, by shape alone: ``tc<DP>`` (bf16 and
+    fp16, the tensor-core kernel at head dim padded to DP = 64, 128 or 256)
+    or ``f32_g<G>`` (float32, the CUDA-core kernel with G = 1, 2, 4 or 8 lanes
+    a query row, for D up to 32, 64, 128 or 256)."""
+    if dtype == torch.float32:
+        return f"f32_g{next(g for g in (1, 2, 4, 8) if D <= 32 * g)}"
+    return f"tc{next(dp for dp in (64, 128, 256) if D <= dp)}"
+
+
+def num_splits(B: int, Hq: int, S: int, T: int, sm_count: int, head_dim: int = 64) -> int:
     """Splits of the keys for the tensor-core kernel: as many as keep the
-    B · Hq · ceil(S / 128) blocks within one wave of ``BLOCKS_PER_SM`` blocks
-    on each of the card's ``sm_count`` SMs (1 when the blocks alone fill it),
-    at most the number of key tiles and ``MAX_SPLITS``, with no split left
-    empty.  ``scripts/flash_splits.py`` times every count."""
+    B · Hq · ceil(S / 128) blocks within one wave of the blocks the card's
+    ``sm_count`` SMs hold at once (``BLOCKS_PER_SM`` at DP = 64, one at the
+    wider instances, whose shared memory fills an SM; 1 split when the blocks
+    alone fill it), at most the number of key tiles and ``MAX_SPLITS``, with
+    no split left empty.  ``scripts/flash_splits.py`` times every count."""
     blocks = B * Hq * -(-S // ROWS_PER_BLOCK)
     tiles = -(-T // KEY_TILE)
-    n = max(1, min(BLOCKS_PER_SM * sm_count // blocks, tiles, MAX_SPLITS))
+    per_sm = BLOCKS_PER_SM if head_dim <= 64 else 1
+    n = max(1, min(per_sm * sm_count // blocks, tiles, MAX_SPLITS))
     return -(-tiles // -(-tiles // n))
 
 
@@ -208,9 +222,15 @@ def flash_attention_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Kernel wrapper: q (B, Hq, S, D), k/v (B, Hkv, T, D), float32, bfloat16
-    or float16, contiguous → (B, Hq, S, D) in q's dtype.  bf16/fp16 take the
-    tensor-core kernel (and the combine kernel when ``num_splits`` > 1),
-    float32 the CUDA-core kernel."""
+    or float16, contiguous, D ≤ 256 → (B, Hq, S, D) in q's dtype.
+
+    The instance is chosen by dtype and D alone (`instance`), never by a
+    failure: bf16/fp16 take the tensor-core kernel at DP = 64 (D ≤ 64), 128
+    (D ≤ 128) or 256 (D ≤ 256), and the combine kernel when ``num_splits`` >
+    1; float32 takes the CUDA-core kernel with 1, 2, 4 or 8 lanes a query row
+    (D ≤ 32, 64, 128, 256).  Each launch is counted in
+    ``flash_attention.launches`` and, by instance, in
+    ``flash_attention.instance_launches``."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
     _check(q, k, v)
@@ -225,13 +245,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         # with more than one split, one call launches the split kernel and then
         # the combine kernel
-        n_split = num_splits(B, Hq, S, T, _build.sm_count(q.device))
+        n_split = num_splits(B, Hq, S, T, _build.sm_count(q.device), D)
         _launch_tc(q, k, v, causal, n_split, out, _scratch(q, n_split) if n_split > 1 else None)
         if n_split > 1:
             flash_attention.combine_launches += 1
     flash_attention.launches += 1
+    key = instance(q.dtype, D)
+    flash_attention.instance_launches[key] = flash_attention.instance_launches.get(key, 0) + 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.combine_launches = 0
+flash_attention.instance_launches = {}

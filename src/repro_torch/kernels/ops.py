@@ -31,6 +31,7 @@ def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
     flash_attention_kernel.combine_launches = 0
+    flash_attention_kernel.instance_launches = {}
 
 
 def launch_counts() -> dict[str, int]:

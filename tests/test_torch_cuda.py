@@ -22,13 +22,19 @@ from repro_torch.models import transformer as T  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 GF2_CASES = [(16, 4, 1), (32, 4, 3), (64, 8, 5), (128, 4, 2), (128, 8, 8), (1024, 8, 64)]
-MINSUM_SHAPES = [(1, 3), (7, 3), (64, 6), (200, 4), (1000, 8), (100003, 3), (513, 32)]
-HIST_CASES = [(1, 64, 8), (10, 300, 16), (33, 517, 12), (8, 1024, 32), (257, 4096, 16)]
+MINSUM_SHAPES = [(1, 3), (7, 3), (64, 6), (200, 4), (1000, 8), (100003, 3), (513, 32),
+                 (100, 33), (50, 64), (20, 1000)]
+HIST_CASES = [(1, 64, 8), (10, 300, 16), (33, 517, 12), (8, 1024, 32), (257, 4096, 16),
+              (64, 4096, 33), (64, 4096, 64), (33, 517, 256), (5, 517, 1816)]
 # the sweep of tests/test_kernels.py, ragged S/T at whisper's T, and head dims
 # of each thread-group width (D <= 32, <= 64, <= 128, and not a multiple of 32)
 FLASH_CASES = [(1, 4, 2, 64, 64, 32), (2, 2, 2, 37, 37, 16), (1, 8, 2, 16, 128, 32),
                (1, 2, 1, 128, 256, 64), (2, 4, 4, 100, 100, 8), (1, 2, 2, 37, 1500, 64),
-               (2, 4, 2, 129, 65, 128), (1, 3, 1, 33, 70, 96)]
+               (2, 4, 2, 129, 65, 128), (1, 3, 1, 33, 70, 96), (1, 2, 1, 40, 50, 160),
+               (1, 3, 1, 70, 129, 192), (1, 2, 2, 33, 70, 256)]
+# the tensor-core kernel's DP = 256 instance (gemma-7b's head dim, and two
+# that take it padded)
+WIDE_HEAD_DIMS = [160, 192, 256]
 WHISPER_FLASH = [(4, 20, 1500, 1500, 64), (4, 20, 32, 1500, 64)]
 # the tensor-core kernel (bf16/fp16): head dims of both widths (DP = 64, 128),
 # two that take the wrapper's padding to a multiple of 8 (40, 100), and query
@@ -67,6 +73,18 @@ def test_minsum_kernel_matches_plain(dev, shape):
     out = ops.minsum_check(u)
     assert minsum.minsum_check.launches == before + 1
     assert torch.allclose(out, ops.minsum_check(u, use_kernel=False), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(1, 3), (100003, 3), (100, 33), (50, 64), (20, 1000)])
+def test_minsum_kernel_half_types_bit_exact(dev, dtype, shape):
+    """bf16/fp16 load, compare in float32 and store in their type: the two
+    mins and the signs are exact in any float type, so bit for bit."""
+    rng = np.random.default_rng(shape[1])
+    u = torch.as_tensor((rng.normal(size=shape) * 4).astype(np.float32), device=dev).to(dtype)
+    out = ops.minsum_check(u)
+    assert out.dtype == dtype
+    assert torch.equal(out, ops.minsum_check(u, use_kernel=False))
 
 
 def test_minsum_kernel_sign_and_tie_rules(dev):
@@ -133,7 +151,7 @@ def test_histogram_kernel_with_weights_not_staged(dev):
     """A ROI too large for the weights to be staged in shared memory reads
     them from global memory."""
     N, px = 6, 224 * 224
-    assert not histogram.launch_shape(N, px, 16, 132)[2]
+    assert not histogram.launch_shape(N, px, 16, 132)[3]      # stage_w
     rng = np.random.default_rng(224)
     bins = torch.as_tensor(rng.integers(0, 16, (N, px)).astype(np.int32), device=dev)
     w = torch.as_tensor(rng.uniform(0.1, 1, (px,)).astype(np.float32), device=dev)
@@ -207,12 +225,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev, case):
         elif case == "contiguity":
             ops.minsum_check(torch.randn(3, 8, device=dev).T)
         elif case == "degree":
-            ops.minsum_check(torch.randn(4, 33, device=dev))
+            ops.minsum_check(torch.randn(4, minsum.max_degree(torch.float32) + 1, device=dev))
         elif case == "devices":
             ops.gf2_bmvm(lut, torch.zeros((2, 4), dtype=torch.int32))
         else:
             ops.particle_histogram(torch.zeros((2, 5), dtype=torch.int32, device=dev),
-                                   torch.ones(5, device=dev), torch.ones(40, device=dev))
+                                   torch.ones(5, device=dev),
+                                   torch.ones(histogram.MAX_BINS + 1, device=dev))
     torch.cuda.synchronize()
 
 
@@ -243,6 +262,23 @@ def test_apps_on_gpu_match_cpu(dev):
     est_c = pf.track(frames, pcfg, noise=noise, device="cpu")
     est_noc, _ = pf.track_on_noc(frames, pcfg, noise=noise, device=dev)
     assert np.abs(est_g - est_c).max() < 1e-3 and np.abs(est_noc - est_c).max() < 1e-3
+
+
+@pytest.mark.parametrize("pods", [[0] * 4 + [1] * 4, [0, 0, 1, 1, 2, 2, 3, 3]])
+@pytest.mark.parametrize("mode", ["sim", "sim_python"])
+def test_partitioned_bmvm_on_gpu_matches_cpu(dev, pods, mode):
+    """The BMVM NoC cut into pods: on the card, equal to the uncut run and to
+    the CPU run in outputs and every NoCStats counter (bridges included)."""
+    rng = np.random.default_rng(1)
+    cfg = bmvm.BMVMConfig(n=64, k=8, fold=2)
+    A = rng.integers(0, 2, (64, 64)).astype(np.uint8)
+    v = rng.integers(0, 2, (64,)).astype(np.uint8)
+    lut_g, lut_c = bmvm.preprocess(A, cfg, device=dev), bmvm.preprocess(A, cfg, device="cpu")
+    out0, _ = bmvm.iterate_noc_sim(lut_g, v, cfg, 2, device=dev)
+    out_g, st_g = bmvm.iterate_noc_sim(lut_g, v, cfg, 2, pods=pods, mode=mode, device=dev)
+    out_c, st_c = bmvm.iterate_noc_sim(lut_c, v, cfg, 2, pods=pods, mode=mode, device="cpu")
+    assert np.array_equal(out_g, out0) and np.array_equal(out_g, out_c)
+    assert st_g.as_dict() == st_c.as_dict() and st_g.bridge_beats > 0
 
 
 def _qkv(dev, seed, B, Hq, Hkv, S, T, D, dtype=torch.float32):
@@ -293,6 +329,23 @@ def test_flash_attention_tensor_core_grid_bf16(dev, D, S, T, causal):
     assert torch.allclose(out.float(), plain.float(), atol=3e-2, rtol=0)
     blind = max(S - T, 0) if causal else 0
     assert torch.equal(out[:, :, :blind], torch.zeros_like(out[:, :, :blind]))
+
+
+@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("S,T", [(1, 1500), (37, 64), (130, 129), (1024, 1024)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_wide_head_dims(dev, D, S, T, causal, dtype):
+    """D in (128, 256]: the DP = 256 tensor-core instance, counted as such,
+    within 3e-2 of the plain version; blind rows exactly zero."""
+    q, k, v = _qkv(dev, D + S, 1, 4, 2, S, T, D, dtype)
+    before = flash_attention.flash_attention.instance_launches.get("tc256", 0)
+    out = ops.flash_attention(q, k, v, causal, True)
+    assert flash_attention.flash_attention.instance_launches["tc256"] == before + 1
+    plain = flash_attention.flash_attention_plain(q, k, v, causal)
+    assert (out.float() - plain.float()).abs().max().item() <= 3e-2
+    blind = max(S - T, 0) if causal else 0
+    assert not out[:, :, :blind].any()
 
 
 def test_flash_attention_fp16_matches_plain(dev):
@@ -365,7 +418,7 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(dev, case):
         elif case == "mixed_dtype":
             flash_attention.flash_attention(q, k.bfloat16(), v)
         elif case == "head_dim":
-            flash_attention.flash_attention(*_qkv(dev, 0, 1, 2, 2, 4, 4, 129))
+            flash_attention.flash_attention(*_qkv(dev, 0, 1, 2, 2, 4, 4, 264))
         elif case == "heads":
             flash_attention.flash_attention(*_qkv(dev, 0, 1, 3, 2, 4, 4, 16))
         elif case == "kv_shape":

@@ -24,10 +24,12 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GF2_CASES = [(16, 4, 1), (32, 4, 3), (64, 8, 5), (128, 4, 2), (128, 8, 8)]
-MINSUM_SHAPES = [(1, 3), (7, 3), (64, 6), (200, 4), (1000, 8)]
-HIST_CASES = [(1, 64, 8), (10, 300, 16), (33, 517, 12), (8, 1024, 32)]
+MINSUM_SHAPES = [(1, 3), (7, 3), (64, 6), (200, 4), (1000, 8), (5, 33), (40, 64)]
+HIST_CASES = [(1, 64, 8), (10, 300, 16), (33, 517, 12), (8, 1024, 32), (6, 300, 33),
+              (4, 517, 64), (3, 700, 256)]
 FLASH_CASES = [(1, 4, 2, 64, 64, 32), (2, 2, 2, 37, 37, 16), (1, 8, 2, 16, 128, 32),
-               (1, 2, 1, 128, 256, 64), (2, 4, 4, 100, 100, 8)]
+               (1, 2, 1, 128, 256, 64), (2, 4, 4, 100, 100, 8), (1, 2, 1, 40, 50, 160),
+               (1, 2, 2, 33, 70, 256)]
 
 
 # -- GF(2) BMVM ---------------------------------------------------------------
@@ -97,6 +99,43 @@ def test_minsum_matches_pallas(shape):
     assert np.allclose(out_t, np.asarray(jops.minsum_check(jnp.asarray(u), use_kernel=True)),
                        atol=1e-6)
     assert np.allclose(out_t, np.asarray(jref.minsum_check(jnp.asarray(u))), atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape", [(9, 3), (50, 33), (7, 64)])
+def test_minsum_half_types_bit_exact_to_pallas(dtype, shape):
+    """The Pallas kernel works in u.dtype; the port's plain version (what the
+    CUDA instances hold to bit for bit) gives the same bits in bf16/fp16."""
+    rng = np.random.default_rng(shape[1])
+    u = (rng.normal(size=shape) * 4).astype(np.float32)
+    u_t = torch.as_tensor(u).to(getattr(torch, dtype))
+    u_j = jnp.asarray(u_t.float().numpy()).astype(getattr(jnp, dtype))
+    out_t = tops.minsum_check(u_t)
+    out_j = jops.minsum_check(u_j, use_kernel=True)
+    assert out_t.dtype == u_t.dtype and out_j.dtype == u_j.dtype
+    assert np.array_equal(out_t.float().numpy(), np.asarray(out_j, np.float32))
+    assert np.array_equal(out_t.float().numpy(), tref.minsum_check(u_t.float()).numpy())
+
+
+@pytest.mark.parametrize("deg,dtype", [(3, torch.float32), (33, torch.float32),
+                                       (64, torch.float32), (64, torch.bfloat16),
+                                       (6, torch.float16), (1000, torch.float32),
+                                       (58111, torch.float32), (116223, torch.float16)])
+def test_minsum_launch_shape(deg, dtype):
+    """128 check rows a block while they fit in a block's shared memory,
+    fewer past that, at least one row up to max_degree, and rows placed so
+    that a warp's 32 threads never share one bank (an odd number of 4-byte
+    words apart, or rows that straddle words); the main path's deg = 3 rows
+    stay packed."""
+    rows, pitch, blocks, smem = minsum.launch_shape(1000, deg, dtype)
+    assert 1 <= rows <= minsum.ROWS and blocks == -(-1000 // rows)
+    assert pitch in (deg, deg + 1) and (pitch * dtype.itemsize) % 8 != 0
+    assert smem == rows * pitch * dtype.itemsize <= minsum.SMEM_PER_BLOCK
+    assert (rows == minsum.ROWS) == (minsum.ROWS * pitch * dtype.itemsize
+                                     <= minsum.SMEM_PER_BLOCK)
+    assert deg <= minsum.max_degree(dtype)
+    if (deg, dtype) == (3, torch.float32):
+        assert (rows, pitch, smem) == (128, 3, 1536)
 
 
 def test_minsum_sign_and_tie_rules_match_reference():
@@ -350,23 +389,28 @@ def test_bmvm_launch_shape_degenerate_sizes(M, C, R):
 
 HIST_SHAPES = [(4096, 4096, 16), (1, 1, 1), (1, 3, 7), (5, 517, 32), (4096, 517, 7),
                (100000, 4096, 32), (10, 50176, 16), (4096, 24576, 16), (4096, 24577, 16),
-               (3, 0, 4)]
+               (3, 0, 4), (4096, 4096, 33), (4096, 4096, 64), (100, 4096, 256),
+               (7, 24577, 300), (5, 517, 1816)]
 
 
 @pytest.mark.parametrize("N,px,n_bins", HIST_SHAPES)
 def test_histogram_launch_shape_covers_each_particle_once(N, px, n_bins):
-    """Warp (b, w) walks particles b * WARPS + w + k * blocks * WARPS: every
-    particle once; the block's shared memory holds the per-lane columns and,
-    when staged, w, and fits one SM."""
-    blocks, smem, stage_w = histogram.launch_shape(N, px, n_bins, 132)
+    """Warp (b, w) walks particles b * warps + w + k * blocks * warps: every
+    particle once; the block's shared memory holds the per-lane columns of
+    as many warps (up to WARPS) as fit and, when staged, w, and fits a block."""
+    blocks, warps, smem, stage_w = histogram.launch_shape(N, px, n_bins, 132)
     assert 1 <= blocks <= 2 ** 31 - 1
-    stride = blocks * histogram.WARPS
+    cols = warps * 32 * n_bins * 4
+    assert warps == min(histogram.WARPS, histogram.SMEM_PER_BLOCK // (32 * n_bins * 4))
+    stride = blocks * warps
     seen = np.zeros(N, np.int64)
     for n0 in range(min(stride, N)):
         seen[n0::stride] += 1
     assert (seen == 1).all()
-    assert stage_w == (px * 4 <= histogram.MAX_STAGED_W)
-    assert smem == histogram.WARPS * 32 * n_bins * 4 + (px * 4 if stage_w else 0)
+    assert stage_w == (px * 4 <= histogram.MAX_STAGED_W
+                       and cols + px * 4 <= histogram.SMEM_PER_BLOCK)
+    assert smem == cols + (px * 4 if stage_w else 0)
+    assert smem <= histogram.SMEM_PER_BLOCK
     assert smem + histogram.SMEM_PER_BLOCK_RESERVED <= histogram.SMEM_PER_SM
 
 
@@ -376,7 +420,8 @@ def test_histogram_launch_shape_fills_the_card_at_the_main_shape(sm_count):
     blocks resident at once (by registers and shared memory), one warp per
     particle where the card holds 512 blocks (132 SMs), at most two where it
     does not (114)."""
-    blocks, smem, stage_w = histogram.launch_shape(4096, 4096, 16, sm_count)
+    blocks, warps, smem, stage_w = histogram.launch_shape(4096, 4096, 16, sm_count)
+    assert warps == histogram.WARPS and smem == 32 * 1024
     per_sm = min(histogram.MIN_BLOCKS_PER_SM,
                  histogram.SMEM_PER_SM // (smem + histogram.SMEM_PER_BLOCK_RESERVED))
     assert stage_w and sm_count <= blocks <= per_sm * sm_count
@@ -385,8 +430,64 @@ def test_histogram_launch_shape_fills_the_card_at_the_main_shape(sm_count):
 
 @pytest.mark.parametrize("N", [1, 7, 8, 9])
 def test_histogram_launch_shape_degenerate_sizes(N):
-    blocks, _, _ = histogram.launch_shape(N, 64, 8, 132)
-    assert blocks == -(-N // histogram.WARPS)
+    blocks, warps, _, _ = histogram.launch_shape(N, 64, 8, 132)
+    assert warps == histogram.WARPS and blocks == -(-N // histogram.WARPS)
+
+
+# -- the limits that remain ----------------------------------------------------------
+
+def _no_device_check(monkeypatch):
+    monkeypatch.setattr(_build, "check_cuda_tensor", lambda *a, **k: None)
+
+
+def test_histogram_refuses_more_bins_than_a_block_holds(monkeypatch):
+    """Planned divergence: the reference takes any n_bins; the kernel takes
+    up to MAX_BINS = 1816 (one warp's per-lane columns fill a block)."""
+    _no_device_check(monkeypatch)
+    assert histogram.MAX_BINS == 1816
+    bins, w = torch.zeros((2, 8), dtype=torch.int32), torch.ones(8)
+    histogram._check(bins, w, torch.ones(1816), 1816)
+    with pytest.raises(ValueError, match="n_bins <= 1816"):
+        histogram._check(bins, w, torch.ones(1817), 1817)
+
+
+def test_minsum_refuses_a_row_larger_than_a_block(monkeypatch):
+    """Planned divergence: one check row must fit a block's shared memory."""
+    _no_device_check(monkeypatch)
+    minsum._check(torch.zeros((2, 58111)))
+    minsum._check(torch.zeros((2, 116223), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match=r"\[1, 58111\]"):
+        minsum._check(torch.zeros((2, 58112)))
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        minsum._check(torch.zeros((2, 3), dtype=torch.float64))
+
+
+def test_flash_attention_refuses_head_dims_past_256(monkeypatch):
+    """Planned divergence: no registered config has D > 256 (gemma-7b has 256)."""
+    _no_device_check(monkeypatch)
+    q = torch.zeros((1, 2, 4, 256))
+    flash_attention._check(q, q, q)
+    q = torch.zeros((1, 2, 4, 264))
+    with pytest.raises(ValueError, match=r"\[1, 256\]"):
+        flash_attention._check(q, q, q)
+
+
+@pytest.mark.parametrize("D,f32,half", [(8, "f32_g1", "tc64"), (64, "f32_g2", "tc64"),
+                                        (100, "f32_g4", "tc128"), (128, "f32_g4", "tc128"),
+                                        (160, "f32_g8", "tc256"), (256, "f32_g8", "tc256")])
+def test_flash_attention_instance_is_chosen_by_shape(D, f32, half):
+    assert flash_attention.instance(torch.float32, D) == f32
+    assert flash_attention.instance(torch.bfloat16, D) == flash_attention.instance(
+        torch.float16, D) == half
+
+
+def test_num_splits_at_wide_head_dims():
+    """gemma-7b-like (1, 16, 1024, 1024) at D = 256: the 128 blocks, one an SM,
+    already fill 132 SMs, so no split and no combine; at D = 64 two blocks fit
+    an SM and the keys split in two."""
+    assert flash_attention.num_splits(1, 16, 1024, 1024, 132, 256) == 1
+    assert flash_attention.num_splits(1, 16, 1024, 1024, 132, 64) == 2
+    assert flash_attention.num_splits(4, 20, 32, 1500, 132, 256) == 1
 
 
 # -- wrappers: routing, checks, counters ----------------------------------------

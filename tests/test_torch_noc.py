@@ -1,8 +1,8 @@
 """The port's NoC framework against the reference: topology copy, the
 round-by-round schedule simulator (plain and batched), placement, serdes
-accounting, the compiled flit-program executor (direct == sim == run_batch on
-the diamond and mixed-dtype graphs rebuilt with torch PE bodies), the golden
-NoCStats, and the options that later slices port."""
+accounting, the compiled flit-program executor (direct == sim == sim_python
+== run_batch on the diamond and mixed-dtype graphs rebuilt with torch PE
+bodies), the golden NoCStats, and the options that later slices port."""
 import numpy as np
 import pytest
 
@@ -203,12 +203,14 @@ def test_executor_direct_sim_batch_match_reference(builder, name, seed):
                             verify="off")
     direct, st_d = ex.run(inp, mode="direct")
     sim, st = ex.run(inp, mode="sim")
+    seed_loop, st_l = ex.run(inp, mode="sim_python")
     ref_out, st_j = exj.run({k: jnp.asarray(v) for k, v in inp.items()}, mode="sim")
+    _, st_jl = exj.run({k: jnp.asarray(v) for k, v in inp.items()}, mode="sim_python")
     assert st_d.as_dict() == tcore.NoCStats().as_dict()
-    assert st.as_dict() == st_j.as_dict()
+    assert st.as_dict() == st_l.as_dict() == st_j.as_dict() == st_jl.as_dict()
     for k in ref_out:
-        assert sim[k].dtype == direct[k].dtype
-        assert torch.equal(sim[k], direct[k]), (name, k)
+        assert sim[k].dtype == direct[k].dtype == seed_loop[k].dtype
+        assert torch.equal(sim[k], direct[k]) and torch.equal(seed_loop[k], direct[k]), (name, k)
         assert np.array_equal(sim[k].numpy(), np.asarray(ref_out[k])), (name, k)
     B = 3
     binp = {k: np.stack([v * (b + 1) for b in range(B)]) for k, v in inp.items()}
@@ -231,10 +233,12 @@ def test_run_iterative_matches_reference():
     exj = jcore.NoCExecutor(gj, jcore.make_topology("torus", 4), verify="off")
     out_d, _ = ex.run_iterative(inp, feedback, 4, mode="direct")
     out_s, st = ex.run_iterative(inp, feedback, 4, mode="sim")
+    out_l, st_l = ex.run_iterative(inp, feedback, 4, mode="sim_python")
     out_j, st_j = exj.run_iterative({"src.x": jnp.asarray(inp["src.x"])}, feedback, 4)
     assert torch.equal(out_s["join.out"], out_d["join.out"])
+    assert torch.equal(out_l["join.out"], out_d["join.out"])
     assert np.array_equal(out_s["join.out"].numpy(), np.asarray(out_j["join.out"]))
-    assert st.as_dict() == st_j.as_dict() and st.waves == 4 * 3
+    assert st.as_dict() == st_l.as_dict() == st_j.as_dict() and st.waves == 4 * 3
 
 
 def test_contract_violation_is_rejected():
@@ -301,6 +305,45 @@ def test_golden_stats_bmvm():
     assert st.as_dict() == GOLDEN_BMVM
 
 
+@pytest.mark.parametrize("name", TOPOLOGIES)
+@pytest.mark.parametrize("width", [8, 12, 16, 32])
+def test_sim_python_matches_sim_and_reference_bmvm(name, width):
+    """The seed loop == the compiled engine == direct on the BMVM n=64 graph,
+    outputs and NoCStats, and both equal the reference's seed loop."""
+    rng = np.random.default_rng(0)
+    A = rng.integers(0, 2, (64, 64)).astype(np.uint8)
+    v = rng.integers(0, 2, (64,)).astype(np.uint8)
+    tcfg, jcfg = tbmvm.BMVMConfig(n=64, k=8, fold=2), jbmvm.BMVMConfig(n=64, k=8, fold=2)
+    gt, fb = tbmvm.build_bmvm_graph(tbmvm.preprocess(A, tcfg, device=CPU), tcfg)
+    gj, _ = jbmvm.build_bmvm_graph(np.asarray(jbmvm.preprocess(A, jcfg)), jcfg)
+    vw = np.array(jbmvm.kref.gf2_pack_vector(jnp.asarray(v), 8), np.uint32)
+    inp = {f"lut{i}.v": vw[2 * i:2 * i + 2] for i in range(4)}
+    ex = tcore.NoCExecutor(gt, tcore.make_topology(name, 8), device=CPU,
+                           cfg=tcore.NoCConfig(flit_data_width=width))
+    exj = jcore.NoCExecutor(gj, jcore.make_topology(name, 8), verify="off",
+                            cfg=jcore.NoCConfig(flit_data_width=width))
+    outs = {m: ex.run_iterative(inp, fb, 2, mode=m) for m in ("direct", "sim", "sim_python")}
+    _, st_j = exj.run_iterative(inp, fb, 2, mode="sim_python")
+    for k, val in outs["direct"][0].items():
+        assert torch.equal(outs["sim"][0][k], val) and torch.equal(outs["sim_python"][0][k], val)
+    assert outs["sim"][1].as_dict() == outs["sim_python"][1].as_dict() == st_j.as_dict()
+
+
+def test_sim_python_golden_stats_ldpc_fano():
+    rng = np.random.default_rng(0)
+    llr = tldpc.awgn_llr(np.zeros(7, np.int8), 3.0, rng)
+    bits, _, st = tldpc.decode_on_noc(tldpc.fano_plane_H(), llr, 10, mode="sim_python",
+                                      device=CPU)
+    assert not bits.any() and st.as_dict() == GOLDEN_LDPC_FANO
+
+
+def test_run_batch_refuses_sim_python_as_the_reference_does():
+    g, topo, inp = _graph_and_topo()
+    with pytest.raises(tcore.GraphError, match="unknown mode"):
+        tcore.NoCExecutor(g, topo, device=CPU).run_batch({k: v[None] for k, v in inp.items()},
+                                                         mode="sim_python")
+
+
 # -- what later slices port raises --------------------------------------------------
 
 def _graph_and_topo():
@@ -308,7 +351,7 @@ def _graph_and_topo():
     return g, tcore.make_topology("mesh", 4), inp
 
 
-@pytest.mark.parametrize("mode", ["sim_python", "spmd", "buffered"])
+@pytest.mark.parametrize("mode", ["spmd", "buffered"])
 def test_later_modes_raise(mode):
     g, topo, inp = _graph_and_topo()
     ex = tcore.NoCExecutor(g, topo, device=CPU)
@@ -326,25 +369,26 @@ def test_unknown_mode_is_an_error():
 
 @pytest.mark.parametrize("kwargs,err", [
     (dict(verify="strict"), NotImplementedError), (dict(verify="warn"), NotImplementedError),
-    (dict(verify="maybe"), ValueError), (dict(plan=object()), NotImplementedError),
-    (dict(trace=True), NotImplementedError)])
+    (dict(verify="maybe"), ValueError), (dict(trace=True), NotImplementedError)])
 def test_later_executor_options_raise(kwargs, err):
     g, topo, _ = _graph_and_topo()
     with pytest.raises(err):
         tcore.NoCExecutor(g, topo, device=CPU, **kwargs)
 
 
-def test_opt_placement_raises():
-    g, topo, _ = _graph_and_topo()
+@pytest.mark.parametrize("mode", ["spmd", "buffered"])
+def test_plan_with_later_modes_raises(mode):
+    g, topo, inp = _graph_and_topo()
+    placement = {p: i for i, p in enumerate(g.pes)}
+    ex = tcore.NoCExecutor(g, topo, plan=tcore.cut(g, placement, [0, 0, 1, 1]), device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcore.resolve_placement(g, topo, "opt")
+        ex.run(inp, mode=mode)
 
 
-@pytest.mark.parametrize("option", ["pods", "serdes_cfg", "tracer"])
+@pytest.mark.parametrize("option", ["tracer"])
 @pytest.mark.parametrize("app", ["bmvm", "ldpc", "pf"])
 def test_app_later_options_raise(option, app):
-    value = {"pods": [0] * 8 + [1] * 8, "serdes_cfg": tcore.QuasiSerdesConfig(),
-             "tracer": object()}[option]
+    value = {"tracer": object()}[option]
     if app == "bmvm":
         cfg = tbmvm.BMVMConfig(n=16, k=4, fold=1)
         lut = tbmvm.preprocess(np.eye(16, dtype=np.uint8), cfg, device=CPU)
