@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, then runs six phases and raises on any failure:
+with ``nvcc``, then runs seven phases and raises on any failure:
 
 1. environment — the card, its power limit, torch/CUDA versions, build time,
                  ptxas's registers, spills and shared memory of each kernel;
@@ -33,7 +33,14 @@ with ``nvcc``, then runs six phases and raises on any failure:
    stats equal to the simulator, every counter equal to the CPU run), the
    64-node BMVM n=1024 NoC cut in 2 and 4 pods, the LDPC and particle-filter
    NoCs cut, the seed loop ``sim_python`` against ``sim``, the placement
-   search and pod-cut co-optimizer, and the serdes endpoints on the card.
+   search and pod-cut co-optimizer, and the serdes endpoints on the card;
+7. the buffered wormhole switch and the static verifier on the card — golden
+   buffered NoCStats (Fano LDPC, BMVM n=64), the 64-node BMVM n=1024 NoC
+   uncut and cut into 2 pods equal to ``software_ref``, the ``sim`` run and
+   the reference's counters, its one NOC005 warning, ``run_batch`` and the
+   particle-filter NoC in ``mode="buffered"``, payloads delivered on the
+   card, both deadlock paths of the 8-node ring at one VC, and the
+   ``python -m repro_torch.analysis`` CLI.
 
 Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
@@ -72,6 +79,28 @@ GOLDEN_BMVM_64 = dict(
     bridge_beats=0, bridge_wire_bytes=0, bridge_stall_rounds=0,
     bridge_peak_fifo=0, switch_cycles=0, switch_stall_cycles=0,
     switch_arb_losses=0, switch_max_queue=0, switch_peak_link_flits=0)
+# mode="buffered": tests/test_noc_engine.py's golden dicts, and the reference's
+# counters of BMVM n=1024 fold=4 on the 8x8 mesh, r=2 (they depend on the
+# layout only), uncut and cut into 2 pods
+GOLDEN_LDPC_FANO_BUFFERED = dict(
+    GOLDEN_LDPC_FANO, rounds=190, link_bytes=2600, switch_cycles=190,
+    switch_stall_cycles=520, switch_arb_losses=40, switch_max_queue=2,
+    switch_peak_link_flits=13)
+GOLDEN_BMVM_64_BUFFERED = dict(
+    GOLDEN_BMVM_64, rounds=90, link_bytes=640, switch_cycles=90,
+    switch_stall_cycles=304, switch_arb_losses=28, switch_max_queue=4,
+    switch_peak_link_flits=6)
+BMVM_N1024_BUFFERED = dict(
+    GOLDEN_BMVM_64, rounds=3206, link_bytes=217088, payload_bytes=32768, flits=16384,
+    switch_cycles=3206, switch_stall_cycles=123576, switch_arb_losses=2344,
+    switch_max_queue=4, switch_peak_link_flits=58)
+BMVM_N1024_BUFFERED_2PODS = dict(
+    BMVM_N1024_BUFFERED, cross_pod_msgs=2048, cross_pod_wire_bytes=32768,
+    cross_pod_beats=16384, bridge_beats=14336, bridge_wire_bytes=229376,
+    bridge_stall_rounds=882, bridge_peak_fifo=64)
+NOC005_N1024 = ("NOC005 warning [NoCConfig.switch_buffer_depth]: wave 0: input FIFO "
+                "(24->32 vc0) takes 1024 flits against depth 4 — credit stalls predicted "
+                "(correctness unaffected)")
 
 
 def check(cond, what):
@@ -559,6 +588,9 @@ def main():
     # -- phase 6: partitioned execution on the card --------------------------------
     partition_phase(torch, dev)
 
+    # -- phase 7: the buffered switch and the verifier on the card ----------------
+    buffered_phase(torch, dev)
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -865,6 +897,115 @@ def partition_phase(torch, dev):
     print("serdes on the card (none/bf16/int8 x wire 8/16/32): none round-trips bit for bit, "
           "bf16 words and int8 codes equal the CPU run's, int8 residual within 1e-6")
     print(f"partition phase {time.perf_counter() - t_phase:.2f} s; BMVM n=1024 wall: " +
+          ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in walls.items()))
+
+
+def buffered_phase(torch, dev):
+    """Phase 7: ``mode="buffered"`` and ``verify="strict"`` on the card, held
+    to ``sim``, ``software_ref`` and the reference's counters."""
+    from repro_torch import analysis, core
+    from repro_torch.apps import bmvm, ldpc
+    from repro_torch.apps import particle_filter as pf
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    llr7 = ldpc.awgn_llr(np.zeros(7, np.int8), 3.0, rng)
+    H = ldpc.fano_plane_H()
+    bits_s, post_s, _ = ldpc.decode_on_noc(H, llr7, 10)
+    bits, post, st = ldpc.decode_on_noc(H, llr7, 10, mode="buffered")
+    check(np.array_equal(bits, bits_s) and np.array_equal(post, post_s),
+          "Fano LDPC buffered: the decode differs from sim")
+    check(st.as_dict() == GOLDEN_LDPC_FANO_BUFFERED, f"Fano LDPC buffered NoCStats {st.as_dict()}")
+    rng = np.random.default_rng(0)
+    cfg64 = bmvm.BMVMConfig(n=64, k=8, fold=2)
+    A64 = rng.integers(0, 2, (64, 64)).astype(np.uint8)
+    v64 = rng.integers(0, 2, (64,)).astype(np.uint8)
+    out, st = bmvm.iterate_noc_sim(bmvm.preprocess(A64, cfg64), v64, cfg64, 2, topology="mesh",
+                                   mode="buffered")
+    check(np.array_equal(out.reshape(1, -1), bmvm.software_ref(A64, v64[None], 2)),
+          "BMVM n=64 buffered differs from software_ref")
+    check(st.as_dict() == GOLDEN_BMVM_64_BUFFERED, f"BMVM n=64 buffered NoCStats {st.as_dict()}")
+    print("golden buffered NoCStats of the Fano LDPC and BMVM n=64 runs reproduced field for "
+          "field; outputs equal sim and software_ref")
+
+    # at full NoC size: BMVM n=1024 fold=4 (32 + 32 PEs) on the 8x8 mesh, r=2
+    big = bmvm.BMVMConfig(n=1024, k=8, fold=4)
+    Ab = rng.integers(0, 2, (1024, 1024)).astype(np.uint8)
+    vb = rng.integers(0, 2, (1024,)).astype(np.uint8)
+    lut_b = bmvm.preprocess(Ab, big)
+    swb = bmvm.software_ref(Ab, vb[None], 2)
+    walls = {}
+    for name, pods, want in (("uncut", None, BMVM_N1024_BUFFERED),
+                             ("2 pods", [0] * 32 + [1] * 32, BMVM_N1024_BUFFERED_2PODS)):
+        out_s, _ = bmvm.iterate_noc_sim(lut_b, vb, big, 2, topology="mesh", n_nodes=64, pods=pods)
+        (out, st), secs = wall(torch, lambda: bmvm.iterate_noc_sim(
+            lut_b, vb, big, 2, topology="mesh", n_nodes=64, pods=pods, mode="buffered"))
+        check(np.array_equal(out.reshape(1, -1), swb) and np.array_equal(out, out_s),
+              f"BMVM n=1024 buffered, {name}: differs from software_ref or the sim run")
+        check(st.as_dict() == want, f"BMVM n=1024 buffered, {name}: NoCStats {st.as_dict()}")
+        walls[name] = secs
+        print(f"  BMVM n=1024 fold=4 on the 8x8 mesh, {name}, r=2, buffered: {secs * 1e3:.3f} ms "
+              f"wall, equal to software_ref and sim; NoCStats equal the reference's: "
+              f"switch_cycles={st.switch_cycles} stalls={st.switch_stall_cycles} "
+              f"arb_losses={st.switch_arb_losses} bridge_beats={st.bridge_beats}")
+    g, fb = bmvm.build_bmvm_graph(lut_b, big)
+    topo = core.make_topology("mesh", 64)
+    ex = core.NoCExecutor(g, topo)
+    found = [str(d) for d in analysis.verify_executor(ex)]
+    check(found == [NOC005_N1024] and [str(d) for d in ex.verification] == found,
+          f"BMVM n=1024 verifier findings {found}")
+    print(f"  verify_executor on the BMVM n=1024 executor: {found[0]}")
+    words = kref.gf2_pack_vector(torch.as_tensor(rng.integers(0, 2, (4, 1024), dtype=np.uint8),
+                                                 device=dev), big.k)
+    binp = {f"lut{i}.v": words[:, i * big.fold:(i + 1) * big.fold].view(torch.uint32)
+            for i in range(big.n_pe)}
+    (b_out, b_st), secs = wall(torch, lambda: ex.run_batch(binp, mode="buffered"))
+    s_out, s_st = ex.run_batch(binp, mode="sim")
+    check(all(torch.equal(b_out[k], s_out[k]) for k in s_out) and b_st.flits == s_st.flits
+          and b_st.switch_cycles > 0, "BMVM n=1024 run_batch buffered (B=4) differs from sim")
+    print(f"  run_batch(mode='buffered') at B=4 on the BMVM n=1024 executor: equal to sim in "
+          f"{secs * 1e3:.3f} ms, switch_cycles={b_st.switch_cycles}")
+    scfg = pf.PFConfig(img=128, roi=32, n_particles=256, n_bins=16)
+    frames, _ = pf.synth_video(scfg, 8, rng)
+    c_s, _ = pf.track_on_noc(frames, scfg, n_pe=4, n_nodes=8)
+    c_b, st = pf.track_on_noc(frames, scfg, n_pe=4, n_nodes=8, mode="buffered")
+    check(np.array_equal(c_b, c_s) and st.switch_cycles > 0,
+          "PF track_on_noc buffered differs from sim")
+    print(f"  PF track_on_noc (img 128, 8-node mesh) buffered: equal to sim, "
+          f"switch_cycles={st.switch_cycles}")
+
+    # standalone payloads stay on the card; the deadlock pair of the 8-node ring
+    ring = core.make_topology("ring", 8)
+    pays = [torch.randint(0, 255, (7,), dtype=torch.uint8, device=dev) for _ in range(16)]
+    res = core.simulate_switch(ring, [core.Packet(i % 8, (i * 3 + 1) % 8, 4, payload=p)
+                                      for i, p in enumerate(pays)])
+    check(all(r.device == p.device and torch.equal(r[:7], p) and not r[7:].any()
+              for r, p in zip(res.payloads, pays)), "switch payloads differ on the card")
+    wedge = [core.Packet(s, (s + 4) % 8, 4) for s in range(8) for _ in range(4)]
+    one_vc = core.SwitchConfig(buffer_depth=1, n_vcs=1, max_cycles=50_000)
+    for verify, err, mark in ((True, ValueError, "NOC001"),
+                              (False, core.DeadlockError, "culprit wait cycle")):
+        try:
+            core.simulate_switch(ring, wedge, one_vc, verify=verify)
+        except err as e:
+            check(mark in str(e) and "->" in str(e), f"ring 8 at one VC: {e}")
+            print(f"  ring 8, 1 VC, verify={verify}: {type(e).__name__}: {str(e)[:150]}")
+        else:
+            raise AssertionError(f"ring 8 at one VC, verify={verify}: no {err.__name__}")
+
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.analysis"], capture_output=True,
+                         text=True, timeout=300, cwd=HERE,
+                         env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    check(cli.returncode == 0, f"python -m repro_torch.analysis exited {cli.returncode}: "
+          f"{cli.stdout[-2000:]}{cli.stderr[-2000:]}")
+    print(f"  python -m repro_torch.analysis on the card: exit 0, "
+          f"{cli.stdout.strip().splitlines()[-1]}")
+    print(f"kernel launches on the buffered path (its PEs fire the plain ops): "
+          f"{ops.launch_counts()}")
+    print(f"buffered phase {time.perf_counter() - t_phase:.2f} s; BMVM n=1024 buffered wall: " +
           ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in walls.items()))
 
 

@@ -8,8 +8,10 @@ codewords × 10 iterations; particle filter 512² × 4096 particles × 16 frames
 whisper-large-v3 FULL with ``attn_impl="flash"`` at batch 4 and prompt 32: one
 prefill, one decode step, and the prefill of the plain path,
 ``attn_impl="naive"``; the BMVM n=1024 NoC on the 8×8 mesh, r=2, uncut and cut
-into 2 and 4 pods over quasi-SERDES bridges) it times each path on the host clock (median of 5 warm
-runs, each ending in ``torch.cuda.synchronize()``), then traces one more run with
+into 2 and 4 pods over quasi-SERDES bridges, and through the buffered wormhole
+switch, ``mode="buffered"``, uncut and in 2 pods) it times each path on the
+host clock (median of 5 warm runs, each ending in ``torch.cuda.synchronize()``),
+then traces one more run with
 ``torch.profiler`` and reports the device busy time (sum of the kernel, copy
 and memset activities on the card), their count, the device idle share of
 the traced window, the device activities that take the most time, and the
@@ -87,9 +89,9 @@ def main(argv=None):
                                             dtype=torch.uint8), big)
     v_big = rng.integers(0, 2, (1024,)).astype(np.uint8)
 
-    def bmvm_noc(pods):
+    def bmvm_noc(pods, mode="sim"):
         return lambda: bmvm.iterate_noc_sim(lut_big, v_big, big, 2, topology="mesh",
-                                            n_nodes=64, pods=pods)
+                                            n_nodes=64, pods=pods, mode=mode)
 
     paths = {
         "bmvm_iterate_kernel": lambda: bmvm.iterate_kernel(lut, V, bcfg, 4),
@@ -101,6 +103,8 @@ def main(argv=None):
         "bmvm_noc_n1024_uncut": bmvm_noc(None),
         "bmvm_noc_n1024_2pods": bmvm_noc([0] * 32 + [1] * 32),
         "bmvm_noc_n1024_4pods": bmvm_noc([i // 16 for i in range(64)]),
+        "bmvm_noc_n1024_buffered": bmvm_noc(None, "buffered"),
+        "bmvm_noc_n1024_buffered_2pods": bmvm_noc([0] * 32 + [1] * 32, "buffered"),
     }
     unknown = set(only) - set(paths)
     if unknown:

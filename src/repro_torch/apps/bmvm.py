@@ -124,10 +124,13 @@ def iterate_noc_sim(lut, v_bits, cfg: BMVMConfig, r: int,
 
     ``placement``: 'rr' | 'greedy' | 'opt' (annealing search, cut-aware when
     ``pods`` is given) or an explicit PE→node mapping.  ``mode``: 'sim',
-    'sim_python' or 'direct'.  ``pods`` (node→pod) turns on partitioned
-    execution: cut links run through quasi-SERDES bridge endpoints
-    (``serdes_cfg``), results stay bit-identical and NoCStats gain the
-    ``bridge_*`` counters.  ``tracer`` raises ``NotImplementedError`` until
+    'buffered' (the wormhole switch: same result, ``rounds`` are switch
+    cycles and the ``switch_*`` counters fill), 'sim_python' or 'direct'.
+    ``pods`` (node→pod) turns on partitioned execution: cut links run through
+    quasi-SERDES bridge endpoints (``serdes_cfg``), results stay
+    bit-identical and NoCStats gain the ``bridge_*`` counters (analytic ones
+    in 'buffered', which routes uncut).  The executor verifies itself
+    (``verify="strict"``).  ``tracer`` raises ``NotImplementedError`` until
     the telemetry slice lands."""
     dev = resolve_device(device)
     lut = torch.as_tensor(lut, device=dev)

@@ -181,10 +181,14 @@ def track_on_noc(frames: np.ndarray, cfg: PFConfig, n_pe: int = 4,
     """Paper-faithful NoC execution; returns (centers (F, 2), total NoCStats).
 
     ``placement``: 'rr' | 'greedy' | 'opt' or an explicit PE→node mapping.
-    ``noise`` as in `track`.  ``pods`` (node→pod) runs the tracker
+    ``mode``: 'sim', 'buffered' (the wormhole switch: same tracks, ``rounds``
+    are switch cycles and the ``switch_*`` counters fill), 'sim_python' or
+    'direct'.  ``noise`` as in `track`.  ``pods`` (node→pod) runs the tracker
     partitioned: cut links go through quasi-SERDES bridges (``serdes_cfg``)
-    with identical tracks and ``bridge_*`` counters in the stats.  ``tracer``
-    raises ``NotImplementedError`` until the telemetry slice lands."""
+    with identical tracks and ``bridge_*`` counters in the stats (analytic
+    ones in 'buffered', which routes uncut).  The executor verifies itself
+    (``verify="strict"``).  ``tracer`` raises ``NotImplementedError`` until
+    the telemetry slice lands."""
     dev = resolve_device(device)
     g = build_pf_graph(cfg, n_pe)
     topo = make_topology(topology, n_nodes)

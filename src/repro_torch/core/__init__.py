@@ -6,6 +6,8 @@ routing    — schedule simulator and compiled route programs on a device cube
 serdes     — quasi-SERDES cut-link endpoints (framing, compression, accounting)
 partition  — phase-2 placement (rr, greedy, annealing search) and pod cutting
 interchip  — bridge subsystem: compiled route programs across pod cuts
+switch     — buffered wormhole switching: FIFOs, arbitration, backpressure
+traffic    — synthetic traffic patterns (uniform/hotspot/transpose/bursty)
 noc        — the executor + flit accounting (Tables I–V analogs)
 """
 from .graph import PE, Channel, GraphError, Port, TaskGraph, torch_dtype
@@ -20,6 +22,10 @@ from .routing import (RouteProgram, ScheduleStats, compile_routes, route_program
                       simulate_route_program, simulate_schedule, topology_axes)
 from .serdes import (LinkMeta, QuasiSerdesConfig, compression_ratio, decode, encode,
                      link_bytes_on_wire, link_wire_beats, plan)
+from .switch import (DeadlockError, Packet, SwitchConfig, SwitchResult, SwitchStats,
+                     dor_route, link_loads, saturation_rate, simulate_switch,
+                     simulate_wormhole_cube, switch_lower_bound)
+from .traffic import TrafficConfig, generate_traffic, traffic_matrix, transpose_partner
 from .topology import (AxisSchedule, FatTree, Mesh2D, Ring, Topology, Torus2D,
                        bwd_pairs, compare, fwd_pairs, make_topology)
 

@@ -17,10 +17,22 @@ Modes of this port:
 * ``sim_python`` — the seed per-message loop (framing re-derived every wave,
   one copy per message), the baseline the engine is held against: the same
   outputs and `NoCStats` as ``sim``.
+* ``buffered``   — the **contention-aware wormhole transport** (`core.switch`):
+  each wave's message cube moves flit by flit through per-port input FIFOs
+  (``NoCConfig.switch_buffer_depth``) with X-Y dimension-ordered routing,
+  round-robin output arbitration, credit backpressure and dateline virtual
+  channels (``switch_vcs``).  Equal to ``sim`` in outputs, ``waves``,
+  ``payload_bytes``, ``flits`` and the ``cross_pod_*`` counters.
+  Mode-specific: ``rounds`` counts switch *cycles*, ``link_bytes`` counts
+  flit-hops × flit wire bytes, and the ``switch_*`` counters are populated.
+  The cycle machine is host bookkeeping; the cube stays on the device and is
+  delivered with one gather and one scatter per wave.  With ``plan=`` it
+  routes uncut and rolls the analytic bridge counters, like ``sim_python``.
 
 ``run_batch`` moves B independent input sets through one ``(B, n, n, bytes)``
 simulation (PEs fire per input set), and ``run_iterative`` reuses the
-compiled program across iterations.  PEs fire eagerly on the executor's device.
+compiled program across iterations; both take ``mode="buffered"`` too.  PEs
+fire eagerly on the executor's device.
 
 Partitioned execution (``plan=``)
 ---------------------------------
@@ -35,11 +47,19 @@ links did.  ``sim`` and ``run_batch`` really serialize every crossing buffer
 (`interchip.simulate_bridged_program`); ``sim_python`` routes uncut and rolls
 in the analytic `interchip.bridge_program_stats`, which equal the simulator's.
 
+Static verification (``verify=``)
+---------------------------------
+``NoCExecutor(verify="strict")`` (the default) runs
+`analysis.verify_executor` over the artifacts it just compiled: the deadlock
+proof of ``(topo, cfg.switch_vcs)``, exactly-once delivery of the route
+program, the bridged pod projections and every wave's pack/gather layout,
+placement/cut/config validity and capacity bounds.  ``"strict"`` raises
+`analysis.VerificationError` on any error, ``"warn"`` warns, ``"off"`` skips;
+the diagnostics are kept on ``self.verification``.  The verifier reads host
+copies of the compiled layouts only.
+
 Not in this slice, and raising ``NotImplementedError`` rather than being
-ignored: modes ``spmd`` and ``buffered`` (with or without a plan); telemetry
-(``trace=``); and static verification (``verify="strict"``/``"warn"`` — the
-port's default is ``"off"`` until the analysis slice lands, a planned
-divergence from the reference's ``"strict"``).
+ignored: mode ``spmd`` (with or without a plan) and telemetry (``trace=``).
 
 The flit-program compile step
 -----------------------------
@@ -48,8 +68,10 @@ is known when the executor is built.  ``NoCExecutor.__init__`` compiles, per
 wave, a :class:`_WaveProgram`: the flit-padded byte offset of every message in
 its (src, dst) node buffer (``flit_data_width`` granularity), flat
 ``pack_idx``/``gather_idx`` device index vectors into the cube and the
-delivered ``(n_dst, n_src, buf_bytes)`` cube, and the wave's value-independent
-`NoCStats` increment (payload bytes, flits, cross-pod messages and wire bytes).
+delivered ``(n_dst, n_src, buf_bytes)`` cube (with host copies for the
+verifier), the occupied ``(src, dst, framed_bytes)`` pairs, and the wave's
+value-independent `NoCStats` increment (payload bytes, flits, cross-pod
+messages and wire bytes).
 """
 from __future__ import annotations
 
@@ -66,12 +88,12 @@ from .interchip import (BridgeConfig, BridgedProgram, bridge_program_stats, comp
                         simulate_bridged_program)
 from .partition import PartitionPlan, place_round_robin
 from .routing import _nbytes, compile_routes, simulate_schedule
+from .switch import SwitchConfig, simulate_wormhole_cube
 from .topology import Topology
 
 # modes of the reference executor that later slices port (ROADMAP Queue 1)
 _LATER_MODES = {
     "spmd": "device-mesh execution (ROADMAP Queue 1 item 7)",
-    "buffered": "the buffered wormhole switch (ROADMAP Queue 1 item 4)",
 }
 
 
@@ -118,6 +140,15 @@ class NoCStats:
         self.bridge_stall_rounds += b.stall_rounds
         self.bridge_peak_fifo = max(self.bridge_peak_fifo, b.peak_fifo)
 
+    def _roll_switch(self, sw) -> None:
+        """Fold one wave's SwitchStats in (peaks merged by max)."""
+        self.switch_cycles += sw.cycles
+        self.switch_stall_cycles += sw.stall_cycles
+        self.switch_arb_losses += sw.arb_losses
+        self.switch_max_queue = max(self.switch_max_queue, sw.max_queue)
+        self.switch_peak_link_flits = max(self.switch_peak_link_flits,
+                                          sw.peak_link_flits)
+
 
 # high-water-mark fields: NoCStats.add merges these by max, not sum
 _MAX_MERGE_FIELDS = frozenset(
@@ -127,8 +158,7 @@ _MAX_MERGE_FIELDS = frozenset(
 @dataclasses.dataclass(frozen=True)
 class NoCConfig:
     """CONNECT "Network and Router Options" analog (paper §VI-B).  The switch
-    fields are carried for parity with the reference config and are read by
-    the slice that ports the buffered switch."""
+    fields configure ``mode="buffered"`` (`core.switch`)."""
 
     flit_data_width: int = 16          # bits
     flit_buffer_depth: int = 8         # per-(src, expert) FIFO depth, in slots
@@ -209,6 +239,9 @@ class _WaveProgram:
     pack_idx: torch.Tensor    # flat indices into (n, n, buf_bytes) per payload byte
     gather_idx: torch.Tensor  # flat indices into delivered (n_dst, n_src, buf_bytes)
     static: NoCStats          # value-independent stats increment for this wave
+    pairs: tuple[tuple[int, int, int], ...]  # occupied (src, dst, framed_bytes)
+    pack_host: np.ndarray     # host copies of the index vectors (the verifier's)
+    gather_host: np.ndarray
 
 
 def _stack(ts: list[torch.Tensor]) -> torch.Tensor:
@@ -226,14 +259,10 @@ class NoCExecutor:
                  placement: Optional[Mapping[str, int]] = None,
                  plan: Optional[PartitionPlan] = None,
                  cfg: Optional[NoCConfig] = None,
-                 verify: str = "off",
+                 verify: str = "strict",
                  trace: Optional[Any] = None,
                  device="cuda"):
-        if verify in ("strict", "warn"):
-            raise NotImplementedError(
-                f"verify={verify!r} needs the static verifier (ROADMAP Queue 1 "
-                f"item 5); the port runs with verify='off' until then")
-        if verify != "off":
+        if verify not in ("strict", "warn", "off"):
             raise ValueError(f"verify must be 'strict', 'warn', or 'off', got {verify!r}")
         if trace is not None:
             raise NotImplementedError("telemetry (trace=) is not ported yet "
@@ -264,17 +293,40 @@ class NoCExecutor:
         for c in graph.channels:
             self._chan_by_src[c.src_pe].append(c)
         self.programs: list[_WaveProgram] = [self._compile_wave(w) for w in self.waves]
-        # the bridged program is compiled on the first partitioned run
+        # the route program (verifier) and the bridged program (first
+        # partitioned run) are compiled on first use
+        self._route_prog = None
         self._bridge_prog: Optional[BridgedProgram] = None
+        # static verification of everything just compiled (`analysis`)
+        self.verification = []
+        if verify != "off":
+            from ..analysis.diagnostics import VerificationError, errors, format_diagnostics
+            from ..analysis.lint import verify_executor
+
+            self.verification = verify_executor(self)
+            if errors(self.verification) and verify == "strict":
+                raise VerificationError(self.verification)
+            if self.verification and verify == "warn":
+                import warnings
+
+                warnings.warn(format_diagnostics(self.verification), stacklevel=2)
 
     def _ensure_bridge(self) -> BridgedProgram:
         """Compile the partitioned (bridged) program once per executor."""
         if self._bridge_prog is None:
+            if self._route_prog is None:
+                self._route_prog = compile_routes(self.topo)
             self._bridge_prog = compile_bridges(
-                compile_routes(self.topo), self.plan,
+                self._route_prog, self.plan,
                 BridgeConfig(serdes=self.plan.serdes_cfg,
                              fifo_depth=self.cfg.bridge_fifo_depth))
         return self._bridge_prog
+
+    def _switch_cfg(self) -> SwitchConfig:
+        """NoCConfig knobs → the buffered transport's SwitchConfig."""
+        return SwitchConfig(buffer_depth=self.cfg.switch_buffer_depth,
+                            n_vcs=self.cfg.switch_vcs,
+                            flit_bytes=self.cfg.flit_wire_bytes)
 
     # -- compile -------------------------------------------------------------
     def _compile_wave(self, wave: list[str]) -> _WaveProgram:
@@ -312,11 +364,15 @@ class NoCExecutor:
             pack.append((s * n + d) * buf_bytes + span)
             gather.append((d * n + s) * buf_bytes + span)   # delivered is (dst, src)
 
-        def idx(xs):
-            arr = np.concatenate(xs) if xs else np.zeros(0, np.int64)
-            return torch.as_tensor(arr, device=self.device)
+        def cat(xs):
+            return np.concatenate(xs) if xs else np.zeros(0, np.int64)
 
-        return _WaveProgram(tuple(slots), seg, buf_bytes, idx(pack), idx(gather), static)
+        pack_host, gather_host = cat(pack), cat(gather)
+        return _WaveProgram(tuple(slots), seg, buf_bytes,
+                            torch.as_tensor(pack_host, device=self.device),
+                            torch.as_tensor(gather_host, device=self.device), static,
+                            tuple((s, d, nb) for (s, d), nb in sorted(pair_off.items())),
+                            pack_host, gather_host)
 
     # -- firing --------------------------------------------------------------
     def _fire_batch(self, name: str, kwargs: dict[str, Any], B: int) -> Mapping[str, Any]:
@@ -350,14 +406,14 @@ class NoCExecutor:
 
     # ------------------------------------------------------------------
     def run(self, inputs: Mapping[str, Any], mode: str = "sim") -> tuple[dict[str, Any], NoCStats]:
-        self._check_mode(mode, ("direct", "sim", "sim_python"))
+        self._check_mode(mode, ("direct", "sim", "buffered", "sim_python"))
         inputs = self._to_device(inputs)
         if mode == "direct":
             return self.graph.run(inputs), NoCStats()
         if mode == "sim_python":
             return self._run_sim_python(inputs)
         mailbox = {tuple(k.split(".")): v for k, v in inputs.items()}
-        return self._run_compiled(mailbox, B=None)
+        return self._run_compiled(mailbox, B=None, transport=mode)
 
     def run_batch(self, inputs: Mapping[str, Any],
                   mode: str = "sim") -> tuple[dict[str, Any], NoCStats]:
@@ -365,10 +421,11 @@ class NoCExecutor:
         batch axis ``(B, *port.shape)`` and so does every output.
 
         ``sim`` moves all B message sets through the topology in a single
-        ``(B, n, n, bytes)`` :func:`simulate_schedule` call.  Stats:
-        waves/rounds are physical (counted once — the batch shares the
-        schedule), while payload/flit/link/cross-pod byte counters scale with B."""
-        self._check_mode(mode, ("direct", "sim"))
+        ``(B, n, n, bytes)`` :func:`simulate_schedule` call (``buffered``: the
+        B sets ride inside the same wormhole packets).  Stats: waves/rounds
+        are physical (counted once — the batch shares the schedule), while
+        payload/flit/link/cross-pod byte counters scale with B."""
+        self._check_mode(mode, ("direct", "sim", "buffered"))
         if not inputs:
             raise GraphError("run_batch needs at least one input")
         inputs = self._to_device(inputs)
@@ -380,12 +437,17 @@ class NoCExecutor:
             items = [self.graph.run({k: v[b] for k, v in inputs.items()}) for b in range(B)]
             return {k: _stack([it[k] for it in items]) for k in items[0]}, NoCStats()
         mailbox = {tuple(k.split(".")): v for k, v in inputs.items()}
-        return self._run_compiled(mailbox, B=B)
+        return self._run_compiled(mailbox, B=B, transport=mode)
 
-    def _run_compiled(self, mailbox: dict[tuple[str, str], Any],
-                      B: Optional[int]) -> tuple[dict[str, Any], NoCStats]:
+    def _run_compiled(self, mailbox: dict[tuple[str, str], Any], B: Optional[int],
+                      transport: str = "sim") -> tuple[dict[str, Any], NoCStats]:
         """Execute the compiled flit program; ``B=None`` single-set, else a
-        leading batch axis rides through every pack/route/unpack step."""
+        leading batch axis rides through every pack/route/unpack step.
+
+        ``transport`` swaps how each wave's message cube moves: ``"sim"`` is
+        the round-by-round schedule simulator (the bridged one under a plan),
+        ``"buffered"`` the cycle-accurate wormhole switch.  Firing, framing
+        and stats accumulation are shared."""
         g, topo = self.graph, self.topo
         n = topo.n_nodes
         lead = () if B is None else (B,)
@@ -409,13 +471,26 @@ class NoCExecutor:
             msgs_arr[..., prog.pack_idx] = payload
             cube = msgs_arr.reshape(lead + (n, n, prog.buf_bytes))
             bstats = None
-            if self.plan is not None:
+            if transport == "buffered":
+                delivered, swst = simulate_wormhole_cube(
+                    topo, cube, self._switch_cfg(), pairs=prog.pairs, batched=B is not None)
+                # mode-specific accounting: rounds are switch cycles (with
+                # contention), link_bytes are flit-hops on the wormhole routes
+                rounds = swst.cycles
+                link_bytes = swst.link_flits * self.cfg.flit_wire_bytes
+                stats._roll_switch(swst)
+                if self.plan is not None:
+                    # uncut routing + analytic bridge counters, as sim_python
+                    bstats = bridge_program_stats(self._ensure_bridge(), _nbytes(cube))
+            elif self.plan is not None:
                 # partitioned: same schedule, pod-crossing hops serialized
                 # through the bridge endpoints
                 delivered, sstats, bstats = simulate_bridged_program(
                     self._ensure_bridge(), cube, batched=B is not None)
+                rounds, link_bytes = sstats.rounds, sstats.link_bytes
             else:
                 delivered, sstats = simulate_schedule(topo, cube, batched=B is not None)
+                rounds, link_bytes = sstats.rounds, sstats.link_bytes
             recv = delivered.reshape(lead + (-1,))[..., prog.gather_idx]
             for slot in prog.slots:
                 seg = recv[..., slot.a:slot.b].clone()   # owns + aligns the bytes
@@ -425,8 +500,8 @@ class NoCExecutor:
             for f in dataclasses.fields(NoCStats):
                 setattr(stats, f.name,
                         getattr(stats, f.name) + scale * getattr(prog.static, f.name))
-            stats.rounds += sstats.rounds
-            stats.link_bytes += sstats.link_bytes
+            stats.rounds += rounds
+            stats.link_bytes += link_bytes
             if bstats is not None:
                 stats._roll_bridge(bstats)
         outs = {f"{pe}.{port.name}": mailbox[(pe, port.name)] for pe, port in g.graph_outputs()}

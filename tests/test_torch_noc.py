@@ -2,7 +2,11 @@
 round-by-round schedule simulator (plain and batched), placement, serdes
 accounting, the compiled flit-program executor (direct == sim == sim_python
 == run_batch on the diamond and mixed-dtype graphs rebuilt with torch PE
-bodies), the golden NoCStats, and the options that later slices port."""
+bodies), the golden NoCStats, and the options that later slices port
+(``buffered`` and ``verify=`` have been ported; their cases here check what
+they do now)."""
+import warnings
+
 import numpy as np
 import pytest
 
@@ -353,12 +357,22 @@ def _graph_and_topo():
 
 @pytest.mark.parametrize("mode", ["spmd", "buffered"])
 def test_later_modes_raise(mode):
+    """``spmd`` belongs to a later slice and raises in run and run_batch;
+    ``buffered`` has been ported: it runs in both and equals ``sim``."""
     g, topo, inp = _graph_and_topo()
     ex = tcore.NoCExecutor(g, topo, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ex.run(inp, mode=mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ex.run_batch({k: v[None] for k, v in inp.items()}, mode=mode)
+    binp = {k: v[None] for k, v in inp.items()}
+    if mode == "spmd":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ex.run(inp, mode=mode)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ex.run_batch(binp, mode=mode)
+        return
+    for call in (ex.run, ex.run_batch):
+        x = inp if call == ex.run else binp
+        (out, st), (ref, st_sim) = call(x, mode=mode), call(x, mode="sim")
+        assert all(torch.equal(out[k], ref[k]) for k in ref)
+        assert st.switch_cycles == st.rounds > 0 and st.flits == st_sim.flits
 
 
 def test_unknown_mode_is_an_error():
@@ -368,21 +382,38 @@ def test_unknown_mode_is_an_error():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    (dict(verify="strict"), NotImplementedError), (dict(verify="warn"), NotImplementedError),
+    (dict(verify="strict"), None), (dict(verify="warn"), None),
     (dict(verify="maybe"), ValueError), (dict(trace=True), NotImplementedError)])
 def test_later_executor_options_raise(kwargs, err):
+    """``trace=`` belongs to a later slice and raises, an unknown ``verify``
+    is an error, and ``verify="strict"``/``"warn"`` have been ported (``err``
+    None): the executor verifies itself and keeps the findings."""
     g, topo, _ = _graph_and_topo()
+    if err is None:
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            ex = tcore.NoCExecutor(g, topo, device=CPU, **kwargs)
+        assert ex.verification and all(d.code == "NOC005" for d in ex.verification)
+        assert len(warned) == (kwargs["verify"] == "warn")
+        return
     with pytest.raises(err):
         tcore.NoCExecutor(g, topo, device=CPU, **kwargs)
 
 
 @pytest.mark.parametrize("mode", ["spmd", "buffered"])
 def test_plan_with_later_modes_raises(mode):
+    """Under a plan ``spmd`` raises; ``buffered`` routes uncut and rolls in
+    the analytic bridge counters, which equal the bridged simulator's."""
     g, topo, inp = _graph_and_topo()
     placement = {p: i for i, p in enumerate(g.pes)}
     ex = tcore.NoCExecutor(g, topo, plan=tcore.cut(g, placement, [0, 0, 1, 1]), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ex.run(inp, mode=mode)
+    if mode == "spmd":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ex.run(inp, mode=mode)
+        return
+    (out, st), (ref, st_sim) = ex.run(inp, mode=mode), ex.run(inp, mode="sim")
+    assert all(torch.equal(out[k], ref[k]) for k in ref)
+    assert st.bridge_counters() == st_sim.bridge_counters() and st.bridge_beats > 0
 
 
 @pytest.mark.parametrize("option", ["tracer"])
