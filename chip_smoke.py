@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, then runs seven phases and raises on any failure:
+with ``nvcc``, then runs eight phases and raises on any failure:
 
 1. environment — the card, its power limit, torch/CUDA versions, build time,
                  ptxas's registers, spills and shared memory of each kernel;
@@ -40,7 +40,19 @@ with ``nvcc``, then runs seven phases and raises on any failure:
    the reference's counters, its one NOC005 warning, ``run_batch`` and the
    particle-filter NoC in ``mode="buffered"``, payloads delivered on the
    card, both deadlock paths of the 8-node ring at one VC, and the
-   ``python -m repro_torch.analysis`` CLI.
+   ``python -m repro_torch.analysis`` CLI;
+8. telemetry on the card — the traced app grid (BMVM, LDPC, PF x sim,
+   buffered, bridged on the mesh, and ``sim_python`` uncut and cut) with
+   ``trace_stats`` equal to NoCStats and every event equal to the port's CPU
+   run; the 64-node BMVM n=1024 buffered NoC traced uncut and in 2 pods
+   (``trace_stats`` equal to the reference's counters, the latency profile
+   exact, the Perfetto export valid and round-tripping, one ``flit`` event
+   per link move under ``detail="flits"``, nothing allocated when untraced,
+   traced and untraced walls); the ``python -m repro_torch.telemetry`` CLI;
+   the engine's ``noc.*`` metrics; and ``serve_batch`` with a metrics
+   registry at whisper-large-v3 FULL on phase 5's traffic (launch counters
+   reset just before, tokens equal to phase 5's, samples against the synced
+   wall), then ``launch.serve --smoke --metrics``.
 
 Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
@@ -52,6 +64,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -591,6 +604,9 @@ def main():
     # -- phase 7: the buffered switch and the verifier on the card ----------------
     buffered_phase(torch, dev)
 
+    # -- phase 8: telemetry on the card ---------------------------------------------
+    telemetry_phase(torch, dev, smi, serve_stats)
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -734,7 +750,9 @@ def whisper_phase(torch, dev):
           f"(plain path {statistics.median(dec_p) * 1e3:.3f})")
     return dict(launches=counts["flash_attention"], combine_launches=combines,
                 serve_s=serve_s, peak_bytes=peak,
-                prefill_ms=pre_k * 1e3, decode_ms=statistics.median(dec_k) * 1e3)
+                prefill_ms=pre_k * 1e3, decode_ms=statistics.median(dec_k) * 1e3,
+                served=dict(params=params, cfg=cfg, prompts=prompts_np, frames=frames,
+                            tokens=tokens, batch=batch, gen_len=gen_len))
 
 
 def partition_phase(torch, dev):
@@ -1007,6 +1025,210 @@ def buffered_phase(torch, dev):
           f"{ops.launch_counts()}")
     print(f"buffered phase {time.perf_counter() - t_phase:.2f} s; BMVM n=1024 buffered wall: " +
           ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in walls.items()))
+
+
+def telemetry_phase(torch, dev, smi, serve_stats):
+    """Phase 8: the tracer, the profiler, the Perfetto export and the metrics
+    registry on the card, held to the port's own CPU run (which the tests
+    hold to the reference) and to the reference's counters; then serve_batch
+    with a registry at whisper-large-v3 FULL."""
+    from repro_torch import telemetry as tel
+    from repro_torch.apps import bmvm, ldpc
+    from repro_torch.apps import particle_filter as pf
+    from repro_torch.core.noc import _MAX_MERGE_FIELDS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+
+    def events(tr):
+        return [(e.ts, e.name, e.track, e.kind, e.dur, e.value, e.args) for e in tr.events()]
+
+    def halves(n):
+        return [0] * (n // 2) + [1] * (n - n // 2)
+
+    # (a) tests/test_telemetry.py's grid on the mesh: the card's events == the CPU's
+    rng = np.random.default_rng(0)
+    A64 = rng.integers(0, 2, (64, 64)).astype(np.uint8)
+    v64 = rng.integers(0, 2, (64,)).astype(np.uint8)
+    cfg64 = bmvm.BMVMConfig(n=64, k=8, fold=2)
+    llr7 = ldpc.awgn_llr(np.zeros(7, np.int8), 4.0, rng)
+    pcfg = pf.PFConfig(img=48, roi=12, n_particles=32, n_bins=12)
+    frames, _ = pf.synth_video(pcfg, 3, rng)
+    noise = [rng.normal(size=(32, 2)).astype(np.float32) for _ in range(2)]
+
+    def run_app(app, mode, pods, tracer, device):
+        if app == "bmvm":
+            return bmvm.iterate_noc_sim(bmvm.preprocess(A64, cfg64, device=device), v64, cfg64,
+                                        2, topology="mesh", mode=mode, pods=pods,
+                                        tracer=tracer, device=device)[-1]
+        if app == "ldpc":
+            return ldpc.decode_on_noc(ldpc.fano_plane_H(), llr7, 2, topology="mesh",
+                                      n_nodes=16, mode=mode, pods=pods, tracer=tracer,
+                                      device=device)[-1]
+        return pf.track_on_noc(frames, pcfg, n_pe=4, topology="mesh", n_nodes=8, mode=mode,
+                               pods=pods, tracer=tracer, noise=noise, device=device)[-1]
+
+    grid = [(app, mode, cut) for app in ("bmvm", "ldpc", "pf")
+            for mode, cut in (("sim", False), ("buffered", False), ("sim", True))]
+    grid += [("bmvm", "sim_python", False), ("bmvm", "sim_python", True)]
+    n_events = 0
+    for app, mode, cut in grid:
+        pods = halves(16 if app == "ldpc" else 8) if cut else None
+        traces = []
+        for device in (dev, "cpu"):
+            tr = tel.Tracer()
+            st = run_app(app, mode, pods, tr, device)
+            check(tr.dropped == 0 and tel.trace_stats(tr).as_dict() == st.as_dict(),
+                  f"{app} {mode} cut={cut} on {device}: trace_stats differs from NoCStats")
+            traces.append((events(tr), st.as_dict()))
+        check(traces[0] == traces[1], f"{app} {mode} cut={cut}: the card's events or "
+              "NoCStats differ from the CPU run's")
+        n_events += len(traces[0][0])
+    print(f"traced grid on the card ({len(grid)} runs: BMVM, LDPC, PF x sim, buffered, "
+          f"bridged on the mesh, sim_python uncut and cut): {n_events} events, each equal to "
+          f"the CPU run's; trace_stats == NoCStats in every run")
+
+    # (b) BMVM n=1024 fold=4 (32 + 32 PEs) on the 8x8 mesh, r=2, buffered
+    big = bmvm.BMVMConfig(n=1024, k=8, fold=4)
+    Ab = rng.integers(0, 2, (1024, 1024)).astype(np.uint8)
+    vb = rng.integers(0, 2, (1024,)).astype(np.uint8)
+    lut_b = bmvm.preprocess(Ab, big, device=dev)
+
+    def run_big(pods, tracer=None):
+        return wall(torch, lambda: bmvm.iterate_noc_sim(
+            lut_b, vb, big, 2, topology="mesh", n_nodes=64, pods=pods, mode="buffered",
+            tracer=tracer, device=dev))
+
+    walls = {}
+    for name, pods, want in (("uncut", None, BMVM_N1024_BUFFERED),
+                             ("2 pods", [0] * 32 + [1] * 32, BMVM_N1024_BUFFERED_2PODS)):
+        ev0, rec0 = tel.events_allocated(), tel.records_allocated()
+        untraced = [run_big(pods)[1] for _ in range(3)]
+        check((tel.events_allocated(), tel.records_allocated()) == (ev0, rec0),
+              f"BMVM n=1024 {name}: an untraced run allocated events or records")
+        traced = []
+        for _ in range(3):
+            tr = tel.Tracer()
+            (_, st), secs = run_big(pods, tr)
+            traced.append(secs)
+        check(st.as_dict() == want and tel.trace_stats(tr).as_dict() == want,
+              f"BMVM n=1024 buffered {name}: trace_stats {tel.trace_stats(tr).as_dict()}")
+        prof = tel.profile_trace(tr).check_exact()
+        cp = prof.critical_path()
+        check(cp.length == tr.clock, f"BMVM n=1024 {name}: critical path {cp.length} != "
+              f"clock {tr.clock}")
+        doc = json.loads(json.dumps(tel.chrome_trace(tr)))
+        n_doc = tel.validate_chrome_trace(doc)
+        check(tel.trace_stats(tel.events_from_chrome(doc)).as_dict() == want,
+              f"BMVM n=1024 {name}: the Perfetto round trip changes trace_stats")
+        walls[name] = (statistics.median(traced), statistics.median(untraced))
+        print(f"  BMVM n=1024 buffered, {name}: {len(tr)} events, trace_stats == NoCStats == "
+              f"the reference's counters (switch_cycles={st.switch_cycles} stalls="
+              f"{st.switch_stall_cycles} arb={st.switch_arb_losses} bridge_beats="
+              f"{st.bridge_beats}); profile exact over {len(prof.records)} packets, critical "
+              f"path {cp.length} ticks, gap {cp.gap}; Perfetto {n_doc} events valid and "
+              f"round-tripping; host wall traced {walls[name][0] * 1e3:.3f} ms / untraced "
+              f"{walls[name][1] * 1e3:.3f} ms (medians of 3) = "
+              f"{walls[name][0] / walls[name][1]:.3f}x")
+    tr = tel.Tracer(detail="flits")
+    (_, st), flit_s = run_big(None, tr)
+    n_flit = sum(e.name == "flit" for e in tr.events())
+    check(n_flit == st.link_bytes // 2 == 108544 and tel.trace_stats(tr).as_dict()
+          == BMVM_N1024_BUFFERED, f"detail='flits': {n_flit} flit events, link flits "
+          f"{st.link_bytes // 2}")
+    print(f"  detail='flits', uncut: {n_flit} flit events == link_bytes / flit_wire_bytes; "
+          f"{len(tr)} events, host wall {flit_s * 1e3:.3f} ms (one run) = "
+          f"{flit_s / walls['uncut'][1]:.3f}x the untraced median")
+
+    # (c) the CLI on the card, four runs at once
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        runs = {app: [] for app in ("bmvm", "ldpc", "pf")}
+        runs["bmvm buffered"] = ["--mode", "buffered", "--profile", "--metrics",
+                                 os.path.join(tmp, "metrics.json")]
+        procs = {}
+        for key, extra in runs.items():
+            out = os.path.join(tmp, key.replace(" ", "_") + ".json")
+            cmd = [sys.executable, "-m", "repro_torch.telemetry", "--app", key.split()[0],
+                   "--out", out] + extra
+            procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True, cwd=HERE, env=env), out)
+        for key, (proc, out) in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            check(proc.returncode == 0 and "parity OK (bit-exact)" in stdout,
+                  f"python -m repro_torch.telemetry {key} exited {proc.returncode}: "
+                  f"{stdout[-1500:]}{stderr[-1500:]}")
+            with open(out) as fh:
+                n_doc = tel.validate_chrome_trace(json.load(fh))
+            print(f"  python -m repro_torch.telemetry --app {key}: exit 0, "
+                  f"{stdout.splitlines()[0]}; Perfetto {n_doc} events valid")
+        with open(os.path.join(tmp, "metrics.json")) as fh:
+            snap = json.load(fh)
+        check(any(k.startswith("noc.latency.total{") for k in snap["histograms"])
+              and any(k.startswith("noc.switch_cycles{") for k in snap["counters"]),
+              f"--metrics snapshot lacks noc.latency.* or noc.*: {sorted(snap)}")
+
+    # (d) the engine publishes its NoCStats under noc.*
+    reg = tel.enable_metrics()
+    try:
+        st = run_app("bmvm", "sim", None, None, dev)
+    finally:
+        tel.disable_metrics()
+    snap = reg.snapshot()
+    label = "{mode=sim,topology=Mesh2D}"
+    for field, v in st.as_dict().items():
+        kind = "gauges" if field in _MAX_MERGE_FIELDS else "counters"
+        check(snap[kind].get(f"noc.{field}{label}") == v, f"registry noc.{field}: "
+              f"{snap[kind].get(f'noc.{field}{label}')} != {v}")
+    print(f"  enable_metrics: one sim run published its {len(st.as_dict())} NoCStats fields "
+          f"under noc.*{label} with the run's values")
+    print(f"kernel launches on the traced NoC paths (their PEs fire the plain ops): "
+          f"{ops.launch_counts()}")
+    t_noc = time.perf_counter() - t_phase
+
+    # (e) serve_batch with a registry at whisper-large-v3 FULL, phase 5's traffic
+    s5 = serve_stats["served"]
+    cfg, batch = s5["cfg"], s5["batch"]
+    reg = tel.MetricsRegistry()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = np.concatenate([
+        serve.serve_batch(s5["params"], cfg, s5["prompts"][i:i + batch], s5["gen_len"],
+                          frames=s5["frames"][i:i + batch], device=dev, reg=reg)
+        for i in range(0, len(s5["prompts"]), batch)])
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    counts, combines = ops.launch_counts(), ops.flash_attention_kernel.combine_launches
+    pre, dec = reg.histogram("serve.prefill.seconds"), reg.histogram("serve.decode.seconds")
+    share = (pre.total + dec.total) / serve_wall
+    n_batches = len(s5["prompts"]) // batch
+    check(pre.count == n_batches and dec.count == n_batches * (s5["gen_len"] - 1),
+          f"serve --metrics: {pre.count} prefill and {dec.count} decode samples")
+    check(counts["flash_attention"] == serve_stats["launches"] == 256
+          and combines == serve_stats["combine_launches"] == 128,
+          f"serve --metrics: {counts['flash_attention']} flash and {combines} combine launches")
+    check(np.array_equal(tokens, s5["tokens"]), "serve --metrics: tokens differ from phase 5's")
+    check(0.8 <= share <= 1.0, f"serve --metrics: samples sum to {share:.3f} of the synced wall")
+    print(f"serve_batch with a metrics registry, whisper-large-v3 FULL, {len(tokens)} requests "
+          f"at batch {batch}: tokens equal to phase 5's; {counts['flash_attention']} flash and "
+          f"{combines} combine launches; prefill n={pre.count} p50 {pre.p50 * 1e3:.3f} ms p99 "
+          f"{pre.p99 * 1e3:.3f} ms; decode n={dec.count} p50 {dec.p50 * 1e3:.3f} ms p99 "
+          f"{dec.p99 * 1e3:.3f} ms p99.9 {dec.p999 * 1e3:.3f} ms; samples sum "
+          f"{(pre.total + dec.total) * 1e3:.3f} ms = {share:.4f} of the synced wall "
+          f"{serve_wall * 1e3:.3f} ms ({smi})")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve.json")
+        serve.run(["--smoke", "--metrics", path])
+        with open(path) as fh:
+            hists = json.load(fh)["histograms"]
+    check({k: h["count"] for k, h in hists.items()} == {"serve.prefill.seconds": 4,
+                                                        "serve.decode.seconds": 60},
+          f"serve --smoke --metrics on the card: {hists}")
+    check(tel.get_registry() is None, "serve --metrics left the registry enabled")
+    print(f"telemetry phase {time.perf_counter() - t_phase:.2f} s (NoC parts {t_noc:.2f} s)")
 
 
 def _to(x, device):

@@ -130,8 +130,8 @@ def iterate_noc_sim(lut, v_bits, cfg: BMVMConfig, r: int,
     quasi-SERDES bridge endpoints (``serdes_cfg``), results stay
     bit-identical and NoCStats gain the ``bridge_*`` counters (analytic ones
     in 'buffered', which routes uncut).  The executor verifies itself
-    (``verify="strict"``).  ``tracer`` raises ``NotImplementedError`` until
-    the telemetry slice lands."""
+    (``verify="strict"``).  ``tracer``: a `telemetry.Tracer` to record the
+    run's events into (``NoCExecutor(trace=)``)."""
     dev = resolve_device(device)
     lut = torch.as_tensor(lut, device=dev)
     topo_name = topology or cfg.topology

@@ -158,8 +158,9 @@ def decode_on_noc(H: np.ndarray, llr: np.ndarray, n_iters: int,
     partitioned: cut links go through quasi-SERDES bridge endpoints
     (``serdes_cfg``), bit-identically to the uncut run, and the NoCStats carry
     the ``bridge_*`` counters (analytic ones in 'buffered', which routes
-    uncut).  The executor verifies itself (``verify="strict"``).  ``tracer``
-    raises ``NotImplementedError`` until the telemetry slice lands."""
+    uncut).  The executor verifies itself (``verify="strict"``).  ``tracer``:
+    a `telemetry.Tracer` to record the run's events into
+    (``NoCExecutor(trace=)``)."""
     dev = resolve_device(device)
     g, feedback = build_ldpc_graph(H)
     topo = make_topology(topology, n_nodes)

@@ -187,8 +187,8 @@ def track_on_noc(frames: np.ndarray, cfg: PFConfig, n_pe: int = 4,
     partitioned: cut links go through quasi-SERDES bridges (``serdes_cfg``)
     with identical tracks and ``bridge_*`` counters in the stats (analytic
     ones in 'buffered', which routes uncut).  The executor verifies itself
-    (``verify="strict"``).  ``tracer`` raises ``NotImplementedError`` until
-    the telemetry slice lands."""
+    (``verify="strict"``).  ``tracer``: a `telemetry.Tracer` to record the
+    run's events into (``NoCExecutor(trace=)``)."""
     dev = resolve_device(device)
     g = build_pf_graph(cfg, n_pe)
     topo = make_topology(topology, n_nodes)

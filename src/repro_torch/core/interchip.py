@@ -23,7 +23,9 @@ Two interpreters share the compiled `BridgedProgram`:
 
 Both drive one FIFO machine (:class:`_BridgeSim`) that depends only on sizes,
 never on values: the bridged simulation reads nothing back from the device,
-and its index lists reach the device once (`routing._index`).
+and its index lists reach the device once (`routing._index`).  Both take a
+telemetry ``tracer=``; the machine emits the ``bridge_*`` events, so the two
+give one event stream.
 The device-mesh lowering (``run_bridged_program``) belongs to the device-mesh
 slice (ROADMAP Queue 1 item 7).
 
@@ -204,14 +206,26 @@ class _BridgeSim:
     ``lanes`` words.  While upstream words remain un-admitted after the
     scheduled round, the synchronous schedule *stalls* (the slowest bridge
     gates every pod), repeating admit+transmit rounds; the final FIFO drain
-    after the last program round stalls the same way."""
+    after the last program round stalls the same way.
 
-    def __init__(self, bprog: BridgedProgram):
+    ``tracer`` (a `telemetry.Tracer`, optional) records the machine's
+    ``bridge_cfg``/``bridge_tx``/``bridge_fifo``/``bridge_stall`` events at
+    ``tracer.clock + round``.  One machine is one trace source, shared by the
+    simulator and the analytic stats, which is why their event streams
+    agree."""
+
+    def __init__(self, bprog: BridgedProgram, tracer=None):
         self.cfg = bprog.cfg
         self.keys = [(b.src, b.dst) for b in bprog.bridges]
         self.links = [dict(occ=0, pending=0, peak=0, words=0, beats=0, stalls=0)
                       for _ in bprog.bridges]
         self.stall_rounds = 0
+        self.tracer = tracer
+        self._t0 = tracer.clock if tracer is not None else 0
+        self._round = 0
+        if tracer is not None and self.links:
+            tracer.instant("bridge_cfg", "bridges", ts=self._t0,
+                           n=len(self.links), **self.cfg.serdes.trace_args())
 
     def words_for(self, nbytes: int) -> int:
         """Wire words one crossing of ``nbytes`` occupies: ceil to whole
@@ -221,41 +235,68 @@ class _BridgeSim:
         return -(-n_words // s.lanes) * s.lanes
 
     def push(self, bridge_idx: int, nbytes: int) -> None:
+        s = self.cfg.serdes
         w = self.words_for(nbytes)
         lk = self.links[bridge_idx]
         lk["pending"] += w
         lk["words"] += w
-        lk["beats"] += w // self.cfg.serdes.lanes
+        lk["beats"] += w // s.lanes
+        if self.tracer is not None:
+            bs, bd = self.keys[bridge_idx]
+            self.tracer.instant("bridge_tx", f"bridge {bs}->{bd}",
+                                ts=self._t0 + self._round, words=w,
+                                beats=w // s.lanes, wire_bytes=w * s.beat_bytes)
 
-    def _admit_transmit(self, lk: dict) -> None:
+    def _admit_transmit(self, idx: int, lk: dict) -> None:
         take = min(lk["pending"], self.cfg.fifo_depth - lk["occ"])
         lk["occ"] += take
         lk["pending"] -= take
         lk["peak"] = max(lk["peak"], lk["occ"])
+        if self.tracer is not None:
+            # post-admit, pre-transmit: the peak-update point, so the counter
+            # track's max IS bridge_peak_fifo
+            bs, bd = self.keys[idx]
+            self.tracer.counter("bridge_fifo", f"bridge {bs}->{bd}", lk["occ"],
+                                ts=self._t0 + self._round)
         lk["occ"] = max(0, lk["occ"] - self.cfg.serdes.lanes)
 
+    def _trace_stall(self, rounds: int, gating: int) -> None:
+        """The slowest bridge gates the synchronous schedule: the event names
+        it, so the profiler charges the stall to that bridge."""
+        if self.tracer is not None and rounds:
+            bs, bd = self.keys[gating]
+            self.tracer.instant("bridge_stall", "bridges", ts=self._t0 + self._round,
+                                rounds=rounds, src=bs, dst=bd)
+
     def end_round(self) -> None:
-        round_stall = 0
-        for lk in self.links:
-            self._admit_transmit(lk)
+        round_stall, gating = 0, -1
+        for idx, lk in enumerate(self.links):
+            self._admit_transmit(idx, lk)
             s = 0
             while lk["pending"]:
-                self._admit_transmit(lk)
+                self._admit_transmit(idx, lk)
                 s += 1
             lk["stalls"] += s
-            round_stall = max(round_stall, s)
+            if s > round_stall:
+                round_stall, gating = s, idx
         self.stall_rounds += round_stall
+        self._trace_stall(round_stall, gating)
+        self._round += 1
 
     def finish(self) -> BridgeStats:
         lanes = self.cfg.serdes.lanes
         beat_b = self.cfg.serdes.beat_bytes
-        drain = 0
-        for lk in self.links:
+        drain, gating = 0, -1
+        for idx, lk in enumerate(self.links):
             s = -(-lk["occ"] // lanes)
             lk["stalls"] += s
+            while self.tracer is not None and lk["occ"] > 0:
+                self._admit_transmit(idx, lk)   # traced terminal drain
             lk["occ"] = 0
-            drain = max(drain, s)
+            if s > drain:
+                drain, gating = s, idx
         self.stall_rounds += drain
+        self._trace_stall(drain, gating)
         per = {k: dict(beats=lk["beats"], wire_bytes=lk["words"] * beat_b,
                        stall_rounds=lk["stalls"], peak_fifo=lk["peak"])
                for k, lk in zip(self.keys, self.links)}
@@ -268,11 +309,14 @@ class _BridgeSim:
             per_bridge=per)
 
 
-def bridge_program_stats(bprog: BridgedProgram, cube_nbytes: int) -> BridgeStats:
+def bridge_program_stats(bprog: BridgedProgram, cube_nbytes: int,
+                         tracer=None) -> BridgeStats:
     """Analytic BridgeStats for moving one ``cube_nbytes`` message cube
     through a bridged program — exactly what :func:`simulate_bridged_program`
-    counts (same arrival schedule, same FIFO machine, no data moved)."""
-    sim = _BridgeSim(bprog)
+    counts (same arrival schedule, same FIFO machine, no data moved).
+    ``tracer`` records the per-round ``bridge_tx``/``bridge_fifo``/
+    ``bridge_stall`` events of that shared machine."""
+    sim = _BridgeSim(bprog, tracer)
     for rnd in bprog.rounds:
         per = cube_nbytes // rnd.den
         for bidx in rnd.cross:
@@ -326,7 +370,7 @@ def _line_bridged(buf: torch.Tensor, phase: LinePhase, phys, pod_of, bridge_of,
 
 
 def simulate_bridged_program(bprog: BridgedProgram, msgs: torch.Tensor, *,
-                             batched: bool = False,
+                             batched: bool = False, tracer=None,
                              ) -> tuple[torch.Tensor, ScheduleStats, BridgeStats]:
     """Round-by-round execution of a partitioned program on ``msgs``' device.
 
@@ -334,12 +378,13 @@ def simulate_bridged_program(bprog: BridgedProgram, msgs: torch.Tensor, *,
     bridge stats).  Delivery and ScheduleStats are bit-identical to the uncut
     `routing.simulate_route_program`; only the BridgeStats record what the
     serial links did.  ``batched=True`` folds a leading batch axis into the
-    payload (rounds counted once, bytes scale with B)."""
+    payload (rounds counted once, bytes scale with B).  ``tracer`` records
+    the bridge machine's events, as in :func:`bridge_program_stats`."""
     if batched:
         if msgs.ndim < 3:
             raise ValueError("batched msgs must be (B, n_src, n_dst, *c)")
         inner = torch.movedim(msgs, 0, 2).contiguous()
-        delivered, stats, bstats = simulate_bridged_program(bprog, inner)
+        delivered, stats, bstats = simulate_bridged_program(bprog, inner, tracer=tracer)
         return torch.movedim(delivered, 2, 0).contiguous(), stats, bstats
     prog = bprog.prog
     n = prog.n_nodes
@@ -348,7 +393,7 @@ def simulate_bridged_program(bprog: BridgedProgram, msgs: torch.Tensor, *,
     pod_of = bprog.pod_of_node
     bridge_of = {(b.src, b.dst): i for i, b in enumerate(bprog.bridges)}
     stats = ScheduleStats()
-    br = _BridgeSim(bprog)
+    br = _BridgeSim(bprog, tracer)
     raw = msgs.contiguous()
     byte = raw.view(torch.uint8).reshape(n, n, -1)
     k = byte.shape[2]

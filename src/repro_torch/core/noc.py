@@ -58,8 +58,25 @@ placement/cut/config validity and capacity bounds.  ``"strict"`` raises
 the diagnostics are kept on ``self.verification``.  The verifier reads host
 copies of the compiled layouts only.
 
+Telemetry (``trace=``)
+----------------------
+``NoCExecutor(trace=telemetry.Tracer())`` (or ``trace=True``) threads an event
+tracer through every mode: one ``run`` instant per run, one ``msg`` instant
+per compiled message slot (with the cross-pod wire cost when it crosses the
+cut), per-round ``round``/``link`` events from the compiled route program for
+the schedule transports, the switch's per-cycle events in ``buffered``, the
+bridge machine's ``bridge_*`` events under a plan, and per-wave
+``scatter``/``route``/``gather``/``wave`` spans on a logical clock (scatter 1
+tick, route = rounds or switch cycles + bridge stall rounds, gather 1 tick;
+a message-free wave is a 2-tick span).  The events equal the reference's
+event for event, and `telemetry.trace_stats` folds them back into the run's
+`NoCStats` field for field.  ``trace=None`` (the default) allocates no event:
+every hook is one ``is not None`` check.  Independently of tracing, each run
+publishes its `NoCStats` into the process-wide registry when one is enabled
+(`telemetry.enable_metrics`), labeled by ``mode`` and ``topology``.
+
 Not in this slice, and raising ``NotImplementedError`` rather than being
-ignored: mode ``spmd`` (with or without a plan) and telemetry (``trace=``).
+ignored: mode ``spmd`` (with or without a plan).
 
 The flit-program compile step
 -----------------------------
@@ -82,13 +99,15 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..telemetry.metrics import get_registry
+from ..telemetry.tracer import Tracer
 from . import serdes as qserdes
 from .graph import GraphError, TaskGraph, torch_dtype
-from .interchip import (BridgeConfig, BridgedProgram, bridge_program_stats, compile_bridges,
-                        simulate_bridged_program)
+from .interchip import (BridgeConfig, BridgedProgram, _walk_rounds, bridge_program_stats,
+                        compile_bridges, simulate_bridged_program)
 from .partition import PartitionPlan, place_round_robin
 from .routing import _nbytes, compile_routes, simulate_schedule
-from .switch import SwitchConfig, simulate_wormhole_cube
+from .switch import SwitchConfig, dor_route, simulate_wormhole_cube
 from .topology import Topology
 
 # modes of the reference executor that later slices port (ROADMAP Queue 1)
@@ -264,9 +283,9 @@ class NoCExecutor:
                  device="cuda"):
         if verify not in ("strict", "warn", "off"):
             raise ValueError(f"verify must be 'strict', 'warn', or 'off', got {verify!r}")
-        if trace is not None:
-            raise NotImplementedError("telemetry (trace=) is not ported yet "
-                                      "(ROADMAP Queue 1 item 6)")
+        # trace: None (off) | a telemetry Tracer | True for a default one; shared
+        # across runs, so run_iterative/run_batch build one continuous timeline
+        self.tracer = Tracer() if trace is True else trace
         self.device = resolve_device(device)
         self.graph = graph
         self.topo = topo
@@ -297,6 +316,7 @@ class NoCExecutor:
         # partitioned run) are compiled on first use
         self._route_prog = None
         self._bridge_prog: Optional[BridgedProgram] = None
+        self._hop_cache: dict[tuple[int, int], int] = {}   # (src, dst) -> hops
         # static verification of everything just compiled (`analysis`)
         self.verification = []
         if verify != "off":
@@ -327,6 +347,75 @@ class NoCExecutor:
         return SwitchConfig(buffer_depth=self.cfg.switch_buffer_depth,
                             n_vcs=self.cfg.switch_vcs,
                             flit_bytes=self.cfg.flit_wire_bytes)
+
+    # -- telemetry -------------------------------------------------------------
+    def _hops(self, s: int, d: int) -> int:
+        """Hop distance ``s -> d`` under dimension-ordered routing — the
+        per-message ``hops`` the latency profiler charges as the in-flight
+        component (cached; the same for every transport)."""
+        h = self._hop_cache.get((s, d))
+        if h is None:
+            h = len(dor_route(self.topo, s, d, max(2, self.cfg.switch_vcs))[0]) - 1
+            self._hop_cache[(s, d)] = h
+        return h
+
+    def _msg_args(self, s: int, d: int, nbytes: int, shape, dtype, n: int) -> dict:
+        """Args of one ``msg`` event: the event-level mirror of the wave's
+        static counters (payload, flits, cross-pod wire cost), scaled by ``n``."""
+        cfg = self.cfg
+        args = dict(src=s, dst=d, bytes=nbytes, flits=cfg.flits_for(nbytes), n=n,
+                    hops=self._hops(s, d))
+        pod_of = self.plan.pod_of_node if self.plan is not None else None
+        if pod_of is not None and pod_of[s] != pod_of[d]:
+            args["wire_bytes"] = qserdes.link_bytes_on_wire(shape, dtype, cfg.serdes)
+            args["beats"] = cfg.serdes.lanes
+        return args
+
+    def _trace_msgs(self, tr: Tracer, prog: "_WaveProgram", scale: int, t0: int) -> None:
+        """One ``msg`` event per compiled slot, which is what makes trace
+        aggregation exact."""
+        for slot in prog.slots:
+            s, d = self.placement[slot.src_pe], self.placement[slot.dst_pe]
+            tr.instant("msg", f"node {s}", ts=t0,
+                       **self._msg_args(s, d, slot.nbytes, slot.shape, slot.dtype, scale))
+
+    def _trace_rounds(self, tr: Tracer, t0: int, cube_nbytes: int) -> None:
+        """Per-round ``round`` instants and per-link ``link`` load counters for
+        the schedule transports, from the compiled route program: each
+        `interchip._walk_rounds` traversal moves ``cube_nbytes // den``,
+        summing to exactly what the simulators count."""
+        if self._route_prog is None:
+            self._route_prog = compile_routes(self.topo)
+        for r, (den, pairs) in enumerate(_walk_rounds(self._route_prog)):
+            per = cube_nbytes // den
+            agg: dict[tuple[int, int], int] = {}
+            for p in pairs:
+                agg[p] = agg.get(p, 0) + per
+            tr.instant("round", "noc", ts=t0 + r, bytes=per * len(pairs), links=len(agg))
+            for (s, d), b in agg.items():
+                tr.counter("link", f"link {s}->{d}", b, ts=t0 + r)
+
+    @staticmethod
+    def _trace_wave(tr: Tracer, t0: int, dur_route: int, wave: int, msgs: int,
+                    nbytes: int, mode: str) -> None:
+        """The wave's scatter/route/gather spans and the wave span itself;
+        the clock moves to the wave's end."""
+        tr.span("scatter", "engine", t0, 1, msgs=msgs, bytes=nbytes)
+        tr.span("route", "engine", t0 + 1, max(dur_route, 1), mode=mode)
+        tr.span("gather", "engine", t0 + 1 + dur_route, 1)
+        tr.span("wave", "noc", t0, dur_route + 2, wave=wave, msgs=msgs)
+        tr.clock = t0 + dur_route + 2
+
+    @staticmethod
+    def _trace_empty_wave(tr: Tracer, wave: int) -> None:
+        """A message-free wave: a 2-tick scatter+gather barrier."""
+        tr.span("wave", "noc", tr.clock, 2, wave=wave, msgs=0)
+        tr.clock += 2
+
+    def _publish(self, stats: NoCStats, mode: str) -> None:
+        reg = get_registry()
+        if reg is not None:
+            reg.record_noc_stats(stats, mode=mode, topology=type(self.topo).__name__)
 
     # -- compile -------------------------------------------------------------
     def _compile_wave(self, wave: list[str]) -> _WaveProgram:
@@ -453,7 +542,11 @@ class NoCExecutor:
         lead = () if B is None else (B,)
         scale = 1 if B is None else B
         stats = NoCStats()
-        for wave, prog in zip(self.waves, self.programs):
+        tr = self.tracer
+        if tr is not None:
+            tr.instant("run", "noc", mode=transport, topology=type(topo).__name__,
+                       n_nodes=n, batch=scale)
+        for iw, (wave, prog) in enumerate(zip(self.waves, self.programs)):
             stats.waves += 1
             for name in wave:
                 pe = g.pes[name]
@@ -463,6 +556,8 @@ class NoCExecutor:
                 for p in pe.outputs:
                     mailbox[(name, p.name)] = results[p.name]
             if not prog.slots:
+                if tr is not None:
+                    self._trace_empty_wave(tr, iw)
                 continue
             payload = torch.cat([self._payload_segment(mailbox[(s.src_pe, s.src_port)], s, lead)
                                  for s in prog.slots], dim=-1)
@@ -470,10 +565,16 @@ class NoCExecutor:
                                    device=self.device)
             msgs_arr[..., prog.pack_idx] = payload
             cube = msgs_arr.reshape(lead + (n, n, prog.buf_bytes))
+            t0 = 0
+            if tr is not None:
+                t0 = tr.clock
+                self._trace_msgs(tr, prog, scale, t0)
+                tr.clock = t0 + 1   # transport events start at the route phase
             bstats = None
             if transport == "buffered":
                 delivered, swst = simulate_wormhole_cube(
-                    topo, cube, self._switch_cfg(), pairs=prog.pairs, batched=B is not None)
+                    topo, cube, self._switch_cfg(), pairs=prog.pairs, batched=B is not None,
+                    tracer=tr)
                 # mode-specific accounting: rounds are switch cycles (with
                 # contention), link_bytes are flit-hops on the wormhole routes
                 rounds = swst.cycles
@@ -481,12 +582,13 @@ class NoCExecutor:
                 stats._roll_switch(swst)
                 if self.plan is not None:
                     # uncut routing + analytic bridge counters, as sim_python
-                    bstats = bridge_program_stats(self._ensure_bridge(), _nbytes(cube))
+                    bstats = bridge_program_stats(self._ensure_bridge(), _nbytes(cube),
+                                                  tracer=tr)
             elif self.plan is not None:
                 # partitioned: same schedule, pod-crossing hops serialized
                 # through the bridge endpoints
                 delivered, sstats, bstats = simulate_bridged_program(
-                    self._ensure_bridge(), cube, batched=B is not None)
+                    self._ensure_bridge(), cube, batched=B is not None, tracer=tr)
                 rounds, link_bytes = sstats.rounds, sstats.link_bytes
             else:
                 delivered, sstats = simulate_schedule(topo, cube, batched=B is not None)
@@ -504,7 +606,16 @@ class NoCExecutor:
             stats.link_bytes += link_bytes
             if bstats is not None:
                 stats._roll_bridge(bstats)
+            if tr is not None:
+                dur_route = rounds + (bstats.stall_rounds if bstats is not None else 0)
+                if transport == "sim":
+                    # buffered emitted its own per-cycle events; the schedule
+                    # transport gets the compiled program's exact rounds
+                    self._trace_rounds(tr, t0 + 1, _nbytes(cube))
+                self._trace_wave(tr, t0, dur_route, iw, len(prog.slots),
+                                 scale * prog.payload_nbytes, transport)
         outs = {f"{pe}.{port.name}": mailbox[(pe, port.name)] for pe, port in g.graph_outputs()}
+        self._publish(stats, transport)
         return outs, stats
 
     # ------------------------------------------------------------------
@@ -517,7 +628,11 @@ class NoCExecutor:
         stats = NoCStats()
         mailbox = {tuple(k.split(".")): v for k, v in inputs.items()}
         pod_of = self.plan.pod_of_node if self.plan is not None else None
-        for wave in self.waves:
+        tr = self.tracer
+        if tr is not None:
+            tr.instant("run", "noc", mode="sim_python", topology=type(topo).__name__,
+                       n_nodes=n, batch=1)
+        for iw, wave in enumerate(self.waves):
             stats.waves += 1
             # fire: (value, src_node, dst_node, dst_pe, dst_port) per message
             outbox: list[tuple[torch.Tensor, int, int, str, str]] = []
@@ -530,8 +645,11 @@ class NoCExecutor:
                     outbox.append((results[c.src_port], self.placement[c.src_pe],
                                    self.placement[c.dst_pe], c.dst_pe, c.dst_port))
             if not outbox:
+                if tr is not None:
+                    self._trace_empty_wave(tr, iw)
                 continue
             # frame messages into per-(src, dst) flit buffers and route them
+            t0 = tr.clock if tr is not None else 0
             per_pair: dict[tuple[int, int], list] = {}
             for val, s, d, dpe, dport in outbox:
                 per_pair.setdefault((s, d), []).append((val, dpe, dport))
@@ -542,32 +660,46 @@ class NoCExecutor:
                     stats.cross_pod_wire_bytes += qserdes.link_bytes_on_wire(
                         tuple(val.shape), val.dtype, cfg.serdes)
                     stats.cross_pod_beats += cfg.serdes.lanes
+                if tr is not None:
+                    tr.instant("msg", f"node {s}", ts=t0, **self._msg_args(
+                        s, d, _nbytes(val), tuple(val.shape), val.dtype, 1))
             buf_bytes = max(sum(cfg.flit_framed_bytes(_nbytes(v)) for v, _, _ in msgs)
                             for msgs in per_pair.values())
-            if not buf_bytes:
-                continue
-            msgs_arr = torch.zeros((n, n, buf_bytes), dtype=torch.uint8, device=self.device)
-            for (s, d), msgs in per_pair.items():
-                off = 0
-                for v, _, _ in msgs:
-                    raw = v.contiguous().reshape(-1).view(torch.uint8)
-                    msgs_arr[s, d, off:off + raw.numel()] = raw
-                    off += cfg.flit_framed_bytes(raw.numel())   # flit padding
-            delivered, sstats = simulate_schedule(topo, msgs_arr)
-            stats.rounds += sstats.rounds
-            stats.link_bytes += sstats.link_bytes
-            if pod_of is not None:
-                # the analytic bridge counters equal the bridged simulator's,
-                # so the seed loop stays comparable field for field
-                stats._roll_bridge(bridge_program_stats(self._ensure_bridge(),
-                                                        _nbytes(msgs_arr)))
-            for (s, d), msgs in per_pair.items():
-                off = 0
-                for v, dpe, dport in msgs:
-                    seg = delivered[d, s, off:off + _nbytes(v)].clone()
-                    mailbox[(dpe, dport)] = seg.view(v.dtype).reshape(v.shape)
-                    off += cfg.flit_framed_bytes(_nbytes(v))
+            dur_route = 0
+            if buf_bytes:
+                msgs_arr = torch.zeros((n, n, buf_bytes), dtype=torch.uint8, device=self.device)
+                for (s, d), msgs in per_pair.items():
+                    off = 0
+                    for v, _, _ in msgs:
+                        raw = v.contiguous().reshape(-1).view(torch.uint8)
+                        msgs_arr[s, d, off:off + raw.numel()] = raw
+                        off += cfg.flit_framed_bytes(raw.numel())   # flit padding
+                if tr is not None:
+                    tr.clock = t0 + 1
+                delivered, sstats = simulate_schedule(topo, msgs_arr)
+                stats.rounds += sstats.rounds
+                stats.link_bytes += sstats.link_bytes
+                dur_route = sstats.rounds
+                if pod_of is not None:
+                    # the analytic bridge counters equal the bridged simulator's,
+                    # so the seed loop stays comparable field for field
+                    bstats = bridge_program_stats(self._ensure_bridge(), _nbytes(msgs_arr),
+                                                  tracer=tr)
+                    stats._roll_bridge(bstats)
+                    dur_route += bstats.stall_rounds
+                if tr is not None:
+                    self._trace_rounds(tr, t0 + 1, _nbytes(msgs_arr))
+                for (s, d), msgs in per_pair.items():
+                    off = 0
+                    for v, dpe, dport in msgs:
+                        seg = delivered[d, s, off:off + _nbytes(v)].clone()
+                        mailbox[(dpe, dport)] = seg.view(v.dtype).reshape(v.shape)
+                        off += cfg.flit_framed_bytes(_nbytes(v))
+            if tr is not None:
+                self._trace_wave(tr, t0, dur_route, iw, len(outbox),
+                                 sum(_nbytes(v) for v, *_ in outbox), "sim_python")
         outs = {f"{pe}.{port.name}": mailbox[(pe, port.name)] for pe, port in g.graph_outputs()}
+        self._publish(stats, "sim_python")
         return outs, stats
 
     def run_iterative(self, inputs: Mapping[str, Any], feedback, n_iters: int,

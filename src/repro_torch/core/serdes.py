@@ -51,6 +51,12 @@ class QuasiSerdesConfig:
         ceiling-division framing rule as ``NoCConfig.flit_wire_bytes``."""
         return -(-self.wire_bits // 8)
 
+    def trace_args(self) -> dict:
+        """Link description stamped on telemetry ``bridge_cfg`` events, so a
+        trace is self-describing about the wire format it was recorded on."""
+        return {"wire_bits": self.wire_bits, "lanes": self.lanes,
+                "beat_bytes": self.beat_bytes, "compress": self.compress}
+
 
 @dataclasses.dataclass
 class LinkMeta:

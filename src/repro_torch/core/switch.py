@@ -23,11 +23,13 @@ CONNECT-style fabric lives in:
 The cycle machine is host bookkeeping over ``(packet, flit)`` tokens: the
 state tables, arbitration rings and grant order are the reference's, so
 :class:`SwitchStats`, completions and the ejection log equal its field for
-field.  No device operation runs per flit or per cycle.  Payload bytes stay
-where they are: each ejected token ``(pid, fidx)`` at node ``u`` names bytes
-``[fidx*flit_bytes, (fidx+1)*flit_bytes)`` of packet ``pid``, and the
-delivered bytes are rebuilt from those tokens with one gather and one scatter
-on the payload's own device (numpy for host payloads).
+field, and a ``tracer=`` records the reference's events (Python ints, in the
+reference's order).  No device operation runs per flit or per cycle.
+Payload bytes stay where they are: each ejected token ``(pid, fidx)`` at node
+``u`` names bytes ``[fidx*flit_bytes, (fidx+1)*flit_bytes)`` of packet
+``pid``, and the delivered bytes are rebuilt from those tokens with one
+gather and one scatter on the payload's own device (numpy for host
+payloads).
 
 :func:`simulate_wormhole_cube` adapts the simulator to the executor's
 ``(n, n, buf_bytes)`` message-cube contract (``NoCExecutor(mode="buffered")``):
@@ -126,12 +128,6 @@ class SwitchResult:
     ejections: Optional[list] = None  # (cycle, packet_id) log when recorded
 
 
-def _reject_tracer(tracer) -> None:
-    if tracer is not None:
-        raise NotImplementedError("telemetry (tracer=) is not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
-
-
 # ---------------------------------------------------------------------------
 # X-Y dimension-ordered routing + dateline VC assignment
 # ---------------------------------------------------------------------------
@@ -192,7 +188,7 @@ def dor_route(topo: Topology, src: int, dst: int,
 # ---------------------------------------------------------------------------
 
 def _run_switch(topo: Topology, packets: Sequence[Packet], cfg: SwitchConfig,
-                record_ejections: bool, verify: bool):
+                record_ejections: bool, verify: bool, tracer=None):
     """The cycle machine.  Returns ``(stats, completions, ejection log,
     tokens)`` where ``tokens`` lists every ejected ``(pid, fidx, node)`` in
     ejection order.
@@ -201,8 +197,10 @@ def _run_switch(topo: Topology, packets: Sequence[Packet], cfg: SwitchConfig,
     first, then ``(upstream, vc)`` for its sorted neighbors.  Only occupied
     FIFOs are visited each cycle; requests are grouped and granted per
     ``(router, output)`` in sorted order and applied in that order, as the
-    reference applies them, so every counter (``max_queue`` included) comes
-    out the same."""
+    reference applies them, so every counter (``max_queue`` included) and
+    every trace event (``flit`` in grant order, ``pkt`` at tail ejection,
+    ``queue`` as the cycle's peak) comes out the same.  ``tracer`` events are
+    listed in :func:`simulate_switch`; their args are Python ints."""
     n = topo.n_nodes
     depth = cfg.buffer_depth
     if depth < 1:
@@ -269,6 +267,19 @@ def _run_switch(topo: Topology, packets: Sequence[Packet], cfg: SwitchConfig,
     order = sorted(range(P), key=lambda i: (packets[i].t_inject, i))
     inj_ptr = 0
     stats = SwitchStats()
+    # telemetry (traced runs only; the untraced loop allocates nothing): the
+    # run's clock base, per-packet credit-stall and arbitration-loss charges
+    # (to the packet at the head of the blocked FIFO) and per-link flit tallies
+    traced = tracer is not None
+    base = tracer.clock if traced else 0
+    flit_detail = traced and tracer.detail == "flits"
+    pkt_stall = pkt_arb = link_tally = None
+    if traced and P:
+        pkt_stall, pkt_arb, link_tally = [0] * P, [0] * P, {}
+        tracer.instant("switch_run", "switch", ts=base, packets=P,
+                       flits=sum(p.n_flits for p in packets),
+                       bound=switch_lower_bound(topo, packets, cfg))
+    t_stall0 = t_arb0 = t_ej0 = cyc_q = 0
     completions = np.full(P, -1, np.int64)
     ejected = [0] * P                     # flits ejected so far, per packet
     ej_log: Optional[list] = [] if record_ejections else None
@@ -286,6 +297,9 @@ def _run_switch(topo: Topology, packets: Sequence[Packet], cfg: SwitchConfig,
             active.add(src)
             inj_ptr += 1
             injected = True
+        if traced:   # start-of-cycle baselines for the cycle event's deltas
+            t_stall0, t_arb0, t_ej0 = stats.stall_cycles, stats.arb_losses, stats.flits
+            cyc_q = 0
         # ---- gather requests: head flit of every occupied input slot --------
         reqs: dict[tuple[int, int], list] = {}
         for g in active:
@@ -316,6 +330,17 @@ def _run_switch(topo: Topology, packets: Sequence[Packet], cfg: SwitchConfig,
             stats.arb_losses += len(elig) - 1
             rr[(u, okey)] = (win[0] + 1) % L
             moves.append((u, okey, win))
+        if traced:
+            # charge each blocked head to its packet: credit/VC stalls, and
+            # arbitration losses of the eligible heads that did not win
+            won = {(u, okey): win for u, okey, win in moves}
+            for key, cands in reqs.items():
+                win = won.get(key)
+                for cand in cands:
+                    if not cand[5]:
+                        pkt_stall[cand[2]] += 1
+                    elif cand is not win:
+                        pkt_arb[cand[2]] += 1
         # ---- apply (grants were computed on start-of-cycle state) ------------
         link_moves = 0
         for u, okey, (si, g, pid, fidx, dg, _) in moves:
@@ -343,6 +368,11 @@ def _run_switch(topo: Topology, packets: Sequence[Packet], cfg: SwitchConfig,
                     stats.latency_sum += lat
                     stats.latency_max = max(stats.latency_max, lat)
                     completions[pid] = c + 1
+                    if traced:
+                        tracer.instant("pkt", f"node {pkt.dst}", ts=base + c, pid=pid,
+                                       src=pkt.src, dst=pkt.dst, flits=pkt.n_flits,
+                                       hops=len(nxt[pid]) - 1, inject=pkt.t_inject, lat=lat,
+                                       stall=pkt_stall[pid], arb=pkt_arb[pid])
             else:
                 dq = fifos[dg]
                 dq.append((pid, fidx))
@@ -352,22 +382,51 @@ def _run_switch(topo: Topology, packets: Sequence[Packet], cfg: SwitchConfig,
                 link_moves += 1
                 stats.link_flits += 1
                 stats.max_queue = max(stats.max_queue, len(dq))
+                if traced:
+                    link_tally[(u, okey)] = link_tally.get((u, okey), 0) + 1
+                    if len(dq) > cyc_q:
+                        cyc_q = len(dq)
+                    if flit_detail:
+                        tracer.instant("flit", f"router {u}", ts=base + c, pid=pid, f=fidx,
+                                       vc=rings[u][si][1], to=okey)
         stats.peak_link_flits = max(stats.peak_link_flits, link_moves)
         if not moves and not injected:
             if inj_ptr < P:   # idle gap: fast-forward to the next injection
+                if traced:
+                    tracer.instant("idle_ff", "switch", ts=base + c,
+                                   to=packets[order[inj_ptr]].t_inject)
                 c = packets[order[inj_ptr]].t_inject
                 continue
-            raise DeadlockError(_deadlock_report(c, packets, completions, rings,
-                                                 fifos, fifo_of, nxt))
+            report, wedged, wait = _deadlock_report(c, packets, completions, rings,
+                                                    fifos, fifo_of, nxt)
+            if traced:
+                tracer.instant("deadlock", "switch", ts=base + c, wedged=wedged,
+                               wait_cycle=wait)
+            raise DeadlockError(report)
+        if traced:
+            tracer.instant("cycle", "switch", ts=base + c, c=c, moves=link_moves,
+                           bytes=link_moves * cfg.flit_bytes,
+                           stalls=stats.stall_cycles - t_stall0,
+                           arb=stats.arb_losses - t_arb0, ejects=stats.flits - t_ej0)
+            if cyc_q:
+                tracer.counter("queue", "switch queue", cyc_q, ts=base + c)
         c += 1
     stats.cycles = c
+    if link_tally:
+        # end-of-run per-link totals: what the heatmap and the profiler's
+        # hot-link attribution read for buffered runs
+        ts_end = base + max(c - 1, 0)
+        for (u, v), flits in sorted(link_tally.items()):
+            tracer.counter("link", f"link {u}->{v}", flits * cfg.flit_bytes, ts=ts_end)
     assert sum(ejected) == sum(p.n_flits for p in packets)
     return stats, completions, ej_log, tokens
 
 
-def _deadlock_report(c, packets, completions, rings, fifos, fifo_of, nxt) -> str:
-    """The reference's DeadlockError message: the wedged packets and the
-    culprit wait cycle over occupied input slots (router order, ring order)."""
+def _deadlock_report(c, packets, completions, rings, fifos, fifo_of,
+                     nxt) -> tuple[str, int, int]:
+    """The reference's DeadlockError message — the wedged packets and the
+    culprit wait cycle over occupied input slots (router order, ring order) —
+    with the number of wedged packets and the wait cycle's length."""
     from ..analysis.cdg import find_wait_cycle
 
     stuck = [(pid, packets[pid].src, packets[pid].dst)
@@ -392,7 +451,8 @@ def _deadlock_report(c, packets, completions, rings, fifos, fifo_of, nxt) -> str
         culprit = (f"; culprit wait cycle across {len(wcyc)} router input(s): "
                    f"{hops} -> back to start")
     return (f"cycle {c}: no flit can move, {len(stuck)} packets wedged "
-            f"(first few: {stuck[:4]}) — cyclic buffer wait{culprit}")
+            f"(first few: {stuck[:4]}) — cyclic buffer wait{culprit}",
+            len(stuck), len(wcyc) if wcyc else 0)
 
 
 def _token_bytes(tokens: Sequence[tuple[int, int, int]], fb: int,
@@ -427,12 +487,23 @@ def simulate_switch(topo: Topology, packets: Sequence[Packet],
     ``verify=False`` lets doomed configurations run into `DeadlockError`.
 
     Payloads (numpy arrays or tensors) are delivered from the ejected tokens
-    on their own device.  ``tracer`` must be None: telemetry is a later slice
-    of the port."""
-    _reject_tracer(tracer)
+    on their own device.
+
+    ``tracer`` (a `telemetry.Tracer`, optional) records one ``switch_run``
+    instant up front (packet/flit totals and the analytic
+    `switch_lower_bound`), one ``cycle`` instant per executed cycle (link
+    moves and bytes, stall/arbitration/ejection deltas), a ``queue`` counter
+    with the cycle's peak FIFO occupancy when a FIFO grew, ``idle_ff``
+    fast-forward markers, one ``pkt`` instant per packet at tail ejection
+    (inject cycle, latency, hops, its credit-stall and arbitration-loss
+    counts), a ``deadlock`` instant before the error is raised, and per-link
+    ``link`` byte counters at the end of the run; ``tracer.detail ==
+    "flits"`` adds one ``flit`` instant per link move.  Timestamps are
+    ``tracer.clock + cycle``, so the caller positions the run on its
+    timeline.  ``tracer=None`` adds no work to the loop beyond its checks."""
     cfg = cfg or SwitchConfig()
     stats, completions, ej_log, tokens = _run_switch(topo, packets, cfg,
-                                                     record_ejections, verify)
+                                                     record_ejections, verify, tracer)
     payloads = _deliver_payloads(packets, tokens, cfg.flit_bytes)
     return SwitchResult(stats, completions, payloads, ej_log)
 
@@ -564,8 +635,8 @@ def simulate_wormhole_cube(topo: Topology, msgs: torch.Tensor,
     ride inside the same packets (``B * nbytes`` bytes each).
 
     The delivered cube is rebuilt on ``msgs``' device from the ejection
-    record alone: one host index vector, one gather and one scatter."""
-    _reject_tracer(tracer)
+    record alone: one host index vector, one gather and one scatter.
+    ``tracer`` records the switch's events, as in :func:`simulate_switch`."""
     cfg = cfg or SwitchConfig()
     fb = cfg.flit_bytes
     n = topo.n_nodes
@@ -578,7 +649,7 @@ def simulate_wormhole_cube(topo: Topology, msgs: torch.Tensor,
         pairs = [(s, d, buf) for s in range(n) for d in range(n)]
     pairs = [(s, d, nb) for s, d, nb in pairs if nb > 0]
     packets = [Packet(s, d, max(1, -(-(B * nb) // fb))) for s, d, nb in pairs]
-    stats, _, _, tokens = _run_switch(topo, packets, cfg, False, True)
+    stats, _, _, tokens = _run_switch(topo, packets, cfg, False, True, tracer)
     delivered = torch.zeros(msgs.shape, dtype=torch.uint8, device=msgs.device)
     if packets:
         m = np.asarray(pairs, np.int64)

@@ -6,13 +6,21 @@
 
 Requests are grouped into fixed-size batches; each batch is prefilled once,
 then decoded token by token against a shared cache (greedy sampling).  Eager
-PyTorch.  ``--model-parallel`` and ``--metrics`` wait for the mesh and
-telemetry slices, and ``--arch`` takes only the archs the port registers
-(default whisper-large-v3 until the dense family lands).
+PyTorch.  ``--model-parallel`` waits for the mesh slice, and ``--arch`` takes
+only the archs the port registers (default whisper-large-v3 until the dense
+family lands).
+
+``--metrics PATH`` turns on the telemetry metrics registry: prefill and
+per-token decode wall clock land in the ``serve.prefill.seconds`` /
+``serve.decode.seconds`` histograms; the JSON snapshot (with p50/p99/p99.9)
+is written to PATH ('-' = stdout).  Each sample starts and ends with the
+device idle (``torch.cuda.synchronize()`` on a GPU), so it times finished
+work, not kernel launches.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -22,15 +30,27 @@ from .._device import resolve_device
 from ..configs import ALL_ARCHS, get_config
 from ..models import transformer as T
 from ..models.layers import init_params
+from ..telemetry.metrics import disable_metrics, enable_metrics
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
-                device="cuda") -> np.ndarray:
+                device="cuda", reg=None) -> np.ndarray:
     """One batch: prefill once, decode token by token; (B, S) prompts →
     (B, gen) greedy tokens.  ``frames`` (B, enc_seq, d_frontend) feed the
     encoder of an encdec model, zeros by default as in the reference.  Weights
     are read in ``cfg.cdtype`` (a no-op for params already cast with
-    ``T.cast_params``)."""
+    ``T.cast_params``).
+
+    ``reg``: an optional telemetry `MetricsRegistry` — the prefill's wall
+    clock is observed into ``serve.prefill.seconds`` once and each decode
+    step's into ``serve.decode.seconds``.  Each sample is bracketed by device
+    synchronizations, so it bounds the real latency of that step; without
+    ``reg`` nothing is synchronized."""
     dev = resolve_device(device)
     params = T.cast_params(params, cfg.cdtype)
     B, S = prompts.shape
@@ -43,13 +63,23 @@ def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
         if tuple(batch["frames"].shape) != shape:
             raise ValueError(f"frames must be {shape}, got {tuple(batch['frames'].shape)}")
     with torch.inference_mode():
+        if reg is not None:
+            _sync(dev)
+        ts = time.perf_counter()
         logits, cache = T.prefill(params, batch, cfg, cache)
         tok = logits[:, -1].argmax(-1)
         out = [tok]
+        if reg is not None:
+            _sync(dev)
+            reg.histogram("serve.prefill.seconds").observe(time.perf_counter() - ts)
         for _ in range(gen - 1):
+            ts = time.perf_counter()
             logits, cache = T.decode_step(params, {"tokens": tok[:, None]}, cfg, cache)
             tok = logits.argmax(-1)
             out.append(tok)
+            if reg is not None:
+                _sync(dev)
+                reg.histogram("serve.decode.seconds").observe(time.perf_counter() - ts)
     return torch.stack(out, 1).cpu().numpy()
 
 
@@ -63,9 +93,13 @@ def run(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="enable the telemetry metrics registry; write the "
+                         "JSON snapshot here ('-' prints to stdout)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    reg = enable_metrics() if args.metrics else None
     cfg = get_config(args.arch, smoke=args.smoke)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.cast_params(init_params(T.abstract_params(cfg), gen), cfg.cdtype)
@@ -77,13 +111,30 @@ def run(argv=None):
     while done < args.requests:
         n = min(args.batch, args.requests - done)
         prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int64)
-        out = serve_batch(params, cfg, prompts, args.gen, device=dev)
+        out = serve_batch(params, cfg, prompts, args.gen, device=dev, reg=reg)
         all_out.append(out[:n])
         done += n
         print(f"served {done}/{args.requests} requests "
               f"(batch decode tok/s so far: {done * args.gen / (time.monotonic() - t0):,.1f})")
     dt = time.monotonic() - t0
     print(f"done: {args.requests} requests × {args.gen} tokens in {dt:.1f}s on {dev}")
+    if reg is not None:
+        d = reg.histogram("serve.decode.seconds")
+        print(f"decode/token: p50 {d.p50 * 1e3:.1f}ms  "
+              f"p99 {d.p99 * 1e3:.1f}ms  p99.9 {d.p999 * 1e3:.1f}ms")
+        # any NoC engine profiled in-process publishes noc.latency.*;
+        # surface it next to the serve latencies (logical-clock ticks)
+        for key, h in reg.histograms("noc.latency.").items():
+            print(f"{key}: n={h.count} p50 {h.p50:.0f}  p99 {h.p99:.0f}  "
+                  f"p99.9 {h.p999:.0f} ticks")
+        snap = json.dumps(reg.snapshot(), indent=1, sort_keys=True)
+        if args.metrics == "-":
+            print(snap)
+        else:
+            with open(args.metrics, "w") as fh:
+                fh.write(snap + "\n")
+            print(f"metrics snapshot -> {args.metrics}")
+        disable_metrics()
     return np.concatenate(all_out)
 
 

@@ -4,13 +4,14 @@
 Run on a GPU host with ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  The file imports neither jax nor the reference
 package: it holds each kernel to its plain PyTorch version on the card, and the
-GPU paths of the apps and of the whisper serve path to the same paths on the
-CPU."""
+GPU paths of the apps (traced too) and of the whisper serve path to the same
+paths on the CPU."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import telemetry  # noqa: E402
 from repro_torch.apps import bmvm, ldpc  # noqa: E402
 from repro_torch.apps import particle_filter as pf  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -279,6 +280,24 @@ def test_partitioned_bmvm_on_gpu_matches_cpu(dev, pods, mode):
     out_c, st_c = bmvm.iterate_noc_sim(lut_c, v, cfg, 2, pods=pods, mode=mode, device="cpu")
     assert np.array_equal(out_g, out0) and np.array_equal(out_g, out_c)
     assert st_g.as_dict() == st_c.as_dict() and st_g.bridge_beats > 0
+
+
+@pytest.mark.parametrize("pods", [None, [0] * 4 + [1] * 4])
+def test_traced_buffered_bmvm_on_gpu_matches_cpu(dev, pods):
+    """A traced buffered BMVM n=64 run on the card: the same event list as the
+    CPU run, and trace_stats equal to its NoCStats."""
+    rng = np.random.default_rng(2)
+    cfg = bmvm.BMVMConfig(n=64, k=8, fold=2)
+    A = rng.integers(0, 2, (64, 64)).astype(np.uint8)
+    v = rng.integers(0, 2, (64,)).astype(np.uint8)
+    runs = []
+    for d in (dev, "cpu"):
+        tr = telemetry.Tracer()
+        _, st = bmvm.iterate_noc_sim(bmvm.preprocess(A, cfg, device=d), v, cfg, 2,
+                                     mode="buffered", pods=pods, tracer=tr, device=d)
+        runs.append((tr.events(), st.as_dict()))
+        assert telemetry.trace_stats(tr).as_dict() == st.as_dict()
+    assert runs[0] == runs[1] and runs[0][1]["switch_cycles"] > 0
 
 
 def _qkv(dev, seed, B, Hq, Hkv, S, T, D, dtype=torch.float32):

@@ -22,6 +22,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.apps import bmvm as tbmvm  # noqa: E402
 from repro_torch.apps import ldpc as tldpc  # noqa: E402
 from repro_torch.apps import particle_filter as tpf  # noqa: E402
+from repro_torch.telemetry import Tracer, trace_stats  # noqa: E402
 
 TOPOLOGIES = ["ring", "mesh", "torus", "fattree"]
 CPU = "cpu"
@@ -383,18 +384,22 @@ def test_unknown_mode_is_an_error():
 
 @pytest.mark.parametrize("kwargs,err", [
     (dict(verify="strict"), None), (dict(verify="warn"), None),
-    (dict(verify="maybe"), ValueError), (dict(trace=True), NotImplementedError)])
+    (dict(verify="maybe"), ValueError), (dict(trace=True), None)])
 def test_later_executor_options_raise(kwargs, err):
-    """``trace=`` belongs to a later slice and raises, an unknown ``verify``
-    is an error, and ``verify="strict"``/``"warn"`` have been ported (``err``
-    None): the executor verifies itself and keeps the findings."""
-    g, topo, _ = _graph_and_topo()
+    """An unknown ``verify`` is an error; ``verify="strict"``/``"warn"`` and
+    ``trace=`` have been ported (``err`` None): the executor verifies itself,
+    keeps the findings, and ``trace=True`` gives it a fresh tracer."""
+    g, topo, inp = _graph_and_topo()
     if err is None:
         with warnings.catch_warnings(record=True) as warned:
             warnings.simplefilter("always")
             ex = tcore.NoCExecutor(g, topo, device=CPU, **kwargs)
         assert ex.verification and all(d.code == "NOC005" for d in ex.verification)
-        assert len(warned) == (kwargs["verify"] == "warn")
+        assert len(warned) == (kwargs.get("verify") == "warn")
+        assert (ex.tracer is not None) == ("trace" in kwargs)
+        if ex.tracer is not None:
+            _, st = ex.run(inp)
+            assert trace_stats(ex.tracer).as_dict() == st.as_dict()
         return
     with pytest.raises(err):
         tcore.NoCExecutor(g, topo, device=CPU, **kwargs)
@@ -419,7 +424,9 @@ def test_plan_with_later_modes_raises(mode):
 @pytest.mark.parametrize("option", ["tracer"])
 @pytest.mark.parametrize("app", ["bmvm", "ldpc", "pf"])
 def test_app_later_options_raise(option, app):
-    value = {"tracer": object()}[option]
+    """The apps' ``tracer=`` has been ported: it reaches
+    ``NoCExecutor(trace=)``, and the trace folds back into the run's stats."""
+    value = {"tracer": Tracer()}[option]
     if app == "bmvm":
         cfg = tbmvm.BMVMConfig(n=16, k=4, fold=1)
         lut = tbmvm.preprocess(np.eye(16, dtype=np.uint8), cfg, device=CPU)
@@ -432,8 +439,8 @@ def test_app_later_options_raise(option, app):
         cfg = tpf.PFConfig(img=32, roi=8, n_particles=8)
         call = lambda: tpf.track_on_noc(np.zeros((2, 32, 32), np.float32), cfg, device=CPU,
                                         **{option: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+    st = call()[-1]
+    assert len(value) > 0 and trace_stats(value).as_dict() == st.as_dict()
 
 
 def test_bmvm_iterate_spmd_raises():

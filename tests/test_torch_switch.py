@@ -23,6 +23,8 @@ from repro.apps import particle_filter as jpf  # noqa: E402
 from repro_torch.apps import bmvm as tbmvm  # noqa: E402
 from repro_torch.apps import ldpc as tldpc  # noqa: E402
 from repro_torch.apps import particle_filter as tpf  # noqa: E402
+import repro.telemetry as jtel  # noqa: E402
+import repro_torch.telemetry as ttel  # noqa: E402
 
 TOPOLOGIES = ["ring", "mesh", "torus", "fattree"]
 PATTERNS = ["uniform", "hotspot", "transpose", "bursty"]
@@ -201,12 +203,19 @@ def test_switch_config_errors_match_reference():
 
 
 def test_tracer_raises_until_the_telemetry_slice():
-    topo = tcore.make_topology("mesh", 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        tcore.simulate_switch(topo, [tcore.Packet(0, 1, 1)], tracer=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        tcore.simulate_wormhole_cube(topo, torch.zeros(4, 4, 2, dtype=torch.uint8),
-                                     tracer=object())
+    """The telemetry slice has landed: both entry points take a tracer, and
+    their events equal the reference's."""
+    traces = []
+    for core, tel in ((tcore, ttel), (jcore, jtel)):
+        topo = core.make_topology("mesh", 4)
+        tr = tel.Tracer()
+        core.simulate_switch(topo, [core.Packet(0, 1, 1), core.Packet(2, 1, 3)], tracer=tr)
+        cube = np.arange(32, dtype=np.uint8).reshape(4, 4, 2)
+        core.simulate_wormhole_cube(topo, torch.as_tensor(cube) if core is tcore else cube,
+                                    tracer=tr)
+        traces.append([(e.ts, e.name, e.track, e.kind, e.dur, e.value, e.args)
+                       for e in tr.events()])
+    assert traces[0] == traces[1] and len(traces[0]) > 0
 
 
 # -- payloads ---------------------------------------------------------------------------
