@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, then runs eight phases and raises on any failure:
+with ``nvcc``, then runs nine phases and raises on any failure:
 
 1. environment — the card, its power limit, torch/CUDA versions, build time,
                  ptxas's registers, spills and shared memory of each kernel;
@@ -52,7 +52,17 @@ with ``nvcc``, then runs eight phases and raises on any failure:
    the engine's ``noc.*`` metrics; and ``serve_batch`` with a metrics
    registry at whisper-large-v3 FULL on phase 5's traffic (launch counters
    reset just before, tokens equal to phase 5's, samples against the synced
-   wall), then ``launch.serve --smoke --metrics``.
+   wall), then ``launch.serve --smoke --metrics``;
+9. the dense family on the card — llama3.2-1b and gemma-7b SMOKE with
+   ``attn_impl="flash"`` held to the CPU (logits and three train steps'
+   losses); llama3.2-1b FULL (16 layers, d_model 2048, 32:8 heads of 64,
+   vocab 128256; random weights from a seed) served from a bf16 copy, 16
+   requests at batch 4 (prompt 32, 16 tokens) with no flash launch (a cache
+   takes the plain path); trained 6 steps at batch 8 x seq 128 through
+   ``launch.steps.make_train_step`` with flash launched 6 x 16 x 2 times
+   (remat), every flash call of a training forward held to the plain
+   version; checkpoint and restart through ``launch.train.run``; and the
+   train and serve CLIs with their default arch.
 
 Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
@@ -494,6 +504,21 @@ def main():
     flash_rows.append(dict(row, shape=[B_, H_, S_, S_, D_], dtype="bfloat16", causal=True,
                            n_split=flash_attention.num_splits(B_, H_, S_, S_, sm, D_)))
     del qg, kg, vg
+    # llama3.2-1b's training shape (phase 9): batch 8, 32 query heads on 8 kv
+    # heads, 128 tokens, D = 64, causal; one call a layer a forward
+    B_, H_, Hk_, S_, D_ = 8, 32, 8, 128, 64
+    qt, kt, vt = qkv(B_, H_, Hk_, S_, S_, D_, torch.bfloat16)
+    row = measure(f"flash_attention {(B_, H_, Hk_, S_, S_, D_)} bf16 causal (training)",
+                  flash_err(qt, kt, vt, True), 3e-2,
+                  lambda: ops.flash_attention(qt, kt, vt, True, True),
+                  lambda: flash_attention.flash_attention_plain(qt, kt, vt, True),
+                  2 * (qt.numel() + kt.numel()) * 2,
+                  4 * B_ * H_ * D_ * S_ * (S_ + 1) // 2, BF16_OPS_PER_S,
+                  lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True))
+    flash_rows.append(dict(row, shape=[B_, H_, Hk_, S_, S_, D_], dtype="bfloat16", causal=True,
+                           n_split=flash_attention.num_splits(B_, H_, S_, S_, sm, D_)))
+    del qt, kt, vt
     # the combine kernel alone, on the cross shape's partials (bf16 out, as on
     # the main path); checked in float32 against its plain version
     m, l, acc = flash_attention.flash_attention_partials(q, k, v, False, n_split)
@@ -607,6 +632,19 @@ def main():
     # -- phase 8: telemetry on the card ---------------------------------------------
     telemetry_phase(torch, dev, smi, serve_stats)
 
+    # -- phase 9: the dense family served and trained on the card -----------------
+    dense = dense_phase(torch, dev, smi)
+    for kern in kernels:
+        if kern["name"] == "flash_attention":
+            kern["launches_by_path"] = {"whisper_serve": serve_stats["launches"],
+                                        "llama_serve": dense["serve_launches"],
+                                        "llama_train": dense["train_launches"]}
+            kern["launches"] = sum(kern["launches_by_path"].values())
+            kern["combine"]["launches_by_path"] = {
+                "whisper_serve": serve_stats["combine_launches"], "llama_serve": 0,
+                "llama_train": dense["train_combine_launches"]}
+            kern["combine"]["launches"] = sum(kern["combine"]["launches_by_path"].values())
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -616,6 +654,7 @@ def main():
 def whisper_phase(torch, dev):
     """Phase 5: serve whisper-large-v3 FULL (flash) and hold it to the plain
     path on the card and, at SMOKE size, to the CPU."""
+    from repro_torch._tree import leaves
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention, ops
     from repro_torch.launch import serve
@@ -647,7 +686,7 @@ def whisper_phase(torch, dev):
     cfg = get_config("whisper-large-v3").replace(attn_impl="flash")
     gen = torch.Generator(device=dev).manual_seed(0)
     masters, secs = wall(torch, lambda: init_params(T.abstract_params(cfg), gen))
-    n_params = sum(t.numel() for t in _leaves(masters))
+    n_params = sum(t.numel() for t in leaves(masters))
     check(n_params == cfg.param_count(), f"{n_params} params, expected {cfg.param_count()}")
     params = T.cast_params(masters, cfg.cdtype)
     del masters
@@ -1231,16 +1270,225 @@ def telemetry_phase(torch, dev, smi, serve_stats):
     print(f"telemetry phase {time.perf_counter() - t_phase:.2f} s (NoC parts {t_noc:.2f} s)")
 
 
+def dense_phase(torch, dev, smi):
+    """Phase 9: llama3.2-1b (the dense family) served and trained on the card,
+    with the flash kernel in every training step's forward."""
+    from repro_torch._tree import leaves
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.checkpoint import manager as ckpt_manager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, _synthesize
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.telemetry import MetricsRegistry
+
+    t_phase = time.perf_counter()
+
+    # (a) SMOKE on the card (kernel) against the CPU (plain versions), f32:
+    # forward logits and three train steps' losses
+    for arch in ("llama3.2-1b", "gemma-7b"):
+        small = get_config(arch, smoke=True).replace(attn_impl="flash")
+        p0 = init_params(T.abstract_params(small), torch.Generator().manual_seed(0))
+        data = DataConfig(vocab=small.vocab, seq_len=16, global_batch=4, seed=0)
+        step = make_train_step(small, AdamWConfig(lr=2e-3), total_steps=10, warmup=1)
+        outs = []
+        for d in ("cpu", dev):
+            state = {"params": _to(p0, d)}
+            state["opt"] = adamw_init(state["params"])
+            batches = [train.device_batch(_synthesize(data, s), small, d) for s in range(3)]
+            with torch.no_grad():
+                lg = T.forward(state["params"], batches[0], small)[0].cpu()
+            losses = []
+            for b in batches:
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+            outs.append((lg, np.array(losses)))
+        err = (outs[0][0] - outs[1][0]).abs().max().item()
+        scale = outs[0][0].abs().max().item()
+        lerr = float(np.abs(outs[0][1] - outs[1][1]).max())
+        check(err <= 1e-3 * max(scale, 1.0) and lerr <= 1e-3 * float(np.abs(outs[0][1]).max()),
+              f"{arch} SMOKE: card vs CPU logits differ by {err}, losses by {lerr}")
+        print(f"{arch} SMOKE (flash kernel on the card vs plain on the CPU, f32): logits max "
+              f"|diff| {err:.3e} of {scale:.3f}; 3 train steps' losses "
+              f"{np.round(outs[1][1], 5).tolist()} vs CPU, max |diff| {lerr:.3e} "
+              f"(limits 1e-3 x scale)")
+
+    # (b) llama3.2-1b FULL from a seed, served from a bf16 copy: with a cache
+    # the reference's dispatch takes the plain path, so no flash launch
+    cfg = get_config("llama3.2-1b").replace(attn_impl="flash")
+    requests, batch, prompt_len, gen_len = 16, 4, 32, 16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    masters, secs = wall(torch, lambda: init_params(T.abstract_params(cfg), gen))
+    n_params = sum(t.numel() for t in leaves(masters))
+    check(n_params == cfg.param_count() == 1_235_814_400,
+          f"llama3.2-1b FULL has {n_params} params, expected {cfg.param_count()}")
+    params = T.cast_params(masters, cfg.cdtype)
+    print(f"llama3.2-1b FULL: {n_params:,} params drawn in {secs:.2f} s; serving from a "
+          f"{cfg.cdtype} copy ({n_params * 2 / 1e9:.2f} GB)")
+    prompts = torch.randint(0, cfg.vocab, (requests, prompt_len), generator=gen,
+                            device=dev).cpu().numpy()
+    serve.serve_batch(params, cfg, prompts[:batch], 2, device=dev)    # cuBLAS warm-up
+    reg = MetricsRegistry()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = np.concatenate([serve.serve_batch(params, cfg, prompts[i:i + batch], gen_len,
+                                               device=dev, reg=reg)
+                             for i in range(0, requests, batch)])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_counts = ops.launch_counts()
+    serve_peak = torch.cuda.max_memory_allocated()
+    pre, dec = reg.histogram("serve.prefill.seconds"), reg.histogram("serve.decode.seconds")
+    check(serve_counts["flash_attention"] == 0
+          and flash_attention.flash_attention.combine_launches == 0,
+          f"llama serve launched flash {serve_counts['flash_attention']} times, expected 0")
+    check(tokens.shape == (requests, gen_len) and tokens.min() >= 0
+          and tokens.max() < cfg.vocab, f"llama tokens {tokens.shape} out of range")
+    print(f"llama3.2-1b FULL served {requests} requests x {gen_len} tokens at batch {batch} "
+          f"(prompt {prompt_len}) in {serve_s:.3f} s ({requests * gen_len / serve_s:.1f} "
+          f"tokens/s); prefill p50 {pre.p50 * 1e3:.3f} ms, decode p50 {dec.p50 * 1e3:.3f} "
+          f"ms/token (p99 {dec.p99 * 1e3:.3f}); peak memory {serve_peak / 2**30:.2f} GiB; "
+          f"launches {serve_counts} (with a cache the dispatch takes _naive) ({smi})")
+    del params
+
+    # (c) llama3.2-1b FULL trained: batch 8, seq 128 (the CLI's defaults), lr
+    # 3e-4, AdamW in float32 masters; flash in every layer's forward, and
+    # once more a layer in the backward under remat
+    n_steps, tb, ts_ = 6, 8, 128
+    state = {"params": masters, "opt": adamw_init(masters)}
+    del masters
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4), total_steps=n_steps,
+                           warmup=max(n_steps // 20, 5))
+    data = DataConfig(vocab=cfg.vocab, seq_len=ts_, global_batch=tb, seed=0)
+    batches = [train.device_batch(_synthesize(data, s), cfg, dev) for s in range(n_steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_s, losses, gnorms = [], [], []
+    for b in batches:
+        (state, m), secs = wall(torch, lambda: step(state, b))
+        step_s.append(secs)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    train_counts = ops.launch_counts()
+    train_combines = flash_attention.flash_attention.combine_launches
+    train_peak = torch.cuda.max_memory_allocated()
+    expect = n_steps * cfg.n_layers * (2 if cfg.remat else 1)
+    check(train_counts["flash_attention"] == expect,
+          f"llama train launched flash {train_counts['flash_attention']} times, expected {expect}")
+    check(np.isfinite(losses).all() and np.isfinite(gnorms).all(),
+          f"llama train: loss {losses}, grad_norm {gnorms}")
+    med = statistics.median(step_s[1:])
+    print(f"llama3.2-1b FULL trained {n_steps} steps at batch {tb} x seq {ts_} (remat "
+          f"{cfg.remat}): losses {np.round(losses, 4).tolist()}, grad_norm "
+          f"{np.round(gnorms, 3).tolist()}; step {med * 1e3:.3f} ms median of steps 2-"
+          f"{n_steps} (first {step_s[0] * 1e3:.3f} ms), {tb * ts_ / med:,.0f} tokens/s; peak "
+          f"memory {train_peak / 2**30:.2f} GiB; flash launches {train_counts['flash_attention']}"
+          f" = {n_steps} steps x {cfg.n_layers} layers x {2 if cfg.remat else 1}, combine "
+          f"{train_combines} ({smi})")
+
+    # every flash call of one step's forward against the plain version on its
+    # own inputs (the forward alone, outside the counted run)
+    per_call = []
+    real = ops.flash_attention
+
+    def held(q, k, v, causal=True, use_kernel=False):
+        out = real(q, k, v, causal, use_kernel)
+        plain = flash_attention.flash_attention_plain(q, k, v, causal).float()
+        per_call.append(((out.float() - plain).abs().max() / plain.abs().max()).item())
+        return out
+
+    ops.flash_attention = held
+    try:
+        with torch.no_grad():
+            lk = T.loss(state["params"], batches[0], cfg)[0].item()
+    finally:
+        ops.flash_attention = real
+    with torch.no_grad():
+        lp = T.loss(state["params"], batches[0], cfg.replace(attn_impl="naive"))[0].item()
+    worst = max(per_call)
+    check(len(per_call) == cfg.n_layers and worst <= 1e-2,
+          f"flash calls of a training forward differ from the plain version by {worst:.3e}")
+    print(f"every flash call of a training forward ({len(per_call)}, (8, 32:8, 128, 128, 64) "
+          f"causal bf16) against the plain version on its own inputs: worst max |diff| / max "
+          f"|out| {worst:.3e} (limit 1e-2); loss on batch 0 after training {lk:.5f} through "
+          f"the kernel, {lp:.5f} through the plain path (attn_impl='naive')")
+    del state, batches
+
+    # (d) checkpoint and restart through launch.train.run (SMOKE on the card):
+    # the restored state equals the one saved bit for bit, and the resumed
+    # steps' losses follow an uninterrupted run
+    saved = {}
+    real_save = ckpt_manager.CheckpointManager.save
+
+    def keep(self, step_, tree, extra=None):
+        saved[step_] = [t.detach().cpu().clone() for t in leaves(tree)]
+        return real_save(self, step_, tree, extra)
+
+    base = ["--smoke", "--batch", "4", "--seq", "16", "--lr", "2e-3", "--log-every", "100"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_manager.CheckpointManager.save = keep
+        try:
+            first = train.run(base + ["--steps", "6", "--ckpt", tmp, "--ckpt-every", "3"])
+        finally:
+            ckpt_manager.CheckpointManager.save = real_save
+        small = get_config("llama3.2-1b", smoke=True)
+        restored, at, _ = CheckpointManager(CheckpointConfig(tmp)).restore(
+            train.build_state(small, 1, dev))
+        check(at == 6 and sorted(saved) == [3, 6], f"checkpoints at {sorted(saved)}, latest {at}")
+        got = leaves(restored)
+        check(len(got) == len(saved[6]) and all(
+            g.is_cuda and torch.equal(g.cpu(), s) for g, s in zip(got, saved[6])),
+            "the restored state differs from the saved one")
+        resumed = train.run(base + ["--steps", "9", "--ckpt", tmp, "--ckpt-every", "3"])
+    whole = train.run(base + ["--steps", "9"])
+    gap = max(abs(a - b) / abs(b) for a, b in zip(first + resumed, whole))
+    check(len(first) == 6 and len(resumed) == 3 and gap <= 1e-3,
+          f"resumed losses {first + resumed} vs uninterrupted {whole}: gap {gap}")
+    print(f"launch.train.run on the card (SMOKE): checkpoint at steps 3 and 6, the restored "
+          f"state ({len(got)} tensors) equal to the saved one bit for bit; resumed 6 -> 9 "
+          f"losses {np.round(resumed, 6).tolist()} vs uninterrupted "
+          f"{np.round(whole[6:], 6).tolist()}: max relative gap over 9 steps {gap:.3e} "
+          f"({'bit-exact' if gap == 0 else 'not bit-exact'}; limit 1e-3)")
+
+    # (e) the two CLIs with their default arch, at once
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = [subprocess.Popen([sys.executable, "-m", f"repro_torch.launch.{m}", *a],
+                              cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for m, a in (("train", ["--smoke", "--steps", "4", "--metrics", "-"]),
+                          ("serve", ["--smoke", "--metrics", "-"]))]
+    want = ({"train.step.seconds": 4}, {"serve.prefill.seconds": 4, "serve.decode.seconds": 60})
+    outs = []
+    for p, w in zip(procs, want):
+        out, err_ = p.communicate(timeout=300)
+        check(p.returncode == 0, f"{p.args}: exit {p.returncode}\n{err_[-2000:]}")
+        hists = json.loads(out[out.index("{"):])["histograms"]
+        check({k: h["count"] for k, h in hists.items()} == w, f"{p.args}: {hists}")
+        outs.append(out)
+    check("arch=llama3.2-1b" in outs[0] and "device=cuda" in outs[0],
+          f"train CLI: {outs[0][:200]}")
+    print(f"python -m repro_torch.launch.train --smoke --steps 4 --metrics - and "
+          f"python -m repro_torch.launch.serve --smoke --metrics - (default arch llama3.2-1b, "
+          f"default device cuda): exit 0, samples {want}")
+    print(f"dense phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(serve_launches=serve_counts["flash_attention"],
+                train_launches=train_counts["flash_attention"],
+                train_combine_launches=train_combines)
+
+
 def _to(x, device):
+    """A copy on ``device`` (the train step updates its params in place)."""
     if isinstance(x, dict):
         return {k: _to(v, device) for k, v in x.items()}
-    return x.to(device)
+    return x.to(device, copy=True)
 
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    return [tree]
 
 
 if __name__ == "__main__":

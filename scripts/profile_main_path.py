@@ -9,8 +9,11 @@ whisper-large-v3 FULL with ``attn_impl="flash"`` at batch 4 and prompt 32: one
 prefill, one decode step, and the prefill of the plain path,
 ``attn_impl="naive"``; the BMVM n=1024 NoC on the 8×8 mesh, r=2, uncut and cut
 into 2 and 4 pods over quasi-SERDES bridges, and through the buffered wormhole
-switch, ``mode="buffered"``, uncut and in 2 pods) it times each path on the
-host clock (median of 5 warm runs, each ending in ``torch.cuda.synchronize()``),
+switch, ``mode="buffered"``, uncut and in 2 pods; llama3.2-1b FULL with
+``attn_impl="flash"``: one training step at batch 8 × seq 128, the same step
+through the plain path, ``attn_impl="naive"``, and one decode step of the
+bf16 copy at batch 4 against 32 cached tokens) it times each path
+on the host clock (median of 5 warm runs, each ending in ``torch.cuda.synchronize()``),
 then traces one more run with
 ``torch.profiler`` and reports the device busy time (sum of the kernel, copy
 and memset activities on the card), their count, the device idle share of
@@ -50,8 +53,12 @@ def main(argv=None):
     from repro_torch.apps import bmvm, ldpc
     from repro_torch.apps import particle_filter as pf
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, _synthesize
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -93,6 +100,36 @@ def main(argv=None):
         return lambda: bmvm.iterate_noc_sim(lut_big, v_big, big, 2, topology="mesh",
                                             n_nodes=64, pods=pods, mode=mode)
 
+    llama = {}
+
+    def llama_setup():
+        """llama3.2-1b FULL, built at first use (25 GB with its optimizer)."""
+        if not llama:
+            cfg = get_config("llama3.2-1b").replace(attn_impl="flash")
+            masters = init_params(T.abstract_params(cfg), g)
+            data = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8, seed=0)
+            params = T.cast_params(masters, cfg.cdtype)
+            toks = torch.randint(0, cfg.vocab, (4, 32), generator=g, device=dev)
+            with torch.inference_mode():
+                _, cache = T.prefill(params, {"tokens": toks}, cfg,
+                                     T.init_cache(cfg, 4, 48, device=dev))
+            llama.update(cfg=cfg, state={"params": masters, "opt": adamw_init(masters)},
+                         step=make_train_step(cfg, AdamWConfig(), total_steps=100, warmup=5),
+                         plain_step=make_train_step(cfg.replace(attn_impl="naive"), AdamWConfig(),
+                                                    total_steps=100, warmup=5),
+                         batch=train.device_batch(_synthesize(data, 0), cfg, dev),
+                         params=params, cache=cache, token=toks[:, :1])
+        return llama
+
+    def llama_train_step(which="step"):
+        lm = llama_setup()
+        lm["state"], _ = lm[which](lm["state"], lm["batch"])
+
+    def llama_decode_step():
+        lm = llama_setup()
+        with torch.inference_mode():      # the cache stays at 32 tokens: the same step again
+            T.decode_step(lm["params"], {"tokens": lm["token"]}, lm["cfg"], lm["cache"])
+
     paths = {
         "bmvm_iterate_kernel": lambda: bmvm.iterate_kernel(lut, V, bcfg, 4),
         "ldpc_decode_minsum": lambda: ldpc.decode_minsum(idx, llr, 10),
@@ -105,6 +142,9 @@ def main(argv=None):
         "bmvm_noc_n1024_4pods": bmvm_noc([i // 16 for i in range(64)]),
         "bmvm_noc_n1024_buffered": bmvm_noc(None, "buffered"),
         "bmvm_noc_n1024_buffered_2pods": bmvm_noc([0] * 32 + [1] * 32, "buffered"),
+        "llama_train_step": llama_train_step,
+        "llama_train_step_plain": lambda: llama_train_step("plain_step"),
+        "llama_decode_step": llama_decode_step,
     }
     unknown = set(only) - set(paths)
     if unknown:
@@ -139,7 +179,7 @@ def main(argv=None):
             if e.device_type == DeviceType.CUDA:
                 by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
         busy_us = sum(sum(v) for v in by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
+        top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:14]
         ours = {}
         for k, v in by_name.items():
             kernel = next((n for n in PORT_KERNELS if n in k), None)
@@ -153,7 +193,7 @@ def main(argv=None):
             traced_wall_ms=traced_s * 1e3, device_busy_ms=busy_us / 1e3,
             device_activities=sum(len(v) for v in by_name.values()),
             device_idle_share=1 - busy_us / 1e6 / traced_s,
-            top_device_activities=[dict(name=k[:80], device_ms=sum(v) / 1e3, calls=len(v))
+            top_device_activities=[dict(name=k[:100], device_ms=sum(v) / 1e3, calls=len(v))
                                    for k, v in top],
             port_kernels={k: dict(device_ms=ms, calls=n) for k, (ms, n) in ours.items()})))
     return 0

@@ -19,3 +19,9 @@ def resolve_device(device="cuda") -> torch.device:
         if dev.index is None:   # name the card, so it compares equal to tensor.device
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for ``dev``'s queued work (a no-op on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

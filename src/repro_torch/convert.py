@@ -1,7 +1,8 @@
 """Carry the reference's state across to the port, from numpy alone.
 
 The state is the BMVM LUT, the LDPC edge index, the particle filter's
-reference histogram, `NoCStats` and the LM stack's parameter tree.  Each
+reference histogram, `NoCStats`, the LM stack's parameter tree and the AdamW
+state.  Each
 ``*_to_torch`` has a ``*_to_numpy`` inverse, and the pair round-trips exactly.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from ._tree import tree_map
 from .apps.ldpc import EdgeIndex
 from .core.noc import NoCStats
 
@@ -91,5 +93,22 @@ def model_params_to_torch(tree: Mapping, device="cuda") -> dict:
 
 def model_params_to_numpy(tree: Mapping) -> dict:
     """Inverse of `model_params_to_torch`."""
-    return {k: model_params_to_numpy(v) if isinstance(v, Mapping) else v.cpu().numpy()
-            for k, v in tree.items()}
+    return tree_map(lambda t: t.cpu().numpy(), tree)
+
+
+def opt_state_to_torch(state: Mapping, device="cuda") -> dict:
+    """The reference's AdamW state ``{"m", "v", "step"}`` (numpy, e.g.
+    ``jax.tree.map(np.asarray, opt)``) → the port's: ``m``/``v`` trees of
+    float32 tensors and a 0-d int32 ``step``."""
+    if set(state) != {"m", "v", "step"}:
+        raise KeyError(f"AdamW state keys must be m, v, step; got {sorted(state)}")
+    return {"m": model_params_to_torch(state["m"], device),
+            "v": model_params_to_torch(state["v"], device),
+            "step": torch.as_tensor(np.array(state["step"], np.int32),
+                                    device=resolve_device(device))}
+
+
+def opt_state_to_numpy(state: Mapping) -> dict:
+    """Inverse of `opt_state_to_torch`."""
+    return {"m": model_params_to_numpy(state["m"]), "v": model_params_to_numpy(state["v"]),
+            "step": state["step"].cpu().numpy()}

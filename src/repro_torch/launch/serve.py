@@ -1,14 +1,13 @@
 """Serving driver: batched prefill + greedy decode (counterpart of
 ``repro/launch/serve.py``).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \\
-        --smoke --device cpu --requests 16 --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --smoke \\
+        --device cpu --requests 16 --batch 4 --prompt-len 32 --gen 16
 
 Requests are grouped into fixed-size batches; each batch is prefilled once,
 then decoded token by token against a shared cache (greedy sampling).  Eager
 PyTorch.  ``--model-parallel`` waits for the mesh slice, and ``--arch`` takes
-only the archs the port registers (default whisper-large-v3 until the dense
-family lands).
+the archs the port registers (default llama3.2-1b, as in the reference).
 
 ``--metrics PATH`` turns on the telemetry metrics registry: prefill and
 per-token decode wall clock land in the ``serve.prefill.seconds`` /
@@ -26,16 +25,11 @@ import time
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, synchronize
 from ..configs import ALL_ARCHS, get_config
 from ..models import transformer as T
 from ..models.layers import init_params
 from ..telemetry.metrics import disable_metrics, enable_metrics
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
@@ -64,13 +58,13 @@ def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
             raise ValueError(f"frames must be {shape}, got {tuple(batch['frames'].shape)}")
     with torch.inference_mode():
         if reg is not None:
-            _sync(dev)
+            synchronize(dev)
         ts = time.perf_counter()
         logits, cache = T.prefill(params, batch, cfg, cache)
         tok = logits[:, -1].argmax(-1)
         out = [tok]
         if reg is not None:
-            _sync(dev)
+            synchronize(dev)
             reg.histogram("serve.prefill.seconds").observe(time.perf_counter() - ts)
         for _ in range(gen - 1):
             ts = time.perf_counter()
@@ -78,14 +72,14 @@ def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
             tok = logits.argmax(-1)
             out.append(tok)
             if reg is not None:
-                _sync(dev)
+                synchronize(dev)
                 reg.histogram("serve.decode.seconds").observe(time.perf_counter() - ts)
     return torch.stack(out, 1).cpu().numpy()
 
 
 def run(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="whisper-large-v3", choices=ALL_ARCHS)
+    ap.add_argument("--arch", default="llama3.2-1b", choices=ALL_ARCHS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)

@@ -10,7 +10,14 @@ Cross-attention (whisper) = ``kv_override`` + causal=False.  Decode = S==1
 against a preallocated cache written at ``cache["idx"]``, in place: the port
 updates the cache tensors where the reference returns updated copies.  On one
 card the reference's sharding constraints (``constrain``, ``cache_axes``) are
-nothing.  RoPE and ``compute_dtype="bf16"`` arrive with the dense family.
+nothing.
+
+``compute_dtype="bf16"`` (the reference's bf16 operands with float32
+accumulation) keeps the reference's roundings: q·kᵀ of the operands as they
+come (``_naive``) or rounded to bf16 with the scale folded into q in bf16
+(``_blocked``), and the probabilities rounded to v's dtype (``_naive``) or to
+bf16 (``_blocked``) before P·v.  The products run on the operands' values in
+float32, which a product of two bf16 numbers fits exactly.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
-from .layers import ParamSpec, rms_norm
+from .layers import ParamSpec, rms_norm, rope
 
 MASK_VALUE = -1e30
 
@@ -40,7 +47,8 @@ class AttnConfig:
     logit_softcap: float = 0.0
     seq_shard: bool = False         # long-context: KV seq axis over 'data'
     unroll: bool = False            # analysis mode: unroll the KV-block scan
-    compute_dtype: str = "f32"      # f32 (baseline) | bf16 (not ported yet)
+    compute_dtype: str = "f32"      # f32 (baseline) | bf16 (bf16 operands,
+                                    #   f32 accumulation)
 
 
 def attn_specs(c: AttnConfig, dtype=torch.float32) -> dict:
@@ -69,30 +77,32 @@ def _project(x, w):
     return torch.einsum("bsd,dhk->bhsk", x, w.to(x.dtype))
 
 
-def _qkv(params, x, c: AttnConfig):
-    if c.use_rope:
-        raise NotImplementedError("rope arrives with the dense family")
+def _qkv(params, x, c: AttnConfig, positions):
     q, k, v = (_project(x, params[w]) for w in ("wq", "wk", "wv"))
     if c.qk_norm:
         q = rms_norm(q, params["q_norm"].to(x.dtype))
         k = rms_norm(k, params["k_norm"].to(x.dtype))
+    if c.use_rope:
+        # rope expects (..., S, D); bring seq before head_dim
+        q = rope(q.transpose(1, 2), positions, c.rope_theta).transpose(1, 2)
+        k = rope(k.transpose(1, 2), positions, c.rope_theta).transpose(1, 2)
     return q, k, v
-
-
-def _check_compute_dtype(compute_dtype: str) -> None:
-    if compute_dtype != "f32":
-        raise NotImplementedError(f"attn compute_dtype={compute_dtype!r}: the port has "
-                                  "'f32' only; 'bf16' arrives with the dense family")
 
 
 def _naive(q, k, v, causal: bool, kv_len, softcap: float, q_offset=None,
            compute_dtype: str = "f32"):
-    _check_compute_dtype(compute_dtype)
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     g = Hq // Hkv
-    qg = q.reshape(B, Hkv, g, S, D).float()
-    s = torch.einsum("bhgsd,bhtd->bhgst", qg, k.float()) * (D ** -0.5)
+    if compute_dtype == "bf16":
+        # the operands as they come, f32 accumulation; the GQA group folded
+        # into the query rows so K is read once per kv head
+        qg = q.reshape(B, Hkv, g * S, D)
+        s = (qg.float() @ k.float().transpose(-1, -2)) * (D ** -0.5)   # (B,Hkv,gS,T)
+        s = s.reshape(B, Hkv, g, S, T)
+    else:
+        qg = q.reshape(B, Hkv, g, S, D).float()
+        s = torch.einsum("bhgsd,bhtd->bhgst", qg, k.float()) * (D ** -0.5)
     if softcap > 0:
         s = torch.tanh(s / softcap) * softcap
     t_ids = torch.arange(T, device=q.device)
@@ -104,14 +114,17 @@ def _naive(q, k, v, causal: bool, kv_len, softcap: float, q_offset=None,
         mask = mask & (t_ids[None, :] < kv_len)
     s = s.masked_fill(~mask, -torch.inf)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgst,bhtd->bhgsd", p, v.float())
+    if compute_dtype == "bf16":
+        pg = p.reshape(B, Hkv, g * S, T).to(v.dtype)
+        o = (pg.float() @ v.float()).reshape(B, Hkv, g, S, v.shape[-1])
+    else:
+        o = torch.einsum("bhgst,bhtd->bhgsd", p, v.float())
     return o.reshape(B, Hq, S, v.shape[-1]).to(q.dtype)
 
 
 def _blocked(q, k, v, causal: bool, kv_len, bkv: int, softcap: float, q_offset=None,
              compute_dtype: str = "f32"):
     """Online softmax over KV blocks (the flash algorithm in plain PyTorch)."""
-    _check_compute_dtype(compute_dtype)
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     if T <= bkv:
@@ -122,13 +135,23 @@ def _blocked(q, k, v, causal: bool, kv_len, bkv: int, softcap: float, q_offset=N
         v = F.pad(v, (0, 0, 0, pad))
     g = Hq // Hkv
     Dv = v.shape[-1]
-    qg = q.reshape(B, Hkv, g, S, D).float() * (D ** -0.5)
+    if compute_dtype == "bf16":
+        # the reference's cdt = bf16: operands and probabilities rounded to
+        # bf16, the scale applied in bf16, products accumulated in float32
+        def cdt(t):
+            return t.to(torch.bfloat16).float()
+        qg = (q.reshape(B, Hkv, g, S, D).to(torch.bfloat16)
+              * torch.tensor(D ** -0.5, dtype=torch.bfloat16)).float()
+    else:
+        def cdt(t):
+            return t.float()
+        qg = q.reshape(B, Hkv, g, S, D).float() * (D ** -0.5)
     q_ids = torch.arange(S, device=q.device)[:, None]
     acc = torch.zeros((B, Hkv, g, S, Dv), dtype=torch.float32, device=q.device)
     m = torch.full((B, Hkv, g, S, 1), MASK_VALUE, dtype=torch.float32, device=q.device)
     lse = torch.zeros((B, Hkv, g, S, 1), dtype=torch.float32, device=q.device)
     for t0 in range(0, T + pad, bkv):
-        s = torch.einsum("bhgsd,bhtd->bhgst", qg, k[:, :, t0:t0 + bkv].float())
+        s = torch.einsum("bhgsd,bhtd->bhgst", qg, cdt(k[:, :, t0:t0 + bkv]))
         if softcap > 0:
             s = torch.tanh(s / softcap) * softcap
         t_ids = t0 + torch.arange(bkv, device=q.device)[None, :]
@@ -142,7 +165,8 @@ def _blocked(q, k, v, causal: bool, kv_len, bkv: int, softcap: float, q_offset=N
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
-        acc = acc * alpha + torch.einsum("bhgst,bhtd->bhgsd", p, v[:, :, t0:t0 + bkv].float())
+        acc = acc * alpha + torch.einsum("bhgst,bhtd->bhgsd", cdt(p),
+                                         cdt(v[:, :, t0:t0 + bkv]))
         lse = lse * alpha + p.sum(-1, keepdim=True)
         m = m_new
     o = acc / lse.clamp_min(1e-30)
@@ -155,8 +179,12 @@ def attention(params: dict, x: torch.Tensor, c: AttnConfig, *,
               kv_override: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
               causal: bool = True) -> tuple[torch.Tensor, Optional[dict]]:
     """x: (B, S, d).  Returns (out (B, S, d), updated cache or None).
-    ``positions`` feed RoPE, which arrives with the dense family."""
+    ``positions`` (B, S) feed RoPE; by default they count on from the cache's
+    write index (from 0 without a cache)."""
     B, S, d = x.shape
+    if positions is None:
+        base = cache["idx"] if cache is not None else 0
+        positions = (base + torch.arange(S, device=x.device))[None, :].expand(B, S)
     if kv_override is not None:
         q = _project(x, params["wq"])
         if c.qk_norm:
@@ -167,7 +195,7 @@ def attention(params: dict, x: torch.Tensor, c: AttnConfig, *,
         q_off = None
         new_cache = cache
     else:
-        q, k, v = _qkv(params, x, c)
+        q, k, v = _qkv(params, x, c, positions)
         kv_len = None
         caus = causal
         q_off = None

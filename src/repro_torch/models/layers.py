@@ -1,12 +1,12 @@
-"""Parameter machinery and the basic layers of the whisper serve path
-(counterpart of ``repro/models/layers.py``).
+"""Parameter machinery and the basic layers shared by the ported
+architectures (counterpart of ``repro/models/layers.py``).
 
 Params are plain nested dicts of tensors, shaped exactly as the reference's
 pytree, so a converted reference tree and one made here have the same keys and
 shapes.  The abstract spec tree (`ParamSpec` leaves) built by each model's
 ``abstract_params`` is the one source of shapes, dtypes and init rules.
-``rope``, ``swiglu``, ``layer_norm`` and ``cross_entropy`` arrive with the
-dense family and training.
+Each op keeps the reference's casts: norms, RoPE angles and the
+cross-entropy's log-sum-exp are computed in float32.
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+
+from .._tree import leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,14 +42,6 @@ def spec_tree_map(fn, tree):
     if is_spec(tree):
         return fn(tree)
     return {k: spec_tree_map(fn, v) for k, v in tree.items()}
-
-
-def spec_leaves(tree) -> list[ParamSpec]:
-    """The specs of a nested dict, in sorted-key order (the reference's
-    pytree flattening order)."""
-    if is_spec(tree):
-        return [tree]
-    return [s for k in sorted(tree) for s in spec_leaves(tree[k])]
 
 
 def init_param(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
@@ -79,7 +73,7 @@ def init_params(spec_tree, gen: torch.Generator, device=None):
 
 
 def count_params(spec_tree) -> int:
-    return sum(math.prod(s.shape) for s in spec_leaves(spec_tree))
+    return sum(math.prod(s.shape) for s in leaves(spec_tree))
 
 
 def stack_specs(spec_tree, n: int):
@@ -101,6 +95,42 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, correction=0)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * gamma + beta
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+         rope_dim: Optional[int] = None) -> torch.Tensor:
+    """x: (..., S, H, D) or (..., S, D); positions: (..., S).  The angles are
+    float32, and ``x1 * cos`` promotes a bf16 ``x`` to float32 before the
+    cast back, as in the reference."""
+    d = rope_dim or x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].float() * freqs                       # (..., S, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    while cos.ndim < x.ndim:
+        cos, sin = cos[..., None, :], sin[..., None, :]               # add head axis
+    x1, x2 = x[..., :half], x[..., half:d]
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([rot, x[..., d:].to(rot.dtype)], dim=-1).to(x.dtype)
+
+
+def _act(h: torch.Tensor, act: str) -> torch.Tensor:
+    """SiLU, or GELU in its tanh approximation (``jax.nn.gelu(approximate=True)``)."""
+    return F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Gated MLP: SwiGLU with ``act="silu"``, GeGLU with ``"gelu"``."""
+    return (_act(x @ w_gate, act) * (x @ w_up)) @ w_down
+
+
 def mlp_specs(d: int, ff: int, dtype, gated: bool = True) -> dict:
     sp = {
         "up": ParamSpec((d, ff), ("embed", "mlp"), dtype),
@@ -112,10 +142,21 @@ def mlp_specs(d: int, ff: int, dtype, gated: bool = True) -> dict:
 
 
 def mlp_apply(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """Plain two-layer MLP; GELU is the tanh approximation, as
-    ``jax.nn.gelu(approximate=True)``."""
+    """The gated MLP when the params have a ``gate``, else the plain
+    two-layer one."""
     if "gate" in params:
-        raise NotImplementedError("gated MLPs (swiglu) arrive with the dense family")
-    h = x @ params["up"].to(x.dtype)
-    h = F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
-    return h @ params["down"].to(x.dtype)
+        return swiglu(x, params["gate"].to(x.dtype), params["up"].to(x.dtype),
+                      params["down"].to(x.dtype), act=act)
+    return _act(x @ params["up"].to(x.dtype), act) @ params["down"].to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """logits (B, S, V), labels (B, S) → mean NLL over the labels that are
+    not ``ignore_id``: the log-sum-exp in float32 and the reference's mean
+    (sum over kept positions / max(count, 1))."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)

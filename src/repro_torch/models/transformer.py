@@ -2,15 +2,20 @@
 a model is a (pattern × n_periods) stack of sub-layers.
 
 The reference scans over periods; the port runs a Python loop over them and
-indexes each stacked weight at the period, so params keep the reference's
-stacked layout (leading layers axis on ``blocks`` and ``enc_blocks``).  This
-slice ports the ``attn`` mixer, the ``mlp`` ffn, cross-attention and the
-audio encoder: the whisper (encdec) serve path.  Other mixers, the MoE ffn and
-the vlm prefix raise ``NotImplementedError`` naming the family they wait for.
+splits each stacked weight into its periods, so params keep the reference's
+stacked layout (leading layers axis on ``blocks`` and ``enc_blocks``).  With
+``cfg.remat`` and grad enabled each period runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` around its
+period), so the backward recomputes the period's forward.  The port has the
+``attn`` mixer with RoPE, the plain and gated ``mlp`` ffn, cross-attention and
+the audio encoder: the dense (llama3.2-1b, gemma-7b, command-r-35b) and encdec
+(whisper) families, served and trained.  Other mixers, the MoE ffn and the vlm
+prefix raise ``NotImplementedError`` naming the family they wait for.
 
 API:
   abstract_params(cfg)                  -> ParamSpec tree
   forward(params, batch, cfg, cache)    -> (logits, aux, new_cache, moe_stats)
+  loss(params, batch, cfg)              -> (scalar, metrics)
   init_cache(cfg, batch, max_len)       -> decode cache
   prefill / decode_step                 -> serving entry points
 """
@@ -19,11 +24,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
+from .._tree import tree_map
 from ..configs.base import ModelConfig
 from .attention import AttnConfig, attention, attn_specs
 from .attention import init_cache as attn_init_cache
-from .layers import ParamSpec, mlp_apply, mlp_specs, rms_norm, stack_specs
+from .layers import ParamSpec, cross_entropy, mlp_apply, mlp_specs, rms_norm, stack_specs
 
 MASK_LOGIT = -1e30   # padded vocab classes (pad_vocab)
 
@@ -100,9 +107,7 @@ def cast_params(params, dtype: torch.dtype):
     """The param tree in ``dtype``.  Every weight on the forward path is cast
     to ``cfg.cdtype`` at use, so serving from a ``cdtype`` copy made once
     gives the same values and skips the per-step casts."""
-    if isinstance(params, torch.Tensor):
-        return params.to(dtype)
-    return {k: cast_params(v, dtype) for k, v in params.items()}
+    return tree_map(lambda t: t.to(dtype), params)
 
 
 # ---------------------------------------------------------------------------
@@ -155,21 +160,28 @@ def _apply_sublayer(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
     return x, new_cache
 
 
-def _at_period(tree, i: int):
-    """The period-``i`` slice of a stacked param tree (views, no copies)."""
+def _unstack(tree, n: int) -> list:
+    """The ``n`` period slices of a stacked param tree (views, no copies).
+    ``unbind`` rather than indexing: its backward stacks the periods'
+    gradients once, where ``tree[i]`` would scatter each into a zero tensor
+    of the whole stack."""
     if isinstance(tree, torch.Tensor):
-        return tree[i]
-    return {k: _at_period(v, i) for k, v in tree.items()}
+        return tree.unbind(0)
+    parts = {k: _unstack(v, n) for k, v in tree.items()}
+    return [{k: parts[k][i] for k in parts} for i in range(n)]
 
 
 def _run_stack(blocks, x, cfg: ModelConfig, *, pattern, positions, cache_blocks,
                enc_out, causal):
     """Loop over periods; each sub-layer's cache is its period's slice of the
-    stacked K/V, written in place.  Returns (x, new cache blocks or None)."""
-    n_periods = blocks["0"]["norm1"].shape[0]
+    stacked K/V, written in place.  Returns (x, new cache blocks or None).
+    Without a cache, under ``cfg.remat`` and with grad enabled, each period
+    is checkpointed (its activations are recomputed in the backward)."""
+    periods = _unstack(blocks, blocks["0"]["norm1"].shape[0])
     new_idx = {}
-    for period in range(n_periods):
-        pp = _at_period(blocks, period)
+
+    def period_fn(x, period):
+        pp = periods[period]
         for i, (mixer, ffn) in enumerate(pattern):
             sub_cache = None
             if cache_blocks is not None:
@@ -179,6 +191,16 @@ def _run_stack(blocks, x, cfg: ModelConfig, *, pattern, positions, cache_blocks,
                                     cache=sub_cache, enc_out=enc_out, causal=causal)
             if nc is not None:
                 new_idx[str(i)] = nc["idx"]
+        return x
+
+    remat = cfg.remat and cache_blocks is None and torch.is_grad_enabled()
+    for period in range(len(periods)):
+        if remat:
+            # the forward draws no random numbers: no RNG state to replay
+            x = torch.utils.checkpoint.checkpoint(period_fn, x, period, use_reentrant=False,
+                                                  preserve_rng_state=False)
+        else:
+            x = period_fn(x, period)
     if cache_blocks is None:
         return x, None
     return x, {i: {"k": cb["k"], "v": cb["v"], "idx": new_idx[i]}
@@ -248,6 +270,17 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
             new_cache["enc_out"] = enc_out
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, zero, new_cache, {"moe_drops": 0, "moe_peak_occupancy": 0}
+
+
+def loss(params: dict, batch: dict, cfg: ModelConfig):
+    """-> (nll + aux_weight · aux, {"nll", "aux", "moe_drops",
+    "moe_peak_occupancy"}), the MoE counters in float32 as in the reference."""
+    logits, aux, _, moe_stats = forward(params, batch, cfg)
+    nll = cross_entropy(logits, batch["labels"])
+    total = nll + cfg.aux_weight * aux
+    mets = {k: torch.as_tensor(v, dtype=torch.float32, device=logits.device)
+            for k, v in moe_stats.items()}
+    return total, {"nll": nll, "aux": aux, **mets}
 
 
 # ---------------------------------------------------------------------------

@@ -372,6 +372,27 @@ def test_lint_model_config_on_the_ported_registry():
     assert "dense reference" in got[1].message
 
 
+@pytest.mark.parametrize("arch", ["command-r-35b", "gemma-7b", "llama3.2-1b",
+                                  "whisper-large-v3"])
+def test_lint_configs_target_matches_reference(arch):
+    """The CLI's ``configs`` target over the port's registry: each arch, FULL
+    and SMOKE, lints to the reference's diagnostics for the same arch (with
+    and without MoE layers grafted on, so the NOC011 paths are compared too)."""
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+
+    got = {w: _d(d) for w, d in tlint._lint_configs()}
+    want = {w: _d(d) for w, d in jlint._lint_configs()}
+    assert set(got) == {f"configs/{n}{s}" for n in tconfigs.ALL_ARCHS for s in ("", "/smoke")}
+    for tag in (f"configs/{arch}", f"configs/{arch}/smoke"):
+        assert got[tag] == want[tag]
+    moe = dict(pattern=(("attn", "moe"),), n_experts=6, top_k=2, moe_impl="noc")
+    for smoke in (False, True):
+        t = tconfigs.get_config(arch, smoke=smoke).replace(**moe)
+        j = jconfigs.get_config(arch, smoke=smoke).replace(**moe)
+        assert _d(TA.lint_model_config(t, n_ranks=4)) == _d(JA.lint_model_config(j, n_ranks=4))
+
+
 def test_executor_verify_modes():
     g = _diamond(tcore)
     bad = tcore.NoCConfig(switch_vcs=1)

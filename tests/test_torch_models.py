@@ -222,7 +222,7 @@ def test_serve_run_cli_on_cpu(capsys):
     assert out.shape == (3, 3) and out.min() >= 0 and out.max() < 256
     assert "done: 3 requests" in capsys.readouterr().out
     with pytest.raises(SystemExit):           # only the archs the port registers
-        tserve.run(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu"])
+        tserve.run(["--arch", "jamba-v0.1-52b", "--smoke", "--device", "cpu"])
 
 
 def test_serve_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
@@ -259,8 +259,8 @@ def test_init_params_follow_reference_rules(params):
 @pytest.mark.parametrize("change,match", [
     (dict(pattern=(("mla", "mlp"),)), "MLA family"),
     (dict(pattern=(("attn", "moe"),)), "moe family"),
-    (dict(attn_compute_dtype="bf16"), "compute_dtype"),
-    (dict(use_rope=True, pos_embed="rope"), "rope"),
+    (dict(pattern=(("mamba", "mlp"),)), "hybrid family"),
+    (dict(pattern=(("mlstm", "none"),)), "xlstm family"),
 ])
 def test_unported_paths_raise(change, match):
     cfg = torch_config(ARCH, smoke=True).replace(**change)
