@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, then runs nine phases and raises on any failure:
+with ``nvcc``, then runs ten phases and raises on any failure:
 
 1. environment — the card, its power limit, torch/CUDA versions, build time,
                  ptxas's registers, spills and shared memory of each kernel;
@@ -62,7 +62,18 @@ with ``nvcc``, then runs nine phases and raises on any failure:
    ``launch.steps.make_train_step`` with flash launched 6 x 16 x 2 times
    (remat), every flash call of a training forward held to the plain
    version; checkpoint and restart through ``launch.train.run``; and the
-   train and serve CLIs with their default arch.
+   train and serve CLIs with their default arch;
+10. the MoE, MLA and vlm families on the card — phi3.5-moe and qwen3-moe (the
+   MoE layer on the one-rank gather engine at flit buffer depth 2),
+   minicpm3-4b and internvl2-1b at SMOKE held to the CPU (forward logits and
+   MoE stats, serve tokens, three train steps); at full width with random
+   weights from a seed, each served 16 requests at batch 4 (prompt 32, 16
+   tokens) from bf16: phi3.5-moe at 16 of 32 layers, qwen3-moe (128 experts
+   top-8) at 4 of 94, minicpm3-4b and internvl2-1b (256-patch prefix) uncut;
+   and trained 6 steps at batch 8 x seq 128: phi3.5-moe at 2 layers,
+   minicpm3-4b at 31 of 62, internvl2-1b uncut (flash over 384 positions),
+   with every flash call of a training forward held to the plain version.
+   Phase 2 times flash at these families' GQA ratios (4, 16, 7) beside SDPA.
 
 Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
@@ -519,6 +530,25 @@ def main():
     flash_rows.append(dict(row, shape=[B_, H_, Hk_, S_, S_, D_], dtype="bfloat16", causal=True,
                            n_split=flash_attention.num_splits(B_, H_, S_, S_, sm, D_)))
     del qt, kt, vt
+    # the GQA ratios of phase 10's families at their training shape, batch 8:
+    # phi3.5-moe 32:8 (4) and qwen3-moe 64:4 (16) at D = 128 over 128 tokens,
+    # internvl2-1b 14:2 (7) at D = 64 over its 256 patches + 128 tokens
+    for arch, (B_, H_, Hk_, S_, D_) in (("phi3.5-moe", (8, 32, 8, 128, 128)),
+                                        ("qwen3-moe", (8, 64, 4, 128, 128)),
+                                        ("internvl2-1b", (8, 14, 2, 384, 64))):
+        qt, kt, vt = qkv(B_, H_, Hk_, S_, S_, D_, torch.bfloat16)
+        row = measure(f"flash_attention {(B_, H_, Hk_, S_, S_, D_)} bf16 causal ({arch}, GQA "
+                      f"{H_ // Hk_})", flash_err(qt, kt, vt, True), 3e-2,
+                      lambda: ops.flash_attention(qt, kt, vt, True, True),
+                      lambda: flash_attention.flash_attention_plain(qt, kt, vt, True),
+                      2 * (qt.numel() + kt.numel()) * 2,
+                      4 * B_ * H_ * D_ * S_ * (S_ + 1) // 2, BF16_OPS_PER_S,
+                      lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                             enable_gqa=True))
+        flash_rows.append(dict(row, shape=[B_, H_, Hk_, S_, S_, D_], dtype="bfloat16",
+                               causal=True, arch=arch,
+                               n_split=flash_attention.num_splits(B_, H_, S_, S_, sm, D_)))
+        del qt, kt, vt
     # the combine kernel alone, on the cross shape's partials (bf16 out, as on
     # the main path); checked in float32 against its plain version
     m, l, acc = flash_attention.flash_attention_partials(q, k, v, False, n_split)
@@ -634,15 +664,20 @@ def main():
 
     # -- phase 9: the dense family served and trained on the card -----------------
     dense = dense_phase(torch, dev, smi)
+
+    # -- phase 10: the MoE, MLA and vlm families served and trained on the card ---
+    families = families_phase(torch, dev, smi)
     for kern in kernels:
         if kern["name"] == "flash_attention":
             kern["launches_by_path"] = {"whisper_serve": serve_stats["launches"],
                                         "llama_serve": dense["serve_launches"],
-                                        "llama_train": dense["train_launches"]}
+                                        "llama_train": dense["train_launches"],
+                                        **families["launches"]}
             kern["launches"] = sum(kern["launches_by_path"].values())
             kern["combine"]["launches_by_path"] = {
                 "whisper_serve": serve_stats["combine_launches"], "llama_serve": 0,
-                "llama_train": dense["train_combine_launches"]}
+                "llama_train": dense["train_combine_launches"],
+                **families["combine_launches"]}
             kern["combine"]["launches"] = sum(kern["combine"]["launches_by_path"].values())
 
     print(json.dumps({"kernels": kernels}))
@@ -1481,6 +1516,246 @@ def dense_phase(torch, dev, smi):
     return dict(serve_launches=serve_counts["flash_attention"],
                 train_launches=train_counts["flash_attention"],
                 train_combine_launches=train_combines)
+
+
+def families_phase(torch, dev, smi):
+    """Phase 10: the MoE (phi3.5-moe, qwen3-moe), MLA (minicpm3-4b) and vlm
+    (internvl2-1b) families served and trained on the card, the MoE layer on
+    the one-rank gather engine, with the flash kernel in every training
+    forward of an attention model."""
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, _synthesize
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.telemetry import MetricsRegistry
+
+    t_phase = time.perf_counter()
+    launches, combines = {}, {}
+    metric_keys = ("loss", "grad_norm", "aux", "moe_drops", "moe_peak_occupancy")
+
+    # (a) SMOKE on the card (kernel) against the CPU (plain versions), f32, the
+    # MoE archs on the gather engine at flit buffer depth 2 (so packets drop):
+    # forward logits and stack stats, greedy serve tokens, three train steps
+    gather2 = dict(moe_impl="gather", moe_flit_buffer_depth=2)
+    for arch, kw in (("phi3.5-moe-42b-a6.6b", gather2), ("qwen3-moe-235b-a22b", gather2),
+                     ("minicpm3-4b", {}), ("internvl2-1b", {})):
+        small = get_config(arch, smoke=True).replace(attn_impl="flash", remat=True, **kw)
+        p0 = init_params(T.abstract_params(small), torch.Generator().manual_seed(0))
+        data = DataConfig(vocab=small.vocab, seq_len=16, global_batch=4, seed=0)
+        step = make_train_step(small, AdamWConfig(lr=2e-3), total_steps=10, warmup=1)
+        prompts = np.random.default_rng(0).integers(0, small.vocab, (4, 8))
+        outs = []
+        for d in ("cpu", dev):
+            state = {"params": _to(p0, d)}
+            state["opt"] = adamw_init(state["params"])
+            batches = [train.device_batch(_synthesize(data, s), small, d) for s in range(3)]
+            with torch.no_grad():
+                lg, _, _, st = T.forward(state["params"], batches[0], small)
+            tokens = serve.serve_batch(state["params"], small, prompts, 4, device=d)
+            mets = []
+            for b in batches:
+                state, m = step(state, b)
+                mets.append([float(m[k]) for k in metric_keys])
+            outs.append((lg.cpu(), {k: int(v) for k, v in st.items()}, tokens, np.array(mets)))
+        (lc, sc, tc, mc), (lg_, sg, tg, mg) = outs
+        err = (lc - lg_).abs().max().item()
+        scale = lc.abs().max().item()
+        merr = np.abs(mc[:, :3] - mg[:, :3]).max(0) / np.abs(mc[:, :3]).max(0).clip(1e-6)
+        check(err <= 1e-3 * max(scale, 1.0) and sc == sg and np.array_equal(tc, tg)
+              and (merr <= 1e-3).all() and np.array_equal(mc[:, 3:], mg[:, 3:]),
+              f"{arch} SMOKE: card vs CPU logits differ by {err}, stats {sc} vs {sg}, tokens "
+              f"equal {np.array_equal(tc, tg)}, train metrics by {merr} (drops/peak "
+              f"{mc[:, 3:].tolist()} vs {mg[:, 3:].tolist()})")
+        print(f"{arch} SMOKE {kw or ''} (card vs CPU, f32): logits max |diff| {err:.3e} of "
+              f"{scale:.3f}, stack stats {sg} equal, serve tokens equal; 3 train steps' loss, "
+              f"grad_norm, aux {np.round(mg[:, :3], 5).tolist()}, relative gaps "
+              f"{np.round(merr, 8).tolist()} (limit 1e-3), drops/peak {mg[:, 3:].tolist()} equal")
+
+    def held_flash_calls(fn):
+        """fn() with every flash call held to the plain version on its own
+        inputs: (fn's result, the calls' max |diff| / max |out|)."""
+        per_call, real = [], ops.flash_attention
+
+        def held(q, k, v, causal=True, use_kernel=False):
+            out = real(q, k, v, causal, use_kernel)
+            plain = flash_attention.flash_attention_plain(q, k, v, causal).float()
+            per_call.append(((out.float() - plain).abs().max() / plain.abs().max()).item())
+            return out
+
+        ops.flash_attention = held
+        try:
+            with torch.no_grad():
+                return fn(), per_call
+        finally:
+            ops.flash_attention = real
+
+    def serve_full(tag, cfg, requests=16, batch=4, prompt_len=32, gen_len=16):
+        """Serve ``cfg`` from weights drawn in bf16 from a seed: 16 requests at
+        batch 4, launch counters reset just before and read just after."""
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = draw_serving_params(torch, cfg, gen, dev)
+        n_params = sum(t.numel() for t in leaves(params))
+        check(n_params == cfg.param_count(),
+              f"{tag}: {n_params} params, expected {cfg.param_count()}")
+        prompts = torch.randint(0, cfg.vocab, (requests, prompt_len), generator=gen,
+                                device=dev).cpu().numpy()
+        serve.serve_batch(params, cfg, prompts[:batch], 2, device=dev)    # cuBLAS warm-up
+        reg = MetricsRegistry()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ts = time.perf_counter()
+        tokens = np.concatenate([serve.serve_batch(params, cfg, prompts[i:i + batch], gen_len,
+                                                   device=dev, reg=reg)
+                                 for i in range(0, requests, batch)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - ts
+        n_flash = ops.launch_counts()["flash_attention"]
+        launches[f"{tag}_serve"] = n_flash
+        combines[f"{tag}_serve"] = flash_attention.flash_attention.combine_launches
+        peak = torch.cuda.max_memory_allocated()
+        with torch.no_grad():
+            b = {"tokens": torch.as_tensor(prompts[:batch], device=dev)}
+            if cfg.family == "vlm":
+                b["patches"] = torch.zeros((batch, cfg.n_patches, cfg.d_frontend),
+                                           dtype=cfg.cdtype, device=dev)
+            lg, _, _, st = T.forward(params, b, cfg)
+            finite = bool(torch.isfinite(lg).all())
+        check(n_flash == 0 and finite and tokens.shape == (requests, gen_len)
+              and tokens.min() >= 0 and tokens.max() < cfg.vocab,
+              f"{tag} serve: {n_flash} flash launches (expected 0: a cache takes the plain "
+              f"path), logits finite {finite}, tokens {tokens.shape}")
+        pre, dec = reg.histogram("serve.prefill.seconds"), reg.histogram("serve.decode.seconds")
+        print(f"{cfg.name} ({cfg.n_layers} of {get_config(cfg.name).n_layers} layers, "
+              f"{n_params:,} params, {cfg.cdtype}) served {requests} requests x {gen_len} "
+              f"tokens at batch {batch} (prompt {prompt_len}"
+              f"{f' after {cfg.n_patches} patches' if cfg.family == 'vlm' else ''}) in "
+              f"{secs:.3f} s ({requests * gen_len / secs:.1f} tokens/s); prefill p50 "
+              f"{pre.p50 * 1e3:.3f} ms, decode p50 {dec.p50 * 1e3:.3f} ms/token (p99 "
+              f"{dec.p99 * 1e3:.3f}); peak memory {peak / 2**30:.2f} GiB; flash launches "
+              f"{n_flash}; a forward of the first prompts: logits finite, MoE stats "
+              f"{ {k: int(v) for k, v in st.items()} }; phase wall for this arch "
+              f"{time.perf_counter() - t0:.2f} s ({smi})")
+        return tokens
+
+    def train_full(tag, cfg, n_steps=6, tb=8, ts_=128):
+        """Train ``cfg`` 6 AdamW steps at batch 8 x seq 128 from float32
+        masters drawn from a seed, launch counters reset just before and read
+        just after; then every flash call of a forward held to the plain
+        version."""
+        t0 = time.perf_counter()
+        masters = init_params(T.abstract_params(cfg), torch.Generator(device=dev).manual_seed(0))
+        state = {"params": masters, "opt": adamw_init(masters)}
+        del masters
+        step = make_train_step(cfg, AdamWConfig(lr=3e-4), total_steps=n_steps,
+                               warmup=max(n_steps // 20, 5))
+        data = DataConfig(vocab=cfg.vocab, seq_len=ts_, global_batch=tb, seed=0)
+        batches = [train.device_batch(_synthesize(data, s), cfg, dev) for s in range(n_steps)]
+        if cfg.family == "vlm":
+            # seeded patches, not the train CLI's zeros: a zero prefix row stays zero
+            # through the stack, where rms_norm's derivative is rsqrt(eps) = 1000,
+            # so at 24 layers the gradient overflows to NaN (the reference's too)
+            pg = torch.Generator(device=dev).manual_seed(1)
+            for b in batches:
+                b["patches"] = torch.randn(b["patches"].shape, generator=pg,
+                                           device=dev).to(cfg.cdtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        step_s, mets = [], []
+        for b in batches:
+            (state, m), secs = wall(torch, lambda: step(state, b))
+            step_s.append(secs)
+            mets.append({k: float(m[k]) for k in metric_keys})
+        n_flash = ops.launch_counts()["flash_attention"]
+        launches[f"{tag}_train"] = n_flash
+        combines[f"{tag}_train"] = flash_attention.flash_attention.combine_launches
+        peak = torch.cuda.max_memory_allocated()
+        n_attn = sum(m == "attn" for m, _ in cfg.pattern) * cfg.n_periods
+        if cfg.attn_impl != "flash":
+            n_attn = 0
+        expect = n_steps * n_attn * (2 if cfg.remat else 1)
+        check(n_flash == expect, f"{tag} train launched flash {n_flash} times, expected {expect}")
+        check(all(np.isfinite(list(m.values())).all() for m in mets), f"{tag} train: {mets}")
+        med = statistics.median(step_s[1:])
+        L = ts_ + (cfg.n_patches if cfg.family == "vlm" else 0)
+        print(f"{cfg.name} ({cfg.n_layers} of {get_config(cfg.name).n_layers} layers, "
+              f"{cfg.param_count():,} params) trained {n_steps} steps at batch {tb} x seq {ts_}"
+              f"{f' after {cfg.n_patches} seeded patches' if cfg.family == 'vlm' else ''} (remat "
+              f"{cfg.remat}): per step loss/grad_norm/aux/moe_drops/moe_peak_occupancy "
+              f"{[[round(m[k], 4) for k in metric_keys] for m in mets]}; step "
+              f"{med * 1e3:.3f} ms median of steps 2-{n_steps} (first {step_s[0] * 1e3:.3f} ms), "
+              f"{tb * ts_ / med:,.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB; flash "
+              f"launches {n_flash} = {n_steps} steps x {n_attn} attention layers x "
+              f"{2 if cfg.remat else 1} over {L} positions")
+        if expect:
+            lk, per_call = held_flash_calls(
+                lambda: T.loss(state["params"], batches[0], cfg)[0].item())
+            check(len(per_call) == n_attn and max(per_call) <= 1e-2,
+                  f"{tag}: flash calls of a training forward differ from the plain version by "
+                  f"{max(per_call):.3e}")
+            print(f"  every flash call of a training forward ({len(per_call)}) against the plain "
+                  f"version on its own inputs: worst max |diff| / max |out| "
+                  f"{max(per_call):.3e} (limit 1e-2); loss on batch 0 after training {lk:.5f}")
+        print(f"  phase wall for this arch {time.perf_counter() - t0:.2f} s ({smi})")
+        del state, batches
+        torch.cuda.empty_cache()
+        return mets
+
+    # (b) phi3.5-moe at full width: served at 16 of 32 layers from bf16 (42 GB),
+    # trained at 2 layers from float32 masters
+    phi = get_config("phi3.5-moe-42b-a6.6b").replace(attn_impl="flash")
+    serve_full("phi", phi.replace(n_layers=16))
+    torch.cuda.empty_cache()
+    train_full("phi", phi.replace(n_layers=2))
+    # (c) qwen3-moe at full width (128 experts top-8, QK-norm) served at 4 of
+    # 94 layers from bf16; its training is held at SMOKE in (a)
+    serve_full("qwen", get_config("qwen3-moe-235b-a22b").replace(attn_impl="flash", n_layers=4))
+    torch.cuda.empty_cache()
+    # (d) minicpm3-4b FULL (62 layers, MLA), served uncut from bf16; trained at
+    # full width cut to 31 layers (its float32 state at 62 layers, 65 GB, and
+    # the optimizer's temporaries pass the card's 80 GB).  MLA never takes flash.
+    mini = get_config("minicpm3-4b").replace(attn_impl="flash")
+    serve_full("minicpm", mini)
+    torch.cuda.empty_cache()
+    train_full("minicpm", mini.replace(n_layers=31))
+    # (e) internvl2-1b FULL, uncut: served after its 256-patch prefix, trained
+    # with flash over prefix + text = 384 positions
+    vl = get_config("internvl2-1b").replace(attn_impl="flash")
+    serve_full("internvl", vl)
+    torch.cuda.empty_cache()
+    train_full("internvl", vl)
+    print(f"families phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(launches=launches, combine_launches=combines)
+
+
+def draw_serving_params(torch, cfg, gen, dev):
+    """The params of ``cfg`` in ``cfg.cdtype``, drawn from ``gen`` by the
+    reference's init rules, each stacked leaf a layer at a time: no leaf has a
+    float32 copy whole (phi3.5-moe's experts are 27 GB a leaf in float32 at 16
+    layers).  Slicing the layers axis keeps a stacked weight's fan-in rule."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_param, spec_tree_map
+
+    def draw(sp):
+        sp = dataclasses.replace(sp, dtype=cfg.cdtype)
+        if len(sp.shape) < 3:
+            return init_param(gen, sp, dev)
+        one = dataclasses.replace(sp, shape=sp.shape[1:], axes=sp.axes[1:])
+        out = torch.empty(sp.shape, dtype=sp.dtype, device=dev)
+        for layer in out:
+            layer.copy_(init_param(gen, one, dev))
+        return out
+
+    return spec_tree_map(draw, T.abstract_params(cfg))
 
 
 def _to(x, device):

@@ -12,7 +12,13 @@ into 2 and 4 pods over quasi-SERDES bridges, and through the buffered wormhole
 switch, ``mode="buffered"``, uncut and in 2 pods; llama3.2-1b FULL with
 ``attn_impl="flash"``: one training step at batch 8 × seq 128, the same step
 through the plain path, ``attn_impl="naive"``, and one decode step of the
-bf16 copy at batch 4 against 32 cached tokens) it times each path
+bf16 copy at batch 4 against 32 cached tokens; the MoE, MLA and vlm families
+at full width as ``chip_smoke.py`` phase 10 sizes them: a training step at
+batch 8 × seq 128 of phi3.5-moe (2 layers), minicpm3-4b (31 of 62 layers)
+and internvl2-1b (uncut, 256 seeded patches), and a decode step at batch 4
+against 32 cached tokens of the bf16 phi3.5-moe (16 of 32 layers), qwen3-moe
+(4 of 94), minicpm3-4b and internvl2-1b (after its 256 patches); one family
+arch is held on the card at a time) it times each path
 on the host clock (median of 5 warm runs, each ending in ``torch.cuda.synchronize()``),
 then traces one more run with
 ``torch.profiler`` and reports the device busy time (sum of the kernel, copy
@@ -50,6 +56,8 @@ def main(argv=None):
         print("profile_main_path: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
+    sys.path.insert(0, HERE)
+    from chip_smoke import draw_serving_params
     from repro_torch.apps import bmvm, ldpc
     from repro_torch.apps import particle_filter as pf
     from repro_torch.configs import get_config
@@ -130,6 +138,54 @@ def main(argv=None):
         with torch.inference_mode():      # the cache stays at 32 tokens: the same step again
             T.decode_step(lm["params"], {"tokens": lm["token"]}, lm["cfg"], lm["cache"])
 
+    family = {}
+
+    def family_setup(kind, arch, n_layers=None):
+        """One arch of phase 10, built at first use; building another frees it."""
+        key = (kind, arch, n_layers)
+        if family.get("key") != key:
+            family.clear()
+            torch.cuda.empty_cache()
+            cfg = get_config(arch).replace(attn_impl="flash")
+            cfg = cfg.replace(n_layers=n_layers or cfg.n_layers)
+            fg = torch.Generator(device=dev).manual_seed(0)
+            if kind == "train":
+                masters = init_params(T.abstract_params(cfg), fg)
+                data = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8, seed=0)
+                batch = train.device_batch(_synthesize(data, 0), cfg, dev)
+                if cfg.family == "vlm":     # seeded patches, as chip_smoke.py phase 10
+                    batch["patches"] = torch.randn(batch["patches"].shape, generator=fg,
+                                                   device=dev).to(cfg.cdtype)
+                family.update(state={"params": masters, "opt": adamw_init(masters)},
+                              step=make_train_step(cfg, AdamWConfig(), total_steps=100,
+                                                   warmup=5), batch=batch)
+            else:
+                params = draw_serving_params(torch, cfg, fg, dev)
+                b = {"tokens": torch.randint(0, cfg.vocab, (4, 32), generator=fg, device=dev)}
+                n_pre = cfg.n_patches if cfg.family == "vlm" else 0
+                if n_pre:
+                    b["patches"] = torch.zeros((4, n_pre, cfg.d_frontend), dtype=cfg.cdtype,
+                                               device=dev)
+                with torch.inference_mode():
+                    _, cache = T.prefill(params, b, cfg,
+                                         T.init_cache(cfg, 4, n_pre + 48, device=dev))
+                family.update(params=params, cache=cache, token=b["tokens"][:, :1])
+            family.update(key=key, cfg=cfg)
+        return family
+
+    def family_train_step(arch, n_layers=None):
+        def run():
+            fam = family_setup("train", arch, n_layers)
+            fam["state"], _ = fam["step"](fam["state"], fam["batch"])
+        return run
+
+    def family_decode_step(arch, n_layers=None):
+        def run():
+            fam = family_setup("serve", arch, n_layers)
+            with torch.inference_mode():     # the cache stays put: the same step again
+                T.decode_step(fam["params"], {"tokens": fam["token"]}, fam["cfg"], fam["cache"])
+        return run
+
     paths = {
         "bmvm_iterate_kernel": lambda: bmvm.iterate_kernel(lut, V, bcfg, 4),
         "ldpc_decode_minsum": lambda: ldpc.decode_minsum(idx, llr, 10),
@@ -145,7 +201,16 @@ def main(argv=None):
         "llama_train_step": llama_train_step,
         "llama_train_step_plain": lambda: llama_train_step("plain_step"),
         "llama_decode_step": llama_decode_step,
+        "phi_train_step": family_train_step("phi3.5-moe-42b-a6.6b", 2),
+        "phi_decode_step": family_decode_step("phi3.5-moe-42b-a6.6b", 16),
+        "qwen_decode_step": family_decode_step("qwen3-moe-235b-a22b", 4),
+        "minicpm_train_step": family_train_step("minicpm3-4b", 31),
+        "minicpm_decode_step": family_decode_step("minicpm3-4b"),
+        "internvl_train_step": family_train_step("internvl2-1b"),
+        "internvl_decode_step": family_decode_step("internvl2-1b"),
     }
+    family_paths = {k for k in paths if k.split("_")[0] in ("phi", "qwen", "minicpm",
+                                                             "internvl")}
     unknown = set(only) - set(paths)
     if unknown:
         raise SystemExit(f"unknown paths {sorted(unknown)}; choose from {sorted(paths)}")
@@ -166,6 +231,8 @@ def main(argv=None):
             runs.append(time.perf_counter() - t0)
         walls[name] = runs[1:]                 # the first run warms caches
     for name, fn in paths.items():
+        if name in family_paths:
+            fn()        # builds the arch again (one is held at a time) outside the trace
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()

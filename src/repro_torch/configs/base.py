@@ -2,8 +2,7 @@
 (``repro/configs/base.py``) and the per-arch registry.
 
 ``cdtype`` is a torch dtype.  The reference's ``input_specs`` (ShapeDtypeStruct
-stand-ins for its dry run) and the MoE ``active_param_count`` arrive with the
-slices that use them.
+stand-ins for its dry run) arrives with the mesh slice that uses it.
 """
 from __future__ import annotations
 
@@ -101,6 +100,23 @@ class ModelConfig:
         from ..models.layers import count_params
         from ..models.transformer import abstract_params
         return count_params(abstract_params(self))
+
+    def active_param_count(self) -> int:
+        """MoE: the params one token touches (for MODEL_FLOPS = 6·N_active·D):
+        an expert-stacked weight counts top_k of its n_experts slices."""
+        if not self.n_experts:
+            return self.param_count()
+        from .._tree import leaves
+        from ..models.transformer import abstract_params
+        total = 0
+        for spec in leaves(abstract_params(self)):
+            n = 1
+            for s in spec.shape:
+                n *= s
+            if self.n_experts in spec.shape and "experts" in spec.axes:
+                n = n // self.n_experts * self.top_k
+            total += n
+        return total
 
 
 # registry filled by the per-arch modules

@@ -36,7 +36,10 @@ def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
                 device="cuda", reg=None) -> np.ndarray:
     """One batch: prefill once, decode token by token; (B, S) prompts →
     (B, gen) greedy tokens.  ``frames`` (B, enc_seq, d_frontend) feed the
-    encoder of an encdec model, zeros by default as in the reference.  Weights
+    encoder of an encdec model, zeros by default as in the reference; a vlm
+    model's prefill reads zero patches (B, n_patches, d_frontend), as in the
+    reference, and its cache holds ``n_patches + S + gen`` positions (the
+    reference sizes it ``S + gen``, which its prefill overflows).  Weights
     are read in ``cfg.cdtype`` (a no-op for params already cast with
     ``T.cast_params``).
 
@@ -48,8 +51,12 @@ def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
     dev = resolve_device(device)
     params = T.cast_params(params, cfg.cdtype)
     B, S = prompts.shape
-    cache = T.init_cache(cfg, B, S + gen, device=dev)
+    n_pre = cfg.n_patches if cfg.family == "vlm" else 0
+    cache = T.init_cache(cfg, B, n_pre + S + gen, device=dev)
     batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev)}
+    if n_pre:
+        batch["patches"] = torch.zeros((B, n_pre, cfg.d_frontend), dtype=cfg.cdtype,
+                                       device=dev)
     if cfg.family == "encdec":
         shape = (B, cfg.enc_seq, cfg.d_frontend)
         batch["frames"] = (torch.zeros(shape, dtype=cfg.cdtype, device=dev) if frames is None

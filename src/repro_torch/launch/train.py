@@ -12,8 +12,10 @@ checkpoint/restart through the resilient runner.  ``--model-parallel`` and
 ``--metrics PATH`` turns on the telemetry metrics registry: each step's wall
 clock lands in the ``train.step.seconds`` histogram (p50/p99/p99.9 printed at
 the end), bracketed by ``torch.cuda.synchronize()`` on a GPU, and the step's
-metrics publish through ``record_step_metrics``; the JSON snapshot is written
-to PATH ('-' = stdout).
+metrics publish through ``record_step_metrics`` (an MoE model's
+``moe_drops`` and ``moe_peak_occupancy`` land on ``noc.moe.drops`` and
+``noc.moe.peak_occupancy``); the JSON snapshot is written to PATH ('-' =
+stdout).
 """
 from __future__ import annotations
 
@@ -45,11 +47,16 @@ def build_state(cfg, seed: int = 0, device="cuda") -> dict:
 
 def device_batch(batch: dict, cfg, device) -> dict:
     """A pipeline batch (numpy int32) as int64 tensors on ``device``, with the
-    zero frames an encdec model reads, as the reference feeds them."""
+    zero frames an encdec model reads and the zero patches a vlm model
+    reads, as the reference feeds them."""
     out = {k: torch.as_tensor(np.asarray(v), device=device).long() for k, v in batch.items()}
+    B = out["tokens"].shape[0]
     if cfg.family == "encdec":
-        out["frames"] = torch.zeros((out["tokens"].shape[0], cfg.enc_seq, cfg.d_frontend),
-                                    dtype=cfg.cdtype, device=device)
+        out["frames"] = torch.zeros((B, cfg.enc_seq, cfg.d_frontend), dtype=cfg.cdtype,
+                                    device=device)
+    if cfg.family == "vlm":
+        out["patches"] = torch.zeros((B, cfg.n_patches, cfg.d_frontend), dtype=cfg.cdtype,
+                                     device=device)
     return out
 
 

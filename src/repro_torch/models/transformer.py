@@ -7,15 +7,19 @@ stacked layout (leading layers axis on ``blocks`` and ``enc_blocks``).  With
 ``cfg.remat`` and grad enabled each period runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` around its
 period), so the backward recomputes the period's forward.  The port has the
-``attn`` mixer with RoPE, the plain and gated ``mlp`` ffn, cross-attention and
-the audio encoder: the dense (llama3.2-1b, gemma-7b, command-r-35b) and encdec
-(whisper) families, served and trained.  Other mixers, the MoE ffn and the vlm
-prefix raise ``NotImplementedError`` naming the family they wait for.
+``attn`` and ``mla`` mixers, the plain and gated ``mlp`` ffn, the ``moe`` ffn,
+cross-attention, the audio encoder and the vlm patch prefix: the dense,
+encdec, moe and vlm families, served and trained.  The ``mamba``, ``mlstm``
+and ``slstm`` mixers raise ``NotImplementedError`` naming the family they
+wait for.
+
+MoE dispatch stats follow the reference's scan carry: ``aux`` and
+``moe_drops`` sum over the stack, ``moe_peak_occupancy`` is the max.
 
 API:
   abstract_params(cfg)                  -> ParamSpec tree
   forward(params, batch, cfg, cache)    -> (logits, aux, new_cache, moe_stats)
-  loss(params, batch, cfg)              -> (scalar, metrics)
+  loss(params, batch, cfg)              -> (scalar, metrics incl. moe_drops)
   init_cache(cfg, batch, max_len)       -> decode cache
   prefill / decode_step                 -> serving entry points
 """
@@ -28,21 +32,25 @@ import torch.utils.checkpoint
 
 from .._tree import tree_map
 from ..configs.base import ModelConfig
+from ..core.noc import NoCConfig
+from . import mla as mla_mod
+from . import moe as moe_mod
 from .attention import AttnConfig, attention, attn_specs
 from .attention import init_cache as attn_init_cache
 from .layers import ParamSpec, cross_entropy, mlp_apply, mlp_specs, rms_norm, stack_specs
 
 MASK_LOGIT = -1e30   # padded vocab classes (pad_vocab)
 
-# the reference family each unported sub-layer kind arrives with
-_WAITS_FOR = {"mla": "the MLA family (minicpm3-4b)", "mamba": "the hybrid family (jamba)",
-              "mlstm": "the xlstm family", "slstm": "the xlstm family",
-              "moe": "the moe family (qwen3-moe, phi3.5-moe)"}
+# the reference family each unported mixer arrives with
+_WAITS_FOR = {"mamba": "the hybrid family (jamba)", "mlstm": "the xlstm family",
+              "slstm": "the xlstm family"}
 
 
 def _unported(kind: str):
+    if kind not in _WAITS_FOR:
+        return ValueError(f"unknown mixer {kind!r}")
     return NotImplementedError(f"{kind!r} sub-layers are not ported yet; they arrive "
-                               f"with {_WAITS_FOR.get(kind, 'a later slice')}")
+                               f"with {_WAITS_FOR[kind]}")
 
 
 def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
@@ -55,6 +63,23 @@ def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
                       compute_dtype=cfg.attn_compute_dtype)
 
 
+def _mla_cfg(cfg: ModelConfig) -> mla_mod.MLAConfig:
+    return mla_mod.MLAConfig(cfg.d_model, cfg.n_heads, rope_theta=cfg.rope_theta,
+                             impl=cfg.attn_impl, bkv=cfg.bkv,
+                             unroll=cfg.analysis_unroll, absorb=cfg.mla_absorb,
+                             compute_dtype=cfg.attn_compute_dtype)
+
+
+def _moe_cfg(cfg: ModelConfig) -> moe_mod.MoEConfig:
+    # moe_flit_buffer_depth > 0 attaches a NoCConfig: the CONNECT buffer depth
+    # becomes the capacity knob and capacity_factor is derived from it
+    noc = (NoCConfig(flit_buffer_depth=cfg.moe_flit_buffer_depth)
+           if cfg.moe_flit_buffer_depth else None)
+    return moe_mod.MoEConfig(cfg.d_model, cfg.n_experts, cfg.top_k, cfg.d_ff_expert,
+                             capacity_factor=cfg.capacity_factor, impl=cfg.moe_impl,
+                             noc_topology=cfg.moe_topology, act=cfg.act, noc=noc)
+
+
 # ---------------------------------------------------------------------------
 # specs
 # ---------------------------------------------------------------------------
@@ -62,9 +87,12 @@ def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
 def _sublayer_specs(cfg: ModelConfig, mixer: str, ffn: str, cross: bool, dtype) -> dict:
     d = cfg.d_model
     sp: dict = {"norm1": ParamSpec((d,), ("embed",), dtype, init="ones")}
-    if mixer != "attn":
+    if mixer == "attn":
+        sp["attn"] = attn_specs(_attn_cfg(cfg), dtype)
+    elif mixer == "mla":
+        sp["mla"] = mla_mod.mla_specs(_mla_cfg(cfg), dtype)
+    else:
         raise _unported(mixer)
-    sp["attn"] = attn_specs(_attn_cfg(cfg), dtype)
     if cross:
         sp["norm_x"] = ParamSpec((d,), ("embed",), dtype, init="ones")
         sp["cross"] = attn_specs(_attn_cfg(cfg), dtype)
@@ -72,7 +100,8 @@ def _sublayer_specs(cfg: ModelConfig, mixer: str, ffn: str, cross: bool, dtype) 
         sp["norm2"] = ParamSpec((d,), ("embed",), dtype, init="ones")
         sp["mlp"] = mlp_specs(d, cfg.d_ff, dtype, cfg.gated_mlp)
     elif ffn == "moe":
-        raise _unported(ffn)
+        sp["norm2"] = ParamSpec((d,), ("embed",), dtype, init="ones")
+        sp["moe"] = moe_mod.moe_specs(_moe_cfg(cfg), dtype)
     return sp
 
 
@@ -115,17 +144,22 @@ def cast_params(params, dtype: torch.dtype):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
-    """Per sub-layer of the pattern: K/V stacked over periods, (P, B, Hkv,
-    max_len, D) in ``cfg.cdtype``, and the shared write index."""
+    """Per sub-layer of the pattern: its cache tensors stacked over periods in
+    ``cfg.cdtype`` (attention K/V (P, B, Hkv, max_len, D); MLA latent
+    (P, B, max_len, kv_lora) and RoPE key (P, B, max_len, rope)) and the
+    shared write index."""
     P = cfg.n_periods
     blocks = {}
     for i, (mixer, _) in enumerate(cfg.pattern):
-        if mixer != "attn":
-            raise _unported(mixer)
         # one allocation for all periods: P·batch rows, viewed as (P, batch)
-        c = attn_init_cache(_attn_cfg(cfg), P * batch, max_len, cfg.cdtype, device)
-        blocks[str(i)] = {"k": c["k"].unflatten(0, (P, batch)),
-                          "v": c["v"].unflatten(0, (P, batch)), "idx": 0}
+        if mixer == "attn":
+            c = attn_init_cache(_attn_cfg(cfg), P * batch, max_len, cfg.cdtype, device)
+        elif mixer == "mla":
+            c = mla_mod.init_mla_cache(_mla_cfg(cfg), P * batch, max_len, cfg.cdtype, device)
+        else:
+            raise _unported(mixer)
+        blocks[str(i)] = {k: (v if k == "idx" else v.unflatten(0, (P, batch)))
+                          for k, v in c.items()}
     return {"blocks": blocks, "pos": 0}
 
 
@@ -139,11 +173,18 @@ def _norm(x, gamma, cfg: ModelConfig):
 
 def _apply_sublayer(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
                     positions, cache, enc_out, causal):
-    if mixer != "attn":
-        raise _unported(mixer)
+    """-> (x, new cache, aux, (drops, peak)); the last two are None without
+    a MoE ffn."""
+    aux = moe = None
     h = _norm(x, p["norm1"], cfg)
-    o, new_cache = attention(p["attn"], h, _attn_cfg(cfg), positions=positions,
-                             cache=cache, causal=causal)
+    if mixer == "attn":
+        o, new_cache = attention(p["attn"], h, _attn_cfg(cfg), positions=positions,
+                                 cache=cache, causal=causal)
+    elif mixer == "mla":
+        o, new_cache = mla_mod.mla_apply(p["mla"], h, _mla_cfg(cfg), positions=positions,
+                                         cache=cache)
+    else:
+        raise _unported(mixer)
     x = x + o
     if enc_out is not None and "cross" in p:
         hx = _norm(x, p["norm_x"], cfg)
@@ -156,8 +197,12 @@ def _apply_sublayer(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
         h = _norm(x, p["norm2"], cfg)
         x = x + mlp_apply(p["mlp"], h, act="silu" if cfg.act == "silu" else "gelu")
     elif ffn == "moe":
-        raise _unported(ffn)
-    return x, new_cache
+        h = _norm(x, p["norm2"], cfg)
+        o, aux, st = moe_mod.moe_apply(p["moe"], h, _moe_cfg(cfg))
+        moe = tuple(torch.as_tensor(v, dtype=torch.int32, device=x.device)
+                    for v in (st.drops, st.peak_occupancy))
+        x = x + o
+    return x, new_cache, aux, moe
 
 
 def _unstack(tree, n: int) -> list:
@@ -174,37 +219,53 @@ def _unstack(tree, n: int) -> list:
 def _run_stack(blocks, x, cfg: ModelConfig, *, pattern, positions, cache_blocks,
                enc_out, causal):
     """Loop over periods; each sub-layer's cache is its period's slice of the
-    stacked K/V, written in place.  Returns (x, new cache blocks or None).
-    Without a cache, under ``cfg.remat`` and with grad enabled, each period
-    is checkpointed (its activations are recomputed in the backward)."""
+    stacked cache tensors, written in place.  Returns (x, aux, new cache
+    blocks or None, moe_stats): ``aux`` and ``moe_drops`` summed over the MoE
+    sub-layers, ``moe_peak_occupancy`` their max (the hottest dispatch buffer
+    anywhere in the stack), zeros without one.  Without a cache, under
+    ``cfg.remat`` and with grad enabled, each period is checkpointed (its
+    activations are recomputed in the backward, its stats discarded there)."""
     periods = _unstack(blocks, blocks["0"]["norm1"].shape[0])
     new_idx = {}
+    stats = []      # (aux, drops, peak) of each MoE sub-layer
 
     def period_fn(x, period):
         pp = periods[period]
+        moe_stats = []
         for i, (mixer, ffn) in enumerate(pattern):
             sub_cache = None
             if cache_blocks is not None:
-                cb = cache_blocks[str(i)]
-                sub_cache = {"k": cb["k"][period], "v": cb["v"][period], "idx": cb["idx"]}
-            x, nc = _apply_sublayer(pp[str(i)], x, cfg, mixer, ffn, positions=positions,
-                                    cache=sub_cache, enc_out=enc_out, causal=causal)
+                sub_cache = {k: (v if k == "idx" else v[period])
+                             for k, v in cache_blocks[str(i)].items()}
+            x, nc, aux, moe = _apply_sublayer(pp[str(i)], x, cfg, mixer, ffn,
+                                              positions=positions, cache=sub_cache,
+                                              enc_out=enc_out, causal=causal)
             if nc is not None:
                 new_idx[str(i)] = nc["idx"]
-        return x
+            if moe is not None:
+                moe_stats.append((aux, *moe))
+        return x, moe_stats
 
     remat = cfg.remat and cache_blocks is None and torch.is_grad_enabled()
     for period in range(len(periods)):
         if remat:
             # the forward draws no random numbers: no RNG state to replay
-            x = torch.utils.checkpoint.checkpoint(period_fn, x, period, use_reentrant=False,
-                                                  preserve_rng_state=False)
+            x, st = torch.utils.checkpoint.checkpoint(period_fn, x, period, use_reentrant=False,
+                                                      preserve_rng_state=False)
         else:
-            x = period_fn(x, period)
+            x, st = period_fn(x, period)
+        stats += st
+    if stats:
+        aux, drops, peak = (torch.stack(s) for s in zip(*stats))
+        aux, drops, peak = aux.sum(), drops.sum(dtype=torch.int32), peak.amax()
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        drops = peak = torch.zeros((), dtype=torch.int32, device=x.device)
+    moe_stats = {"moe_drops": drops, "moe_peak_occupancy": peak}
     if cache_blocks is None:
-        return x, None
-    return x, {i: {"k": cb["k"], "v": cb["v"], "idx": new_idx[i]}
-               for i, cb in cache_blocks.items()}
+        return x, aux, None, moe_stats
+    new_blocks = {i: dict(cb, idx=new_idx[i]) for i, cb in cache_blocks.items()}
+    return x, aux, new_blocks, moe_stats
 
 
 def _embed_tokens(params, tokens, cfg: ModelConfig):
@@ -226,18 +287,21 @@ def encode(params, frames, cfg: ModelConfig):
     x = frames.to(cfg.cdtype) @ params["frontend"].to(cfg.cdtype)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     x = x + _sinusoidal(pos, cfg.d_model, x.dtype)
-    x, _ = _run_stack(params["enc_blocks"], x, cfg, pattern=(("attn", "mlp"),),
-                      positions=pos.expand(x.shape[:2]), cache_blocks=None,
-                      enc_out=None, causal=False)
+    x, *_ = _run_stack(params["enc_blocks"], x, cfg, pattern=(("attn", "mlp"),),
+                       positions=pos.expand(x.shape[:2]), cache_blocks=None,
+                       enc_out=None, causal=False)
     return _norm(x, params["enc_norm"], cfg)
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig,
             cache: Optional[dict] = None):
-    """-> (logits (B,S,V), aux_loss, new_cache, moe_stats); ``aux_loss`` and
-    ``moe_stats`` are zeros until the MoE ffn is ported."""
-    if cfg.family == "vlm":
-        raise NotImplementedError("the vlm patch prefix arrives with the vlm family")
+    """-> (logits (B, S, V), aux_loss, new_cache, moe_stats).
+
+    ``moe_stats``: {"moe_drops", "moe_peak_occupancy"}, 0-d int32 tensors:
+    capacity-dropped packets summed over the MoE sub-layers and the hottest
+    dispatch buffer (zeros without one).  A vlm batch's ``patches`` (B,
+    n_patches, d_frontend) are projected by ``frontend`` and run before the
+    tokens; the logits cover the tokens only."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     pos0 = cache["pos"] if cache is not None else 0
@@ -252,12 +316,21 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
         enc_out = cache.get("enc_out") if cache is not None else None
         if enc_out is None:
             enc_out = encode(params, batch["frames"], cfg)
+    prefix = cfg.family == "vlm" and "patches" in batch
+    if prefix:
+        pre = batch["patches"].to(cfg.cdtype) @ params["frontend"].to(cfg.cdtype)
+        x = torch.cat([pre, x], dim=1)
+        positions = pos0 + torch.arange(x.shape[1], device=x.device)[None, :].expand(
+            B, x.shape[1])
+    S_all = x.shape[1]
 
     cache_blocks = cache["blocks"] if cache is not None else None
-    x, new_blocks = _run_stack(params["blocks"], x, cfg, pattern=cfg.pattern,
-                               positions=positions, cache_blocks=cache_blocks,
-                               enc_out=enc_out, causal=True)
+    x, aux, new_blocks, moe_stats = _run_stack(
+        params["blocks"], x, cfg, pattern=cfg.pattern, positions=positions,
+        cache_blocks=cache_blocks, enc_out=enc_out, causal=True)
     x = _norm(x, params["final_norm"], cfg)
+    if prefix:
+        x = x[:, -S:]       # logits only for the text positions
     head = (params["embed"].to(x.dtype).T if cfg.tie_embeddings
             else params["lm_head"].to(x.dtype))
     logits = x @ head
@@ -265,11 +338,10 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
         logits[..., cfg.vocab:] = MASK_LOGIT
     new_cache = None
     if cache is not None:
-        new_cache = {"blocks": new_blocks, "pos": pos0 + S}
+        new_cache = {"blocks": new_blocks, "pos": pos0 + S_all}
         if cfg.family == "encdec":
             new_cache["enc_out"] = enc_out
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, zero, new_cache, {"moe_drops": 0, "moe_peak_occupancy": 0}
+    return logits, aux, new_cache, moe_stats
 
 
 def loss(params: dict, batch: dict, cfg: ModelConfig):
@@ -278,8 +350,7 @@ def loss(params: dict, batch: dict, cfg: ModelConfig):
     logits, aux, _, moe_stats = forward(params, batch, cfg)
     nll = cross_entropy(logits, batch["labels"])
     total = nll + cfg.aux_weight * aux
-    mets = {k: torch.as_tensor(v, dtype=torch.float32, device=logits.device)
-            for k, v in moe_stats.items()}
+    mets = {k: v.float() for k, v in moe_stats.items()}
     return total, {"nll": nll, "aux": aux, **mets}
 
 

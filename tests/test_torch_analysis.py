@@ -372,7 +372,8 @@ def test_lint_model_config_on_the_ported_registry():
     assert "dense reference" in got[1].message
 
 
-@pytest.mark.parametrize("arch", ["command-r-35b", "gemma-7b", "llama3.2-1b",
+@pytest.mark.parametrize("arch", ["command-r-35b", "gemma-7b", "internvl2-1b", "llama3.2-1b",
+                                  "minicpm3-4b", "phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
                                   "whisper-large-v3"])
 def test_lint_configs_target_matches_reference(arch):
     """The CLI's ``configs`` target over the port's registry: each arch, FULL

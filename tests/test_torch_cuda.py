@@ -519,3 +519,50 @@ def test_dense_train_steps_on_gpu_match_cpu(dev, arch):
         assert ops.launch_counts()["flash_attention"] == (3 * 2 * cfg.n_layers if d == dev else 0)
         mets[str(d)] = np.array(out)
     assert np.abs(mets["cpu"] - mets[str(dev)]).max() < 1e-3 * np.abs(mets["cpu"]).max()
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("phi3.5-moe-42b-a6.6b", dict(moe_impl="gather", moe_flit_buffer_depth=2)),
+    ("qwen3-moe-235b-a22b", dict(moe_impl="gather", moe_flit_buffer_depth=2)),
+    ("minicpm3-4b", {}), ("internvl2-1b", {})])
+def test_family_smoke_on_gpu_matches_cpu(dev, arch, kw):
+    """The MoE (one-rank gather engine, packets dropped at depth 2), MLA and
+    vlm families at SMOKE with the flash impl and remat: forward logits
+    within 1e-3 of their scale and the stack's drops and peak equal, greedy
+    serve tokens equal, three train steps' loss and grad norm within 1e-3 of
+    their scale and their MoE counters equal; flash launches twice an
+    attention layer a step on the card (MLA takes no kernel)."""
+    from repro_torch.data.pipeline import DataConfig, _synthesize
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import device_batch
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_config(arch, smoke=True).replace(attn_impl="flash", remat=True, **kw)
+    params = model_layers.init_params(T.abstract_params(cfg), torch.Generator().manual_seed(0))
+    data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4, seed=0)
+    step = make_train_step(cfg, AdamWConfig(lr=2e-3), total_steps=10, warmup=1)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 8))
+    n_attn = 3 * 2 * cfg.n_layers if cfg.pattern[0][0] == "attn" else 0
+    got = {}
+    for d in ("cpu", dev):
+        p = _to(params, d)
+        state = {"params": p, "opt": adamw_init(p)}
+        batches = [device_batch(_synthesize(data, s), cfg, d) for s in range(3)]
+        with torch.no_grad():
+            lg, _, _, st = T.forward(p, batches[0], cfg)
+        tokens = serve.serve_batch(p, cfg, prompts, 4, device=d)
+        ops.reset_launch_counts()
+        mets = []
+        for b in batches:
+            state, m = step(state, b)
+            mets.append([float(m[k]) for k in ("loss", "grad_norm", "moe_drops",
+                                                "moe_peak_occupancy")])
+        assert ops.launch_counts()["flash_attention"] == (n_attn if d == dev else 0)
+        got[str(d)] = (lg.cpu(), {k: int(v) for k, v in st.items()}, tokens, np.array(mets))
+    (lc, sc, tc, mc), (lg_, sg, tg, mg) = got["cpu"], got[str(dev)]
+    assert (lc - lg_).abs().max() <= 1e-3 * max(lc.abs().max().item(), 1.0)
+    assert sc == sg and np.array_equal(tc, tg)
+    assert (np.abs(mc[:, :2] - mg[:, :2]) <= 1e-3 * np.abs(mc[:, :2]).max(0)).all()
+    assert np.array_equal(mc[:, 2:], mg[:, 2:])
+    if kw:
+        assert (mc[:, 2] > 0).all()

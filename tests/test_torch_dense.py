@@ -361,8 +361,17 @@ def test_configs_equal_reference(arch, smoke):
 
 
 def test_registry_and_full_sizes():
-    assert set(ALL_ARCHS) == {"whisper-large-v3", *ARCHS}
+    """The port registers the reference's archs but the hybrid and xlstm
+    families (their mixers are not ported yet), with the reference's
+    parameter counts and, for MoE, active parameter counts."""
+    from repro.configs import ALL_ARCHS as JAX_ARCHS
+    assert set(ALL_ARCHS) == set(JAX_ARCHS) - {"jamba-v0.1-52b", "xlstm-350m"}
+    assert {"whisper-large-v3", *ARCHS} <= set(ALL_ARCHS)
     assert torch_config("llama3.2-1b").param_count() == 1_235_814_400
-    assert torch_config("gemma-7b").param_count() == jax_config("gemma-7b").param_count()
-    assert torch_config("command-r-35b").param_count() == \
-        jax_config("command-r-35b").param_count()
+    for arch in ALL_ARCHS:
+        for smoke in (False, True):
+            assert (dataclasses.asdict(torch_config(arch, smoke=smoke))
+                    == dataclasses.asdict(jax_config(arch, smoke=smoke)))
+        t, j = torch_config(arch), jax_config(arch)
+        assert t.param_count() == j.param_count()
+        assert t.active_param_count() == j.active_param_count()

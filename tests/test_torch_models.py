@@ -257,8 +257,9 @@ def test_init_params_follow_reference_rules(params):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(pattern=(("mla", "mlp"),)), "MLA family"),
-    (dict(pattern=(("attn", "moe"),)), "moe family"),
+    (dict(pattern=(("slstm", "none"),)), "xlstm family"),
+    (dict(pattern=(("attn", "moe"),), n_experts=4, top_k=2, d_ff_expert=8, moe_impl="noc"),
+     "mesh half of the LM stack"),
     (dict(pattern=(("mamba", "mlp"),)), "hybrid family"),
     (dict(pattern=(("mlstm", "none"),)), "xlstm family"),
 ])
