@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, then runs ten phases and raises on any failure:
+with ``nvcc``, then runs eleven phases and raises on any failure:
 
 1. environment — the card, its power limit, torch/CUDA versions, build time,
                  ptxas's registers, spills and shared memory of each kernel;
@@ -73,7 +73,17 @@ with ``nvcc``, then runs ten phases and raises on any failure:
    and trained 6 steps at batch 8 x seq 128: phi3.5-moe at 2 layers,
    minicpm3-4b at 31 of 62, internvl2-1b uncut (flash over 384 positions),
    with every flash call of a training forward held to the plain version.
-   Phase 2 times flash at these families' GQA ratios (4, 16, 7) beside SDPA.
+   Phase 2 times flash at these families' GQA ratios (4, 16, 7) beside SDPA;
+11. the hybrid and xlstm families on the card — jamba-v0.1-52b and xlstm-350m
+   at SMOKE held to the CPU (forward logits, serve tokens, three train
+   steps); the Mamba, mLSTM and sLSTM mixers alone at full width (batch 4 x
+   seq 128, chunked and one decode step) held to the CPU; jamba at full width
+   served at 16 of 32 layers from bf16 (two whole periods, 26.05 B params)
+   and trained 6 steps at batch 8 x seq 128 on the 2-layer cut of one Mamba
+   and one attention layer (flash launched 6 x 1 x 2 times, every call of a
+   training forward held to the plain version); xlstm-350m served and
+   trained uncut (no attention, no flash).  Phase 2's flash row at (8, 32:8,
+   128, 128, 128) is jamba's training shape too.
 
 Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
@@ -667,17 +677,20 @@ def main():
 
     # -- phase 10: the MoE, MLA and vlm families served and trained on the card ---
     families = families_phase(torch, dev, smi)
+
+    # -- phase 11: the hybrid and xlstm families served and trained on the card ---
+    recurrent = recurrent_phase(torch, dev, smi)
     for kern in kernels:
         if kern["name"] == "flash_attention":
             kern["launches_by_path"] = {"whisper_serve": serve_stats["launches"],
                                         "llama_serve": dense["serve_launches"],
                                         "llama_train": dense["train_launches"],
-                                        **families["launches"]}
+                                        **families["launches"], **recurrent["launches"]}
             kern["launches"] = sum(kern["launches_by_path"].values())
             kern["combine"]["launches_by_path"] = {
                 "whisper_serve": serve_stats["combine_launches"], "llama_serve": 0,
                 "llama_train": dense["train_combine_launches"],
-                **families["combine_launches"]}
+                **families["combine_launches"], **recurrent["combine_launches"]}
             kern["combine"]["launches"] = sum(kern["combine"]["launches_by_path"].values())
 
     print(json.dumps({"kernels": kernels}))
@@ -1518,85 +1531,97 @@ def dense_phase(torch, dev, smi):
                 train_combine_launches=train_combines)
 
 
-def families_phase(torch, dev, smi):
-    """Phase 10: the MoE (phi3.5-moe, qwen3-moe), MLA (minicpm3-4b) and vlm
-    (internvl2-1b) families served and trained on the card, the MoE layer on
-    the one-rank gather engine, with the flash kernel in every training
-    forward of an attention model."""
-    from repro_torch._tree import leaves
+METRIC_KEYS = ("loss", "grad_norm", "aux", "moe_drops", "moe_peak_occupancy")
+
+
+def smoke_card_vs_cpu(torch, dev, arch, kw):
+    """``arch`` at SMOKE in float32 with the flash impl and remat, on the card
+    (kernels) against the CPU (plain versions): forward logits and stack
+    stats, greedy serve tokens, three train steps' loss, grad norm and aux
+    (relative limit 1e-3) and MoE counters (equal)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, _synthesize
-    from repro_torch.kernels import flash_attention, ops
     from repro_torch.launch import serve, train
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import init_params
     from repro_torch.optim import AdamWConfig, adamw_init
-    from repro_torch.telemetry import MetricsRegistry
 
-    t_phase = time.perf_counter()
-    launches, combines = {}, {}
-    metric_keys = ("loss", "grad_norm", "aux", "moe_drops", "moe_peak_occupancy")
+    small = get_config(arch, smoke=True).replace(attn_impl="flash", remat=True, **kw)
+    p0 = init_params(T.abstract_params(small), torch.Generator().manual_seed(0))
+    data = DataConfig(vocab=small.vocab, seq_len=16, global_batch=4, seed=0)
+    step = make_train_step(small, AdamWConfig(lr=2e-3), total_steps=10, warmup=1)
+    prompts = np.random.default_rng(0).integers(0, small.vocab, (4, 8))
+    outs = []
+    for d in ("cpu", dev):
+        state = {"params": _to(p0, d)}
+        state["opt"] = adamw_init(state["params"])
+        batches = [train.device_batch(_synthesize(data, s), small, d) for s in range(3)]
+        with torch.no_grad():
+            lg, _, _, st = T.forward(state["params"], batches[0], small)
+        tokens = serve.serve_batch(state["params"], small, prompts, 4, device=d)
+        mets = []
+        for b in batches:
+            state, m = step(state, b)
+            mets.append([float(m[k]) for k in METRIC_KEYS])
+        outs.append((lg.cpu(), {k: int(v) for k, v in st.items()}, tokens, np.array(mets)))
+    (lc, sc, tc, mc), (lg_, sg, tg, mg) = outs
+    err = (lc - lg_).abs().max().item()
+    scale = lc.abs().max().item()
+    merr = np.abs(mc[:, :3] - mg[:, :3]).max(0) / np.abs(mc[:, :3]).max(0).clip(1e-6)
+    check(err <= 1e-3 * max(scale, 1.0) and sc == sg and np.array_equal(tc, tg)
+          and (merr <= 1e-3).all() and np.array_equal(mc[:, 3:], mg[:, 3:])
+          and np.isfinite(mg).all(),
+          f"{arch} SMOKE: card vs CPU logits differ by {err}, stats {sc} vs {sg}, tokens "
+          f"equal {np.array_equal(tc, tg)}, train metrics by {merr} (drops/peak "
+          f"{mc[:, 3:].tolist()} vs {mg[:, 3:].tolist()})")
+    print(f"{arch} SMOKE {kw or ''} (card vs CPU, f32): logits max |diff| {err:.3e} of "
+          f"{scale:.3f}, stack stats {sg} equal, serve tokens equal; 3 train steps' loss, "
+          f"grad_norm, aux {np.round(mg[:, :3], 5).tolist()}, relative gaps "
+          f"{np.round(merr, 8).tolist()} (limit 1e-3), drops/peak {mg[:, 3:].tolist()} equal")
 
-    # (a) SMOKE on the card (kernel) against the CPU (plain versions), f32, the
-    # MoE archs on the gather engine at flit buffer depth 2 (so packets drop):
-    # forward logits and stack stats, greedy serve tokens, three train steps
-    gather2 = dict(moe_impl="gather", moe_flit_buffer_depth=2)
-    for arch, kw in (("phi3.5-moe-42b-a6.6b", gather2), ("qwen3-moe-235b-a22b", gather2),
-                     ("minicpm3-4b", {}), ("internvl2-1b", {})):
-        small = get_config(arch, smoke=True).replace(attn_impl="flash", remat=True, **kw)
-        p0 = init_params(T.abstract_params(small), torch.Generator().manual_seed(0))
-        data = DataConfig(vocab=small.vocab, seq_len=16, global_batch=4, seed=0)
-        step = make_train_step(small, AdamWConfig(lr=2e-3), total_steps=10, warmup=1)
-        prompts = np.random.default_rng(0).integers(0, small.vocab, (4, 8))
-        outs = []
-        for d in ("cpu", dev):
-            state = {"params": _to(p0, d)}
-            state["opt"] = adamw_init(state["params"])
-            batches = [train.device_batch(_synthesize(data, s), small, d) for s in range(3)]
-            with torch.no_grad():
-                lg, _, _, st = T.forward(state["params"], batches[0], small)
-            tokens = serve.serve_batch(state["params"], small, prompts, 4, device=d)
-            mets = []
-            for b in batches:
-                state, m = step(state, b)
-                mets.append([float(m[k]) for k in metric_keys])
-            outs.append((lg.cpu(), {k: int(v) for k, v in st.items()}, tokens, np.array(mets)))
-        (lc, sc, tc, mc), (lg_, sg, tg, mg) = outs
-        err = (lc - lg_).abs().max().item()
-        scale = lc.abs().max().item()
-        merr = np.abs(mc[:, :3] - mg[:, :3]).max(0) / np.abs(mc[:, :3]).max(0).clip(1e-6)
-        check(err <= 1e-3 * max(scale, 1.0) and sc == sg and np.array_equal(tc, tg)
-              and (merr <= 1e-3).all() and np.array_equal(mc[:, 3:], mg[:, 3:]),
-              f"{arch} SMOKE: card vs CPU logits differ by {err}, stats {sc} vs {sg}, tokens "
-              f"equal {np.array_equal(tc, tg)}, train metrics by {merr} (drops/peak "
-              f"{mc[:, 3:].tolist()} vs {mg[:, 3:].tolist()})")
-        print(f"{arch} SMOKE {kw or ''} (card vs CPU, f32): logits max |diff| {err:.3e} of "
-              f"{scale:.3f}, stack stats {sg} equal, serve tokens equal; 3 train steps' loss, "
-              f"grad_norm, aux {np.round(mg[:, :3], 5).tolist()}, relative gaps "
-              f"{np.round(merr, 8).tolist()} (limit 1e-3), drops/peak {mg[:, 3:].tolist()} equal")
 
-    def held_flash_calls(fn):
-        """fn() with every flash call held to the plain version on its own
-        inputs: (fn's result, the calls' max |diff| / max |out|)."""
-        per_call, real = [], ops.flash_attention
+def held_flash_calls(torch, fn):
+    """fn() without grad and with every flash call held to the plain version
+    on its own inputs: (fn's result, the calls' max |diff| / max |out|)."""
+    from repro_torch.kernels import flash_attention, ops
 
-        def held(q, k, v, causal=True, use_kernel=False):
-            out = real(q, k, v, causal, use_kernel)
-            plain = flash_attention.flash_attention_plain(q, k, v, causal).float()
-            per_call.append(((out.float() - plain).abs().max() / plain.abs().max()).item())
-            return out
+    per_call, real = [], ops.flash_attention
 
-        ops.flash_attention = held
-        try:
-            with torch.no_grad():
-                return fn(), per_call
-        finally:
-            ops.flash_attention = real
+    def held(q, k, v, causal=True, use_kernel=False):
+        out = real(q, k, v, causal, use_kernel)
+        plain = flash_attention.flash_attention_plain(q, k, v, causal).float()
+        per_call.append(((out.float() - plain).abs().max() / plain.abs().max()).item())
+        return out
 
-    def serve_full(tag, cfg, requests=16, batch=4, prompt_len=32, gen_len=16):
-        """Serve ``cfg`` from weights drawn in bf16 from a seed: 16 requests at
-        batch 4, launch counters reset just before and read just after."""
+    ops.flash_attention = held
+    try:
+        with torch.no_grad():
+            return fn(), per_call
+    finally:
+        ops.flash_attention = real
+
+
+class FullWidth:
+    """Serve and train configs at full width on the card, recording each
+    path's flash and combine launches under ``<tag>_serve`` / ``<tag>_train``."""
+
+    def __init__(self, torch, dev, smi):
+        self.torch, self.dev, self.smi = torch, dev, smi
+        self.launches, self.combines = {}, {}
+
+    def serve(self, tag, cfg, requests=16, batch=4, prompt_len=32, gen_len=16):
+        """Serve ``cfg`` from weights drawn in its serving dtypes from a seed:
+        16 requests at batch 4, launch counters reset just before and read
+        just after."""
+        from repro_torch._tree import leaves
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import flash_attention, ops
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer as T
+        from repro_torch.telemetry import MetricsRegistry
+
+        torch, dev = self.torch, self.dev
         t0 = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(0)
         params = draw_serving_params(torch, cfg, gen, dev)
@@ -1617,8 +1642,8 @@ def families_phase(torch, dev, smi):
         torch.cuda.synchronize()
         secs = time.perf_counter() - ts
         n_flash = ops.launch_counts()["flash_attention"]
-        launches[f"{tag}_serve"] = n_flash
-        combines[f"{tag}_serve"] = flash_attention.flash_attention.combine_launches
+        self.launches[f"{tag}_serve"] = n_flash
+        self.combines[f"{tag}_serve"] = flash_attention.flash_attention.combine_launches
         peak = torch.cuda.max_memory_allocated()
         with torch.no_grad():
             b = {"tokens": torch.as_tensor(prompts[:batch], device=dev)}
@@ -1641,14 +1666,26 @@ def families_phase(torch, dev, smi):
               f"{dec.p99 * 1e3:.3f}); peak memory {peak / 2**30:.2f} GiB; flash launches "
               f"{n_flash}; a forward of the first prompts: logits finite, MoE stats "
               f"{ {k: int(v) for k, v in st.items()} }; phase wall for this arch "
-              f"{time.perf_counter() - t0:.2f} s ({smi})")
+              f"{time.perf_counter() - t0:.2f} s ({self.smi})")
+        del params
+        torch.cuda.empty_cache()
         return tokens
 
-    def train_full(tag, cfg, n_steps=6, tb=8, ts_=128):
+    def train(self, tag, cfg, n_steps=6, tb=8, ts_=128):
         """Train ``cfg`` 6 AdamW steps at batch 8 x seq 128 from float32
         masters drawn from a seed, launch counters reset just before and read
         just after; then every flash call of a forward held to the plain
         version."""
+        from repro_torch.configs import get_config
+        from repro_torch.data.pipeline import DataConfig, _synthesize
+        from repro_torch.kernels import flash_attention, ops
+        from repro_torch.launch import train
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import transformer as T
+        from repro_torch.models.layers import init_params
+        from repro_torch.optim import AdamWConfig, adamw_init
+
+        torch, dev = self.torch, self.dev
         t0 = time.perf_counter()
         masters = init_params(T.abstract_params(cfg), torch.Generator(device=dev).manual_seed(0))
         state = {"params": masters, "opt": adamw_init(masters)}
@@ -1672,10 +1709,10 @@ def families_phase(torch, dev, smi):
         for b in batches:
             (state, m), secs = wall(torch, lambda: step(state, b))
             step_s.append(secs)
-            mets.append({k: float(m[k]) for k in metric_keys})
+            mets.append({k: float(m[k]) for k in METRIC_KEYS})
         n_flash = ops.launch_counts()["flash_attention"]
-        launches[f"{tag}_train"] = n_flash
-        combines[f"{tag}_train"] = flash_attention.flash_attention.combine_launches
+        self.launches[f"{tag}_train"] = n_flash
+        self.combines[f"{tag}_train"] = flash_attention.flash_attention.combine_launches
         peak = torch.cuda.max_memory_allocated()
         n_attn = sum(m == "attn" for m, _ in cfg.pattern) * cfg.n_periods
         if cfg.attn_impl != "flash":
@@ -1689,64 +1726,149 @@ def families_phase(torch, dev, smi):
               f"{cfg.param_count():,} params) trained {n_steps} steps at batch {tb} x seq {ts_}"
               f"{f' after {cfg.n_patches} seeded patches' if cfg.family == 'vlm' else ''} (remat "
               f"{cfg.remat}): per step loss/grad_norm/aux/moe_drops/moe_peak_occupancy "
-              f"{[[round(m[k], 4) for k in metric_keys] for m in mets]}; step "
+              f"{[[round(m[k], 4) for k in METRIC_KEYS] for m in mets]}; step "
               f"{med * 1e3:.3f} ms median of steps 2-{n_steps} (first {step_s[0] * 1e3:.3f} ms), "
               f"{tb * ts_ / med:,.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB; flash "
               f"launches {n_flash} = {n_steps} steps x {n_attn} attention layers x "
               f"{2 if cfg.remat else 1} over {L} positions")
         if expect:
             lk, per_call = held_flash_calls(
-                lambda: T.loss(state["params"], batches[0], cfg)[0].item())
+                torch, lambda: T.loss(state["params"], batches[0], cfg)[0].item())
             check(len(per_call) == n_attn and max(per_call) <= 1e-2,
                   f"{tag}: flash calls of a training forward differ from the plain version by "
                   f"{max(per_call):.3e}")
             print(f"  every flash call of a training forward ({len(per_call)}) against the plain "
                   f"version on its own inputs: worst max |diff| / max |out| "
                   f"{max(per_call):.3e} (limit 1e-2); loss on batch 0 after training {lk:.5f}")
-        print(f"  phase wall for this arch {time.perf_counter() - t0:.2f} s ({smi})")
+        print(f"  phase wall for this arch {time.perf_counter() - t0:.2f} s ({self.smi})")
         del state, batches
         torch.cuda.empty_cache()
         return mets
 
+
+def families_phase(torch, dev, smi):
+    """Phase 10: the MoE (phi3.5-moe, qwen3-moe), MLA (minicpm3-4b) and vlm
+    (internvl2-1b) families served and trained on the card, the MoE layer on
+    the one-rank gather engine, with the flash kernel in every training
+    forward of an attention model."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    run = FullWidth(torch, dev, smi)
+
+    # (a) SMOKE on the card (kernel) against the CPU (plain versions), f32, the
+    # MoE archs on the gather engine at flit buffer depth 2 (so packets drop):
+    # forward logits and stack stats, greedy serve tokens, three train steps
+    gather2 = dict(moe_impl="gather", moe_flit_buffer_depth=2)
+    for arch, kw in (("phi3.5-moe-42b-a6.6b", gather2), ("qwen3-moe-235b-a22b", gather2),
+                     ("minicpm3-4b", {}), ("internvl2-1b", {})):
+        smoke_card_vs_cpu(torch, dev, arch, kw)
+
     # (b) phi3.5-moe at full width: served at 16 of 32 layers from bf16 (42 GB),
     # trained at 2 layers from float32 masters
     phi = get_config("phi3.5-moe-42b-a6.6b").replace(attn_impl="flash")
-    serve_full("phi", phi.replace(n_layers=16))
-    torch.cuda.empty_cache()
-    train_full("phi", phi.replace(n_layers=2))
+    run.serve("phi", phi.replace(n_layers=16))
+    run.train("phi", phi.replace(n_layers=2))
     # (c) qwen3-moe at full width (128 experts top-8, QK-norm) served at 4 of
     # 94 layers from bf16; its training is held at SMOKE in (a)
-    serve_full("qwen", get_config("qwen3-moe-235b-a22b").replace(attn_impl="flash", n_layers=4))
-    torch.cuda.empty_cache()
+    run.serve("qwen", get_config("qwen3-moe-235b-a22b").replace(attn_impl="flash", n_layers=4))
     # (d) minicpm3-4b FULL (62 layers, MLA), served uncut from bf16; trained at
     # full width cut to 31 layers (its float32 state at 62 layers, 65 GB, and
     # the optimizer's temporaries pass the card's 80 GB).  MLA never takes flash.
     mini = get_config("minicpm3-4b").replace(attn_impl="flash")
-    serve_full("minicpm", mini)
-    torch.cuda.empty_cache()
-    train_full("minicpm", mini.replace(n_layers=31))
+    run.serve("minicpm", mini)
+    run.train("minicpm", mini.replace(n_layers=31))
     # (e) internvl2-1b FULL, uncut: served after its 256-patch prefix, trained
     # with flash over prefix + text = 384 positions
     vl = get_config("internvl2-1b").replace(attn_impl="flash")
-    serve_full("internvl", vl)
-    torch.cuda.empty_cache()
-    train_full("internvl", vl)
+    run.serve("internvl", vl)
+    run.train("internvl", vl)
     print(f"families phase {time.perf_counter() - t_phase:.2f} s")
-    return dict(launches=launches, combine_launches=combines)
+    return dict(launches=run.launches, combine_launches=run.combines)
+
+
+def recurrent_phase(torch, dev, smi):
+    """Phase 11: the hybrid (jamba-v0.1-52b: attention, Mamba and MoE) and
+    xlstm (xlstm-350m: mLSTM and sLSTM) families served and trained on the
+    card, and their three recurrent mixers alone at full width against the
+    CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models.layers import init_params
+
+    t_phase = time.perf_counter()
+    run = FullWidth(torch, dev, smi)
+
+    # (a) SMOKE on the card (flash kernel) against the CPU (plain versions), f32
+    for arch in ("jamba-v0.1-52b", "xlstm-350m"):
+        smoke_card_vs_cpu(torch, dev, arch, {})
+
+    # (b) the mixers alone at full width, batch 4 x seq 128, float32: chunked
+    # over the whole sequence, then a prefill of 127 tokens and one decode step
+    # against a cache; card against CPU, outputs and states
+    jamba, xl = get_config("jamba-v0.1-52b"), get_config("xlstm-350m")
+    mamba_c = ssm.MambaConfig(jamba.d_model, jamba.mamba_d_state, jamba.mamba_d_conv,
+                              jamba.mamba_expand, chunk=jamba.mamba_chunk)
+    xl_c = xlstm.XLSTMConfig(xl.d_model, xl.n_heads, proj_factor=xl.xlstm_proj_factor,
+                             chunk=xl.xlstm_chunk)
+    mixers = (("mamba", mamba_c, ssm.mamba_specs, ssm.mamba_apply,
+               lambda d: ssm.init_mamba_cache(mamba_c, 4, device=d)),
+              ("mlstm", xl_c, xlstm.mlstm_specs, xlstm.mlstm_apply,
+               lambda d: xlstm.init_mlstm_cache(xl_c, 4, device=d)),
+              ("slstm", xl_c, xlstm.slstm_specs, xlstm.slstm_apply,
+               lambda d: xlstm.init_slstm_cache(xl_c, 4, device=d)))
+    for name, c, specs, apply, cache0 in mixers:
+        p = init_params(specs(c), torch.Generator().manual_seed(0))
+        x = torch.randn((4, 128, c.d_model), generator=torch.Generator().manual_seed(1))
+        outs = []
+        for d in ("cpu", dev):
+            pd, xd = _to(p, d), x.to(d)
+            with torch.no_grad():
+                y, _ = apply(pd, xd, c)
+                _, cache = apply(pd, xd[:, :127], c, cache0(d))
+                y1, cache = apply(pd, xd[:, 127:], c, cache)
+                outs.append([t.cpu() for t in (y, y1, *cache.values())])
+                if d == dev:
+                    _, secs = wall(torch, lambda: apply(pd, xd, c))
+        gaps = [((a - b).abs().max() / max(a.abs().max().item(), 1.0)).item()
+                for a, b in zip(*outs)]
+        check(max(gaps) <= 1e-3, f"{name} at full width: card vs CPU gaps {gaps}")
+        print(f"{name} alone at full width (d_model {c.d_model}, d_inner {c.d_inner}"
+              f"{f', N {c.d_state}' if name == 'mamba' else f', {c.n_heads} heads'}) batch 4 "
+              f"x seq 128, f32: card vs CPU max |diff| / scale: chunked {gaps[0]:.3e}, decode "
+              f"step {gaps[1]:.3e}, states {max(gaps[2:]):.3e} (limit 1e-3); chunked forward "
+              f"on the card {secs * 1e3:.3f} ms host wall, second call ({smi})")
+
+    # (c) jamba-v0.1-52b at full width served at 16 of 32 layers (two whole
+    # periods: 14 Mamba and 2 attention layers, 8 MoE ffns on the one-rank
+    # gather engine) from bf16 with Mamba's a_log and d_skip in float32
+    jamba = jamba.replace(attn_impl="flash")
+    run.serve("jamba", jamba.replace(n_layers=16))
+    # (d) jamba trained at full width on the 2-layer cut of its period's own
+    # sub-layers, one Mamba and one attention layer with dense MLPs: the cut
+    # that keeps the MoE ffn (3.68 B params) needs 55 GiB of float32 state
+    # before AdamW's temporaries.  Its MoE is trained at SMOKE in (a).
+    run.train("jamba", jamba.replace(pattern=(("mamba", "mlp"), ("attn", "mlp")), n_layers=2))
+    # (e) xlstm-350m FULL, uncut, served and trained; no attention, so no flash
+    run.serve("xlstm", xl)
+    run.train("xlstm", xl)
+    print(f"recurrent phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(launches=run.launches, combine_launches=run.combines)
 
 
 def draw_serving_params(torch, cfg, gen, dev):
-    """The params of ``cfg`` in ``cfg.cdtype``, drawn from ``gen`` by the
-    reference's init rules, each stacked leaf a layer at a time: no leaf has a
-    float32 copy whole (phi3.5-moe's experts are 27 GB a leaf in float32 at 16
-    layers).  Slicing the layers axis keeps a stacked weight's fan-in rule."""
+    """The params of ``cfg`` in their serving dtypes (``cfg.cdtype``, float32
+    for ``T.FLOAT32_LEAVES``), drawn from ``gen`` by the reference's init
+    rules, each stacked leaf a layer at a time: no leaf has a float32 copy
+    whole (phi3.5-moe's experts are 27 GB a leaf in float32 at 16 layers).
+    Slicing the layers axis keeps a stacked weight's fan-in rule."""
     import dataclasses
 
     from repro_torch.models import transformer as T
-    from repro_torch.models.layers import init_param, spec_tree_map
+    from repro_torch.models.layers import init_param, is_spec
 
-    def draw(sp):
-        sp = dataclasses.replace(sp, dtype=cfg.cdtype)
+    def draw(sp, path):
+        sp = dataclasses.replace(sp, dtype=T.serving_dtype(path, cfg.cdtype))
         if len(sp.shape) < 3:
             return init_param(gen, sp, dev)
         one = dataclasses.replace(sp, shape=sp.shape[1:], axes=sp.axes[1:])
@@ -1755,7 +1877,15 @@ def draw_serving_params(torch, cfg, gen, dev):
             layer.copy_(init_param(gen, one, dev))
         return out
 
-    return spec_tree_map(draw, T.abstract_params(cfg))
+    # spec_tree_map's walk with each leaf's path: it draws in the spec tree's
+    # insertion order, as the earlier phases drew (``flatten`` sorts the keys
+    # and would change every draw)
+    def walk(tree, path):
+        if is_spec(tree):
+            return draw(tree, path)
+        return {k: walk(v, path + (k,)) for k, v in tree.items()}
+
+    return walk(T.abstract_params(cfg), ())
 
 
 def _to(x, device):

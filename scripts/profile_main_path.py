@@ -17,7 +17,10 @@ at full width as ``chip_smoke.py`` phase 10 sizes them: a training step at
 batch 8 × seq 128 of phi3.5-moe (2 layers), minicpm3-4b (31 of 62 layers)
 and internvl2-1b (uncut, 256 seeded patches), and a decode step at batch 4
 against 32 cached tokens of the bf16 phi3.5-moe (16 of 32 layers), qwen3-moe
-(4 of 94), minicpm3-4b and internvl2-1b (after its 256 patches); one family
+(4 of 94), minicpm3-4b and internvl2-1b (after its 256 patches); the hybrid
+and xlstm families as phase 11 sizes them: a training step of jamba-v0.1-52b's
+2-layer cut (one Mamba, one attention layer) and of xlstm-350m uncut, and a
+decode step of the bf16 jamba (16 of 32 layers) and xlstm-350m; one family
 arch is held on the card at a time) it times each path
 on the host clock (median of 5 warm runs, each ending in ``torch.cuda.synchronize()``),
 then traces one more run with
@@ -140,14 +143,14 @@ def main(argv=None):
 
     family = {}
 
-    def family_setup(kind, arch, n_layers=None):
-        """One arch of phase 10, built at first use; building another frees it."""
-        key = (kind, arch, n_layers)
+    def family_setup(kind, arch, **change):
+        """One arch of phases 10 and 11 with ``change`` to its config, built at
+        first use; building another frees it."""
+        key = (kind, arch, tuple(sorted(change.items())))
         if family.get("key") != key:
             family.clear()
             torch.cuda.empty_cache()
-            cfg = get_config(arch).replace(attn_impl="flash")
-            cfg = cfg.replace(n_layers=n_layers or cfg.n_layers)
+            cfg = get_config(arch).replace(attn_impl="flash", **change)
             fg = torch.Generator(device=dev).manual_seed(0)
             if kind == "train":
                 masters = init_params(T.abstract_params(cfg), fg)
@@ -173,16 +176,18 @@ def main(argv=None):
             family.update(key=key, cfg=cfg)
         return family
 
-    def family_train_step(arch, n_layers=None):
+    def family_train_step(arch, **change):
         def run():
-            fam = family_setup("train", arch, n_layers)
+            fam = family_setup("train", arch, **change)
             fam["state"], _ = fam["step"](fam["state"], fam["batch"])
         return run
 
-    def family_decode_step(arch, n_layers=None):
+    def family_decode_step(arch, **change):
         def run():
-            fam = family_setup("serve", arch, n_layers)
-            with torch.inference_mode():     # the cache stays put: the same step again
+            fam = family_setup("serve", arch, **change)
+            # the K/V caches stay put and the recurrent states move on: the
+            # same work again
+            with torch.inference_mode():
                 T.decode_step(fam["params"], {"tokens": fam["token"]}, fam["cfg"], fam["cache"])
         return run
 
@@ -201,16 +206,21 @@ def main(argv=None):
         "llama_train_step": llama_train_step,
         "llama_train_step_plain": lambda: llama_train_step("plain_step"),
         "llama_decode_step": llama_decode_step,
-        "phi_train_step": family_train_step("phi3.5-moe-42b-a6.6b", 2),
-        "phi_decode_step": family_decode_step("phi3.5-moe-42b-a6.6b", 16),
-        "qwen_decode_step": family_decode_step("qwen3-moe-235b-a22b", 4),
-        "minicpm_train_step": family_train_step("minicpm3-4b", 31),
+        "phi_train_step": family_train_step("phi3.5-moe-42b-a6.6b", n_layers=2),
+        "phi_decode_step": family_decode_step("phi3.5-moe-42b-a6.6b", n_layers=16),
+        "qwen_decode_step": family_decode_step("qwen3-moe-235b-a22b", n_layers=4),
+        "minicpm_train_step": family_train_step("minicpm3-4b", n_layers=31),
         "minicpm_decode_step": family_decode_step("minicpm3-4b"),
         "internvl_train_step": family_train_step("internvl2-1b"),
         "internvl_decode_step": family_decode_step("internvl2-1b"),
+        "jamba_train_step": family_train_step("jamba-v0.1-52b", n_layers=2,
+                                              pattern=(("mamba", "mlp"), ("attn", "mlp"))),
+        "jamba_decode_step": family_decode_step("jamba-v0.1-52b", n_layers=16),
+        "xlstm_train_step": family_train_step("xlstm-350m"),
+        "xlstm_decode_step": family_decode_step("xlstm-350m"),
     }
     family_paths = {k for k in paths if k.split("_")[0] in ("phi", "qwen", "minicpm",
-                                                             "internvl")}
+                                                             "internvl", "jamba", "xlstm")}
     unknown = set(only) - set(paths)
     if unknown:
         raise SystemExit(f"unknown paths {sorted(unknown)}; choose from {sorted(paths)}")

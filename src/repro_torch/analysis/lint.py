@@ -248,8 +248,7 @@ def _lint_apps(device="cuda") -> list[tuple[str, list[Diagnostic]]]:
 
 def _lint_configs() -> list[tuple[str, list[Diagnostic]]]:
     """Lint every architecture registered in the port (full + smoke
-    variants): eight of the reference's ten archs, all but jamba and xlstm,
-    whose mixers are not ported yet."""
+    variants): the reference's ten archs."""
     from .. import configs
 
     out = []

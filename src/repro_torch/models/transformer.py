@@ -6,12 +6,15 @@ splits each stacked weight into its periods, so params keep the reference's
 stacked layout (leading layers axis on ``blocks`` and ``enc_blocks``).  With
 ``cfg.remat`` and grad enabled each period runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` around its
-period), so the backward recomputes the period's forward.  The port has the
-``attn`` and ``mla`` mixers, the plain and gated ``mlp`` ffn, the ``moe`` ffn,
-cross-attention, the audio encoder and the vlm patch prefix: the dense,
-encdec, moe and vlm families, served and trained.  The ``mamba``, ``mlstm``
-and ``slstm`` mixers raise ``NotImplementedError`` naming the family they
-wait for.
+period), so the backward recomputes the period's forward.  The port has all
+the reference's mixers (``attn``, ``mla``, ``mamba``, ``mlstm``, ``slstm``),
+the plain and gated ``mlp`` ffn, the ``moe`` ffn, cross-attention, the audio
+encoder and the vlm patch prefix: the dense, encdec, moe, hybrid, xlstm and
+vlm families, served and trained.
+
+Caches: an attention or MLA sub-layer writes its K/V in place and returns its
+new write index; a recurrent sub-layer (``mamba``, ``mlstm``, ``slstm``)
+returns its new float32 state, which the stack copies into its period's slice.
 
 MoE dispatch stats follow the reference's scan carry: ``aux`` and
 ``moe_drops`` sum over the stack, ``moe_peak_occupancy`` is the max.
@@ -30,27 +33,27 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
-from .._tree import tree_map
+from .._tree import flatten, unflatten
 from ..configs.base import ModelConfig
 from ..core.noc import NoCConfig
 from . import mla as mla_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .attention import AttnConfig, attention, attn_specs
 from .attention import init_cache as attn_init_cache
 from .layers import ParamSpec, cross_entropy, mlp_apply, mlp_specs, rms_norm, stack_specs
 
 MASK_LOGIT = -1e30   # padded vocab classes (pad_vocab)
 
-# the reference family each unported mixer arrives with
-_WAITS_FOR = {"mamba": "the hybrid family (jamba)", "mlstm": "the xlstm family",
-              "slstm": "the xlstm family"}
+# (sub-layer, leaf) pairs the forward reads in float32 whatever cfg.cdtype
+# is: each mixer module names its own
+FLOAT32_LEAVES = frozenset({("mamba", leaf) for leaf in ssm_mod.FLOAT32_LEAVES}
+                           | {("slstm", leaf) for leaf in xlstm_mod.SLSTM_FLOAT32_LEAVES})
 
 
-def _unported(kind: str):
-    if kind not in _WAITS_FOR:
-        return ValueError(f"unknown mixer {kind!r}")
-    return NotImplementedError(f"{kind!r} sub-layers are not ported yet; they arrive "
-                               f"with {_WAITS_FOR[kind]}")
+def _unknown(mixer: str):
+    return ValueError(f"unknown mixer {mixer!r}")
 
 
 def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
@@ -68,6 +71,17 @@ def _mla_cfg(cfg: ModelConfig) -> mla_mod.MLAConfig:
                              impl=cfg.attn_impl, bkv=cfg.bkv,
                              unroll=cfg.analysis_unroll, absorb=cfg.mla_absorb,
                              compute_dtype=cfg.attn_compute_dtype)
+
+
+def _mamba_cfg(cfg: ModelConfig) -> ssm_mod.MambaConfig:
+    return ssm_mod.MambaConfig(cfg.d_model, cfg.mamba_d_state, cfg.mamba_d_conv,
+                               cfg.mamba_expand, chunk=cfg.mamba_chunk)
+
+
+def _xlstm_cfg(cfg: ModelConfig) -> xlstm_mod.XLSTMConfig:
+    return xlstm_mod.XLSTMConfig(cfg.d_model, cfg.n_heads,
+                                 proj_factor=cfg.xlstm_proj_factor,
+                                 chunk=cfg.xlstm_chunk)
 
 
 def _moe_cfg(cfg: ModelConfig) -> moe_mod.MoEConfig:
@@ -91,8 +105,14 @@ def _sublayer_specs(cfg: ModelConfig, mixer: str, ffn: str, cross: bool, dtype) 
         sp["attn"] = attn_specs(_attn_cfg(cfg), dtype)
     elif mixer == "mla":
         sp["mla"] = mla_mod.mla_specs(_mla_cfg(cfg), dtype)
+    elif mixer == "mamba":
+        sp["mamba"] = ssm_mod.mamba_specs(_mamba_cfg(cfg), dtype)
+    elif mixer == "mlstm":
+        sp["mlstm"] = xlstm_mod.mlstm_specs(_xlstm_cfg(cfg), dtype)
+    elif mixer == "slstm":
+        sp["slstm"] = xlstm_mod.slstm_specs(_xlstm_cfg(cfg), dtype)
     else:
-        raise _unported(mixer)
+        raise _unknown(mixer)
     if cross:
         sp["norm_x"] = ParamSpec((d,), ("embed",), dtype, init="ones")
         sp["cross"] = attn_specs(_attn_cfg(cfg), dtype)
@@ -132,11 +152,18 @@ def abstract_params(cfg: ModelConfig) -> dict:
     return sp
 
 
+def serving_dtype(path: tuple, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a param at ``path`` (its keys from the root) is served in:
+    ``dtype``, or float32 for the `FLOAT32_LEAVES`."""
+    return torch.float32 if tuple(path[-2:]) in FLOAT32_LEAVES else dtype
+
+
 def cast_params(params, dtype: torch.dtype):
-    """The param tree in ``dtype``.  Every weight on the forward path is cast
-    to ``cfg.cdtype`` at use, so serving from a ``cdtype`` copy made once
-    gives the same values and skips the per-step casts."""
-    return tree_map(lambda t: t.to(dtype), params)
+    """The param tree in ``dtype`` but the `FLOAT32_LEAVES`, kept in float32.
+    Every other weight on the forward path is cast to ``cfg.cdtype`` at use,
+    and those are read in float32, so serving from this copy made once gives
+    the same values and skips the per-step casts."""
+    return unflatten(params, [t.to(serving_dtype(p, dtype)) for p, t in flatten(params)])
 
 
 # ---------------------------------------------------------------------------
@@ -144,11 +171,14 @@ def cast_params(params, dtype: torch.dtype):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
-    """Per sub-layer of the pattern: its cache tensors stacked over periods in
-    ``cfg.cdtype`` (attention K/V (P, B, Hkv, max_len, D); MLA latent
-    (P, B, max_len, kv_lora) and RoPE key (P, B, max_len, rope)) and the
-    shared write index."""
+    """Per sub-layer of the pattern: its cache tensors stacked over periods.
+    Attention K/V (P, B, Hkv, max_len, D) and the MLA latent (P, B, max_len,
+    kv_lora) and RoPE key (P, B, max_len, rope) are in ``cfg.cdtype``, with
+    the shared write index; the recurrent states (Mamba conv and ssm; mLSTM
+    conv, C, n, m; sLSTM c, n, m, h) are float32 whatever ``cfg.cdtype`` is,
+    as in the reference, with no index."""
     P = cfg.n_periods
+    f32 = torch.float32
     blocks = {}
     for i, (mixer, _) in enumerate(cfg.pattern):
         # one allocation for all periods: P·batch rows, viewed as (P, batch)
@@ -156,8 +186,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
             c = attn_init_cache(_attn_cfg(cfg), P * batch, max_len, cfg.cdtype, device)
         elif mixer == "mla":
             c = mla_mod.init_mla_cache(_mla_cfg(cfg), P * batch, max_len, cfg.cdtype, device)
+        elif mixer == "mamba":
+            c = ssm_mod.init_mamba_cache(_mamba_cfg(cfg), P * batch, f32, device)
+        elif mixer == "mlstm":
+            c = xlstm_mod.init_mlstm_cache(_xlstm_cfg(cfg), P * batch, f32, device)
+        elif mixer == "slstm":
+            c = xlstm_mod.init_slstm_cache(_xlstm_cfg(cfg), P * batch, device)
         else:
-            raise _unported(mixer)
+            raise _unknown(mixer)
         blocks[str(i)] = {k: (v if k == "idx" else v.unflatten(0, (P, batch)))
                           for k, v in c.items()}
     return {"blocks": blocks, "pos": 0}
@@ -183,8 +219,14 @@ def _apply_sublayer(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
     elif mixer == "mla":
         o, new_cache = mla_mod.mla_apply(p["mla"], h, _mla_cfg(cfg), positions=positions,
                                          cache=cache)
+    elif mixer == "mamba":
+        o, new_cache = ssm_mod.mamba_apply(p["mamba"], h, _mamba_cfg(cfg), cache)
+    elif mixer == "mlstm":
+        o, new_cache = xlstm_mod.mlstm_apply(p["mlstm"], h, _xlstm_cfg(cfg), cache)
+    elif mixer == "slstm":
+        o, new_cache = xlstm_mod.slstm_apply(p["slstm"], h, _xlstm_cfg(cfg), cache)
     else:
-        raise _unported(mixer)
+        raise _unknown(mixer)
     x = x + o
     if enc_out is not None and "cross" in p:
         hx = _norm(x, p["norm_x"], cfg)
@@ -219,7 +261,8 @@ def _unstack(tree, n: int) -> list:
 def _run_stack(blocks, x, cfg: ModelConfig, *, pattern, positions, cache_blocks,
                enc_out, causal):
     """Loop over periods; each sub-layer's cache is its period's slice of the
-    stacked cache tensors, written in place.  Returns (x, aux, new cache
+    stacked cache tensors, written in place (by attention and MLA themselves,
+    here for the recurrent mixers' new states).  Returns (x, aux, new cache
     blocks or None, moe_stats): ``aux`` and ``moe_drops`` summed over the MoE
     sub-layers, ``moe_peak_occupancy`` their max (the hottest dispatch buffer
     anywhere in the stack), zeros without one.  Without a cache, under
@@ -240,8 +283,11 @@ def _run_stack(blocks, x, cfg: ModelConfig, *, pattern, positions, cache_blocks,
             x, nc, aux, moe = _apply_sublayer(pp[str(i)], x, cfg, mixer, ffn,
                                               positions=positions, cache=sub_cache,
                                               enc_out=enc_out, causal=causal)
-            if nc is not None:
+            if nc is not None and "idx" in nc:
                 new_idx[str(i)] = nc["idx"]
+            elif nc is not None:
+                for k, v in nc.items():
+                    sub_cache[k].copy_(v)
             if moe is not None:
                 moe_stats.append((aux, *moe))
         return x, moe_stats
@@ -264,7 +310,8 @@ def _run_stack(blocks, x, cfg: ModelConfig, *, pattern, positions, cache_blocks,
     moe_stats = {"moe_drops": drops, "moe_peak_occupancy": peak}
     if cache_blocks is None:
         return x, aux, None, moe_stats
-    new_blocks = {i: dict(cb, idx=new_idx[i]) for i, cb in cache_blocks.items()}
+    new_blocks = {i: dict(cb, idx=new_idx[i]) if i in new_idx else cb
+                  for i, cb in cache_blocks.items()}
     return x, aux, new_blocks, moe_stats
 
 

@@ -372,9 +372,10 @@ def test_lint_model_config_on_the_ported_registry():
     assert "dense reference" in got[1].message
 
 
-@pytest.mark.parametrize("arch", ["command-r-35b", "gemma-7b", "internvl2-1b", "llama3.2-1b",
-                                  "minicpm3-4b", "phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
-                                  "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["command-r-35b", "gemma-7b", "internvl2-1b",
+                                  "jamba-v0.1-52b", "llama3.2-1b", "minicpm3-4b",
+                                  "phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
+                                  "whisper-large-v3", "xlstm-350m"])
 def test_lint_configs_target_matches_reference(arch):
     """The CLI's ``configs`` target over the port's registry: each arch, FULL
     and SMOKE, lints to the reference's diagnostics for the same arch (with

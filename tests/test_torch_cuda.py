@@ -524,10 +524,10 @@ def test_dense_train_steps_on_gpu_match_cpu(dev, arch):
 @pytest.mark.parametrize("arch,kw", [
     ("phi3.5-moe-42b-a6.6b", dict(moe_impl="gather", moe_flit_buffer_depth=2)),
     ("qwen3-moe-235b-a22b", dict(moe_impl="gather", moe_flit_buffer_depth=2)),
-    ("minicpm3-4b", {}), ("internvl2-1b", {})])
+    ("minicpm3-4b", {}), ("internvl2-1b", {}), ("jamba-v0.1-52b", {}), ("xlstm-350m", {})])
 def test_family_smoke_on_gpu_matches_cpu(dev, arch, kw):
-    """The MoE (one-rank gather engine, packets dropped at depth 2), MLA and
-    vlm families at SMOKE with the flash impl and remat: forward logits
+    """The MoE (one-rank gather engine, packets dropped at depth 2), MLA,
+    vlm, hybrid and xlstm families at SMOKE with the flash impl and remat: forward logits
     within 1e-3 of their scale and the stack's drops and peak equal, greedy
     serve tokens equal, three train steps' loss and grad norm within 1e-3 of
     their scale and their MoE counters equal; flash launches twice an
@@ -542,7 +542,7 @@ def test_family_smoke_on_gpu_matches_cpu(dev, arch, kw):
     data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4, seed=0)
     step = make_train_step(cfg, AdamWConfig(lr=2e-3), total_steps=10, warmup=1)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 8))
-    n_attn = 3 * 2 * cfg.n_layers if cfg.pattern[0][0] == "attn" else 0
+    n_attn = 3 * 2 * sum(m == "attn" for m, _ in cfg.pattern) * cfg.n_periods
     got = {}
     for d in ("cpu", dev):
         p = _to(params, d)
@@ -566,3 +566,34 @@ def test_family_smoke_on_gpu_matches_cpu(dev, arch, kw):
     assert np.array_equal(mc[:, 2:], mg[:, 2:])
     if kw:
         assert (mc[:, 2] > 0).all()
+
+
+@pytest.mark.parametrize("mixer", ["mamba", "mlstm", "slstm"])
+def test_mixer_on_gpu_matches_cpu(dev, mixer):
+    """Mamba, mLSTM and sLSTM on the card against the CPU: chunked over 21
+    tokens at chunk 8 (a padded last chunk), then a prefill of 13 tokens and
+    one decode step against a cache; outputs and states within 1e-4 of
+    their scale."""
+    from repro_torch.models import ssm, xlstm
+
+    if mixer == "mamba":
+        c = ssm.MambaConfig(64, d_state=16, chunk=8)
+        specs, apply, init = ssm.mamba_specs(c), ssm.mamba_apply, ssm.init_mamba_cache
+    else:
+        c = xlstm.XLSTMConfig(64, 4, chunk=8)
+        specs, apply = getattr(xlstm, f"{mixer}_specs")(c), getattr(xlstm, f"{mixer}_apply")
+        init = xlstm.init_mlstm_cache if mixer == "mlstm" else xlstm.init_slstm_cache
+    p = model_layers.init_params(specs, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 21, 64), generator=torch.Generator().manual_seed(1))
+
+    def run(d):
+        pd, xd = _to(p, d), x.to(d)
+        out = [apply(pd, xd, c)[0]]
+        cache = init(c, 2, device=d)
+        for lo, hi in ((0, 13), (13, 14)):
+            o, cache = apply(pd, xd[:, lo:hi], c, cache)
+            out.append(o)
+        return [t.cpu() for t in out + list(cache.values())]
+
+    for a, b in zip(run("cpu"), run(dev)):
+        assert (a - b).abs().max() <= 1e-4 * max(a.abs().max().item(), 1.0)

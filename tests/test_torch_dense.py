@@ -361,11 +361,10 @@ def test_configs_equal_reference(arch, smoke):
 
 
 def test_registry_and_full_sizes():
-    """The port registers the reference's archs but the hybrid and xlstm
-    families (their mixers are not ported yet), with the reference's
-    parameter counts and, for MoE, active parameter counts."""
+    """The port registers the reference's archs, all ten, with the
+    reference's parameter counts and, for MoE, active parameter counts."""
     from repro.configs import ALL_ARCHS as JAX_ARCHS
-    assert set(ALL_ARCHS) == set(JAX_ARCHS) - {"jamba-v0.1-52b", "xlstm-350m"}
+    assert ALL_ARCHS == JAX_ARCHS
     assert {"whisper-large-v3", *ARCHS} <= set(ALL_ARCHS)
     assert torch_config("llama3.2-1b").param_count() == 1_235_814_400
     for arch in ALL_ARCHS:

@@ -221,8 +221,8 @@ def test_serve_run_cli_on_cpu(capsys):
                       "--prompt-len", "4", "--gen", "3"])
     assert out.shape == (3, 3) and out.min() >= 0 and out.max() < 256
     assert "done: 3 requests" in capsys.readouterr().out
-    with pytest.raises(SystemExit):           # only the archs the port registers
-        tserve.run(["--arch", "jamba-v0.1-52b", "--smoke", "--device", "cpu"])
+    with pytest.raises(SystemExit):           # only the archs the registry holds
+        tserve.run(["--arch", "no-such-arch", "--smoke", "--device", "cpu"])
 
 
 def test_serve_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
@@ -257,11 +257,8 @@ def test_init_params_follow_reference_rules(params):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(pattern=(("slstm", "none"),)), "xlstm family"),
     (dict(pattern=(("attn", "moe"),), n_experts=4, top_k=2, d_ff_expert=8, moe_impl="noc"),
      "mesh half of the LM stack"),
-    (dict(pattern=(("mamba", "mlp"),)), "hybrid family"),
-    (dict(pattern=(("mlstm", "none"),)), "xlstm family"),
 ])
 def test_unported_paths_raise(change, match):
     cfg = torch_config(ARCH, smoke=True).replace(**change)
@@ -270,3 +267,11 @@ def test_unported_paths_raise(change, match):
         toks = torch.zeros((1, 3), dtype=torch.long)
         TT.forward(p, {"tokens": toks, "frames": torch.zeros((1, cfg.enc_seq, cfg.d_frontend))},
                    cfg)
+
+
+def test_unknown_mixer_raises():
+    cfg = torch_config(ARCH, smoke=True).replace(pattern=(("conv", "mlp"),))
+    with pytest.raises(ValueError, match="unknown mixer 'conv'"):
+        TT.abstract_params(cfg)
+    with pytest.raises(ValueError, match="unknown mixer 'conv'"):
+        TT.init_cache(cfg, 1, 4, device="cpu")
