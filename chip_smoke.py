@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, then runs eleven phases and raises on any failure:
+with ``nvcc``, then runs twelve phases and raises on any failure:
 
 1. environment — the card, its power limit, torch/CUDA versions, build time,
                  ptxas's registers, spills and shared memory of each kernel;
@@ -83,15 +83,33 @@ with ``nvcc``, then runs eleven phases and raises on any failure:
    and one attention layer (flash launched 6 x 1 x 2 times, every call of a
    training forward held to the plain version); xlstm-350m served and
    trained uncut (no attention, no flash).  Phase 2's flash row at (8, 32:8,
-   128, 128, 128) is jamba's training shape too.
+   128, 128, 128) is jamba's training shape too;
+12. device-mesh execution on the card — 8 ranks started with ``spawn``, joined
+   over gloo through a ``FileStore``, every rank computing on the card (they
+   share it; gloo's transfers are staged through the host): the route
+   programs on their own axes and linearized, the handwritten schedules and
+   the bridged programs (2-pod, 4-pod, interleaved cuts) on a seeded (8, 8,
+   4096) cube equal to the transpose on the four topologies;
+   ``NoCExecutor(mode="spmd")`` equal to ``sim`` in outputs and every
+   ``NoCStats`` field (BMVM n=64 on the four topologies and cut into 2 and 4
+   pods, its golden stats, ``run_batch``, the PF NoC), and the golden Fano
+   LDPC run in a world of 16 ranks (its 16-node mesh); ``bmvm.iterate_spmd``
+   at phase 3's BMVM size (n=4096, M=64, r=4) on the four topologies equal
+   to the direct GF(2) product iterated, with the ``gf2_bmvm`` kernel held to
+   its plain version at the shard's shape and launched in every rank (counts
+   reset just before and read just after), the walls of the call and of its
+   transport, and the bytes staged through the host per iteration.
 
 Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
 no result when no CUDA device is present or the port is not beside it.
 """
+import datetime
 import json
 import os
+import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -680,6 +698,14 @@ def main():
 
     # -- phase 11: the hybrid and xlstm families served and trained on the card ---
     recurrent = recurrent_phase(torch, dev, smi)
+
+    # -- phase 12: device-mesh execution, 8 ranks on the card ---------------------
+    spmd = spmd_phase(torch, smi)
+    for kern in kernels:
+        if kern["name"] == "gf2_bmvm":
+            kern["launches_by_path"] = {"iterate_kernel": kern["launches"],
+                                        "spmd": spmd["launches"]}
+            kern["launches"] = sum(kern["launches_by_path"].values())
     for kern in kernels:
         if kern["name"] == "flash_attention":
             kern["launches_by_path"] = {"whisper_serve": serve_stats["launches"],
@@ -1854,6 +1880,264 @@ def recurrent_phase(torch, dev, smi):
     run.train("xlstm", xl)
     print(f"recurrent phase {time.perf_counter() - t_phase:.2f} s")
     return dict(launches=run.launches, combine_launches=run.combines)
+
+
+SPMD_TOPOLOGIES = ("ring", "mesh", "torus", "fattree")
+SPMD_CUTS = {"2 pods": (0,) * 4 + (1,) * 4, "4 pods": (0, 0, 1, 1, 2, 2, 3, 3),
+             "interleaved": (0, 1) * 4}
+
+
+def spmd_phase(torch, smi):
+    """Phase 12: device-mesh execution (``mode="spmd"``, the route programs
+    on a mesh, the bridged lowering, ``bmvm.iterate_spmd``), one NoC node per
+    rank, every rank on the card.  CUDA is initialized here already, so the
+    ranks start with ``spawn``; they join over gloo through a ``FileStore``
+    with a 120 s group timeout; the kernel library that phase 2 built is only
+    loaded.  A rank that fails or outlives the deadline fails the phase."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # the ranks inherit one OpenMP thread each and gloo on the loopback device
+    os.environ.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spmd_")
+    res = {}
+    try:
+        for part, world in (("mesh8", 8), ("ldpc16", 16)):
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(_spmd_rank, args=(world, tmp, part), nprocs=world,
+                                     join=False, start_method="spawn")
+            try:
+                while not ctx.join(timeout=1.0):
+                    check(time.perf_counter() - t0 < 400,
+                          f"phase 12 ({part}): the ranks still run after 400 s")
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                    p.join(10)
+            res[part] = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"{part}-{r}.pkl"), "rb") as f:
+                    res[part].append(pickle.load(f))
+            print(f"  world of {world} ranks ({part}) started, ran and joined in "
+                  f"{time.perf_counter() - t0:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks = res["mesh8"]
+    devices = sorted({(r["device"], r["name"]) for r in ranks})
+    print(f"phase 12: {len(ranks)} ranks, backend {ranks[0]['backend']} (FileStore), every rank "
+          f"computing on {', '.join(f'{d} ({n})' for d, n in devices)}: "
+          f"{'the ranks share one card' if len(devices) == 1 else 'cards shared round-robin'}; "
+          "CUDA tensors staged through the host at every transfer (gloo reads host memory); "
+          f"kernel library loaded, built in {max(r['built_seconds'] for r in ranks)} s "
+          f"in the ranks ({smi})")
+    print(f"  (a) {ranks[0]['routes']} route-program cases on the (8, 8, 4096) uint8 cube "
+          "(own axes, linearized, handwritten schedules, bridged x 2 pods / 4 pods / "
+          "interleaved on ring/mesh/torus/fattree) equal to the transpose in every rank")
+    for line in ranks[0]["executor"]:
+        print(f"  (b) {line}")
+    print(f"  (b) Fano LDPC, 10 iterations, 16-node mesh over 16 ranks: spmd == sim, NoCStats "
+          f"== GOLDEN_LDPC_FANO in every rank ({len(res['ldpc16'])} ranks)")
+    print(f"  (c) gf2_bmvm at the shard's shape lut {ranks[0]['shard_lut']} int32, words "
+          f"{ranks[0]['shard_words']}: kernel == plain in every rank (max_abs_err "
+          f"{max(r['shard_err'] for r in ranks)})")
+    launches = 0
+    for name in SPMD_TOPOLOGIES:
+        per = [r["iterate"][name] for r in ranks]
+        walls = [p["wall_ms"] for p in per]
+        trans = [p["transport_ms"] for p in per]
+        stage = [p["staging_ms"] for p in per]
+        staged = [p["staged_per_iter"] for p in per]
+        counts = [p["launches"] for p in per]
+        launches += sum(counts)
+        print(f"  (c) iterate_spmd n=4096 M=64 r=4 on {name}: equal to gf2_matmul_oracle "
+              f"iterated; wall {min(walls):.3f}-{max(walls):.3f} ms, transport "
+              f"{min(trans):.3f}-{max(trans):.3f} ms in {per[0]['calls']} transfers, of it the "
+              f"copies to and from the host {min(stage):.3f}-{max(stage):.3f} ms (over "
+              f"ranks); staged through the host {min(staged)}-{max(staged)} bytes per "
+              f"iteration per rank; gf2_bmvm launches per rank {counts} ({smi})")
+    print(f"spmd phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(launches=launches)
+
+
+def _spmd_rank(rank, world, tmp, part):
+    """One rank of phase 12: join the gloo group, run ``part`` on the card,
+    write what it measured for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.launch.mesh import join_process_group
+
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, f"store-{part}"),
+                                                         world),
+                            rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        dev = join_process_group("gloo", "cuda")
+        out = (_spmd_mesh8 if part == "mesh8" else _spmd_ldpc16)(torch, dev, rank)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"{part}-{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _spmd_ldpc16(torch, dev, rank):
+    """The golden Fano LDPC run (phase 4's, 16-node mesh) in mode="spmd"."""
+    from repro_torch.apps import ldpc
+
+    llr7 = ldpc.awgn_llr(np.zeros(7, np.int8), 3.0, np.random.default_rng(0))
+    bits, post, st = ldpc.decode_on_noc(ldpc.fano_plane_H(), llr7, 10, mode="spmd", device=dev)
+    bits_s, post_s, st_s = ldpc.decode_on_noc(ldpc.fano_plane_H(), llr7, 10, device=dev)
+    check(np.array_equal(bits, bits_s) and np.array_equal(post, post_s),
+          f"rank {rank}: Fano LDPC spmd differs from sim")
+    check(st.as_dict() == st_s.as_dict() == GOLDEN_LDPC_FANO,
+          f"rank {rank}: Fano LDPC spmd NoCStats {st.as_dict()}")
+    return {}
+
+
+def _spmd_mesh8(torch, dev, rank):
+    """Phase 12 (a)-(c) in one of 8 ranks; raises on any disagreement."""
+    import torch.distributed as dist
+
+    from repro_torch import core
+    from repro_torch.apps import bmvm
+    from repro_torch.apps import particle_filter as pf
+    from repro_torch.core.collectives import make_mesh
+    from repro_torch.kernels import _build, ops, ref
+
+    out = dict(device=str(dev), name=torch.cuda.get_device_name(dev),
+               backend=str(dist.get_backend()), built_seconds=_build.library().build_seconds)
+
+    # (a) route programs on the mesh: a seeded (8, 8, 4096) uint8 cube, each
+    # rank sends its node's row; the gathered rows must be the transpose
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cube = torch.randint(0, 256, (8, 8, 4096), generator=gen, device=dev, dtype=torch.uint8)
+    flat = make_mesh((("model", 8),), range(8))
+    cases = 0
+
+    def held(mesh, row, what):
+        nonlocal cases
+        check(torch.equal(mesh.gather_nodes(row), cube.transpose(0, 1)),
+              f"rank {rank}: {what} differs from the transpose")
+        cases += 1
+
+    for name in SPMD_TOPOLOGIES:
+        topo = core.make_topology(name, 8)
+        prog = core.compile_routes(topo)
+        mesh = core.mesh_for_topology(topo)
+        row = cube[mesh.node]
+        held(mesh, core.run_route_program(row, prog, mesh), f"run_route_program on {name}")
+        held(flat, core.run_route_program(row, prog, flat, axis_name="model"),
+             f"linearized run_route_program on {name}")
+        held(mesh, core.all_to_all_for(topo, mesh)(row), f"all_to_all_for on {name}")
+        for cut, pods in SPMD_CUTS.items():
+            plan = core.PartitionPlan({}, pods, (), (),
+                                      core.QuasiSerdesConfig(wire_bits=16, lanes=4))
+            bprog = core.compile_bridges(prog, plan, core.BridgeConfig(serdes=plan.serdes_cfg))
+            bm = core.mesh_for_partition(topo, plan)
+            held(bm, core.run_bridged_program(row, bprog, bm, bm.axis_names),
+                 f"run_bridged_program on {name}, {cut}")
+    out["routes"] = cases
+
+    # (b) the executor: mode="spmd" against mode="sim" on the card
+    lines = []
+
+    def pair(fn, what):
+        (o_p, st_p), (o_s, st_s) = fn("spmd"), fn("sim")
+        check(np.array_equal(o_p, o_s), f"rank {rank}: {what}: spmd outputs differ from sim")
+        check(st_p.as_dict() == st_s.as_dict(),
+              f"rank {rank}: {what}: NoCStats {st_p.as_dict()} vs sim {st_s.as_dict()}")
+        return o_p, st_p
+
+    rng = np.random.default_rng(0)
+    cfg64 = bmvm.BMVMConfig(n=64, k=8, fold=2)
+    A64 = rng.integers(0, 2, (64, 64)).astype(np.uint8)
+    v64 = rng.integers(0, 2, (64,)).astype(np.uint8)
+    lut64 = bmvm.preprocess(A64, cfg64, device=dev)
+    sw = bmvm.software_ref(A64, v64[None], 3, device=dev)
+    for name in SPMD_TOPOLOGIES:
+        o, st = pair(lambda m: bmvm.iterate_noc_sim(lut64, v64, cfg64, 3, topology=name, mode=m,
+                                                    device=dev), f"BMVM n=64 on {name}")
+        check(np.array_equal(o.reshape(1, -1), sw), f"rank {rank}: BMVM n=64 on {name}")
+    lines.append("BMVM n=64 r=3 on ring/mesh/torus/fattree (8 nodes): spmd == sim == "
+                 "software_ref, NoCStats equal field for field")
+    _, st = pair(lambda m: bmvm.iterate_noc_sim(lut64, v64, cfg64, 2, topology="mesh", mode=m,
+                                                device=dev), "BMVM n=64 golden")
+    check(st.as_dict() == GOLDEN_BMVM_64, f"rank {rank}: BMVM n=64 spmd NoCStats {st.as_dict()}")
+    lines.append("BMVM n=64 r=2 on the mesh: spmd NoCStats == GOLDEN_BMVM_64")
+    for cut in ("2 pods", "4 pods"):
+        pods = list(SPMD_CUTS[cut])
+        _, st = pair(lambda m: bmvm.iterate_noc_sim(lut64, v64, cfg64, 2, topology="mesh",
+                                                    pods=pods, mode=m, device=dev),
+                     f"BMVM n=64 cut into {cut}")
+        check(st.bridge_beats > 0, f"rank {rank}: no bridge traffic in {cut}")
+        lines.append(f"BMVM n=64 on the mesh cut into {cut}: spmd == sim with the bridge "
+                     f"counters (bridge_beats {st.bridge_beats}, stall rounds "
+                     f"{st.bridge_stall_rounds})")
+    g, _ = bmvm.build_bmvm_graph(lut64, cfg64)
+    ex = core.NoCExecutor(g, core.make_topology("mesh", 8), device=dev)
+    vb = torch.as_tensor(rng.integers(0, 2, (4, 64)).astype(np.uint8), device=dev)
+    vw = ref.gf2_pack_vector(vb, 8).view(torch.uint32)
+    inputs = {f"lut{i}.v": vw[:, 2 * i:2 * i + 2] for i in range(cfg64.n_pe)}
+
+    def batch(m):
+        o, st = ex.run_batch(inputs, mode=m)
+        return np.stack([o[k].view(torch.int32).cpu().numpy() for k in sorted(o)]), st
+
+    _, st = pair(batch, "run_batch")
+    lines.append(f"run_batch of the BMVM n=64 graph at B=4 on the mesh: spmd == sim "
+                 f"(rounds {st.rounds}, link_bytes {st.link_bytes})")
+    scfg = pf.PFConfig(img=128, roi=32, n_particles=256, n_bins=16)
+    sframes, _ = pf.synth_video(scfg, 8, np.random.default_rng(4))
+    _, st = pair(lambda m: pf.track_on_noc(sframes, scfg, n_pe=4, n_nodes=8, mode=m, device=dev),
+                 "PF track_on_noc")
+    lines.append(f"PF track_on_noc (4 PEs, 8-node mesh, 8 frames of 128^2): spmd == sim, "
+                 f"flits {st.flits}")
+    out["executor"] = lines
+
+    # (c) bmvm.iterate_spmd at phase 3's size: n=4096, k=8, M=64, r=4
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bcfg = bmvm.BMVMConfig(n=4096, k=8, fold=1)
+    A = torch.randint(0, 2, (bcfg.n, bcfg.n), generator=gen, device=dev, dtype=torch.uint8)
+    V = torch.randint(0, 2, (64, bcfg.n), generator=gen, device=dev, dtype=torch.uint8)
+    lut = bmvm.preprocess(A, bcfg, device=dev)
+    expect = V
+    for _ in range(4):
+        expect = ref.gf2_matmul_oracle(A, expect)
+    c_loc = lut.shape[0] // 8
+    lut_loc = lut[rank * c_loc:(rank + 1) * c_loc]
+    vw_loc = ref.gf2_pack_vector(V, bcfg.k)[:, rank * c_loc:(rank + 1) * c_loc].contiguous()
+    k_out = ops.gf2_bmvm(lut_loc, vw_loc)
+    out["shard_err"] = (k_out.long() - ops.gf2_bmvm(lut_loc, vw_loc, use_kernel=False).long()
+                        ).abs().max().item()
+    check(out["shard_err"] == 0, f"rank {rank}: gf2_bmvm differs at the shard's shape")
+    out["shard_lut"], out["shard_words"] = tuple(lut_loc.shape), tuple(vw_loc.shape)
+    out["iterate"] = {}
+    for name in SPMD_TOPOLOGIES:
+        mesh = core.mesh_for_topology(core.make_topology(name, 8))
+        bmvm.iterate_spmd(lut, V, bcfg, 4, mesh=mesh, topology=name, device=dev)   # warm-up
+        mesh.stats.reset()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = bmvm.iterate_spmd(lut, V, bcfg, 4, mesh=mesh, topology=name, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        n_launch = ops.launch_counts()["gf2_bmvm"]
+        check(torch.equal(got, expect), f"rank {rank}: iterate_spmd on {name} differs from the "
+              "direct GF(2) product")
+        check(n_launch > 0, f"rank {rank}: gf2_bmvm was not launched by iterate_spmd on {name}")
+        # the final gather of the (64, 64) int32 shards stages one row out
+        # and eight in; the rest is the four iterations' all-to-alls
+        staged = dev.type == "cuda" and mesh.stages_cuda
+        gather_bytes = (1 + 8) * got.shape[0] * c_loc * 4 if staged else 0
+        out["iterate"][name] = dict(wall_ms=wall_ms, transport_ms=mesh.stats.seconds * 1e3,
+                                    staging_ms=mesh.stats.staging_seconds * 1e3,
+                                    calls=mesh.stats.calls, launches=n_launch,
+                                    staged_per_iter=(mesh.stats.staged_bytes - gather_bytes) // 4)
+    return out
 
 
 def draw_serving_params(torch, cfg, gen, dev):

@@ -3,17 +3,19 @@ algorithm (paper §VI) — block-Wiedemann-style iterated products A^r·V.
 
 The communication structure is exactly an all-to-all: node i looks up
 LUT_i[v_i] and sends word j to node j, which XOR-accumulates — so topology
-choice dominates performance (the paper's Table V).  Two realizations here:
+choice dominates performance (the paper's Table V).  Three realizations:
 
 * ``iterate_kernel``   — single-device datapath: the hand-written LUT-XOR
                          CUDA kernel launched r times.
 * ``iterate_noc_sim``  — PE-per-node TaskGraph on a chosen topology with
                          round-by-round routing stats (Table V reproduction).
+* ``iterate_spmd``     — one NoC node per rank of a ``torch.distributed``
+                         group: the kernel's local lookup in every rank, the
+                         topology's schedule, XOR reduce.
 
 Words are int32 on the device (k ≤ 16); the NoC message contracts stay
 ``np.uint32`` as in the reference — same bytes on the wire — and the PEs move
-between the two with bit-preserving views.  ``iterate_spmd`` waits for the
-device-mesh slice (ROADMAP Queue 1 item 7).
+between the two with bit-preserving views.
 """
 from __future__ import annotations
 
@@ -24,7 +26,9 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..core import PE, Port, TaskGraph, make_topology
+from ..core import PE, NoCMesh, Port, TaskGraph, make_topology, mesh_for_topology
+from ..core.collectives import world_size
+from ..core.routing import all_to_all_for
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from . import noc_executor
@@ -124,8 +128,10 @@ def iterate_noc_sim(lut, v_bits, cfg: BMVMConfig, r: int,
 
     ``placement``: 'rr' | 'greedy' | 'opt' (annealing search, cut-aware when
     ``pods`` is given) or an explicit PE→node mapping.  ``mode``: 'sim',
-    'buffered' (the wormhole switch: same result, ``rounds`` are switch
-    cycles and the ``switch_*`` counters fill), 'sim_python' or 'direct'.
+    'spmd' (the same compiled flit program over a device mesh, one NoC node
+    per rank: every rank calls it alike), 'buffered' (the wormhole switch:
+    same result, ``rounds`` are switch cycles and the ``switch_*`` counters
+    fill), 'sim_python' or 'direct'.
     ``pods`` (node→pod) turns on partitioned execution: cut links run through
     quasi-SERDES bridge endpoints (``serdes_cfg``), results stay
     bit-identical and NoCStats gain the ``bridge_*`` counters (analytic ones
@@ -148,8 +154,53 @@ def iterate_noc_sim(lut, v_bits, cfg: BMVMConfig, r: int,
     return kref.gf2_unpack_vector(out_w, cfg.k).cpu().numpy(), stats
 
 
-def iterate_spmd(*args, **kwargs):
-    """The shard_map realization of the reference runs the PEs over a device
-    mesh; it belongs to the device-mesh slice of the port."""
-    raise NotImplementedError("bmvm.iterate_spmd is not ported yet: device-mesh "
-                              "execution (ROADMAP Queue 1 item 7)")
+# ---------------------------------------------------------------------------
+# device-mesh realization — one NoC node per rank
+# ---------------------------------------------------------------------------
+
+def iterate_spmd(lut, v_bits, cfg: BMVMConfig, r: int, mesh: Optional[NoCMesh] = None,
+                 topology: str = "fattree", device="cuda") -> torch.Tensor:
+    """A^r·V with the PEs over the ranks of a device mesh, routed by the
+    topology's schedule; v_bits: (M, n) → (M, n) uint8 bits on every rank.
+
+    Every rank calls it on the same inputs (`core.collectives`).  Node ``i``
+    holds ``lut[i*C_loc:(i+1)*C_loc]`` and ``vw[:, i*C_loc:(i+1)*C_loc]``.
+    Each iteration: the local lookup ``out[m, r] = XOR_c lut[c, v[m, c], r]``
+    through `kernels.ops.gf2_bmvm` (the hand-written kernel for a CUDA tensor,
+    with no fallback: a shard it cannot take raises), packets per
+    destination node (node j gets words ``[j*R_loc:(j+1)*R_loc]``), the
+    topology's all-to-all (`routing.all_to_all_for`), XOR reduce.  The
+    shards are gathered at the end.  ``mesh``: a `partition.mesh_for_topology`
+    mesh (default: one over the whole default group)."""
+    dev = resolve_device(device)
+    if mesh is None:
+        n = world_size()
+        if n == 0:
+            raise RuntimeError("bmvm.iterate_spmd needs a torch.distributed process group "
+                               "with one rank per NoC node; run under torchrun "
+                               "--nproc-per-node N and join the group "
+                               "(repro_torch.launch.mesh.join_process_group)")
+        topo = make_topology(topology, n)
+        mesh = mesh_for_topology(topo)
+    else:
+        topo = make_topology(topology, mesh.size)
+    n = topo.n_nodes
+    a2a = all_to_all_for(topo, mesh)
+    lut = torch.as_tensor(lut, device=dev)
+    C, _, R = lut.shape
+    if C % n or R % n:
+        raise ValueError(f"LUT {tuple(lut.shape)}: C and R must split over {n} nodes")
+    c_loc, r_loc = C // n, R // n
+    vw = kref.gf2_pack_vector(torch.as_tensor(v_bits, device=dev), cfg.k)   # (M, C)
+    M = vw.shape[0]
+    i = mesh.node
+    out = torch.zeros((M, r_loc), dtype=torch.int32, device=dev)
+    if i >= 0:
+        lut_loc = lut[i * c_loc:(i + 1) * c_loc]
+        out = vw[:, i * c_loc:(i + 1) * c_loc].contiguous()
+        for _ in range(r):
+            part = kops.gf2_bmvm(lut_loc, out)                          # (M, R) local partial
+            pkts = part.reshape(M, n, r_loc).transpose(0, 1)            # (n, M, r_loc)
+            out = kref.xor_reduce(a2a(pkts.contiguous()), 0)            # (M, r_loc) my words
+    out_w = mesh.gather_nodes(out).transpose(0, 1).reshape(M, n * r_loc)
+    return kref.gf2_unpack_vector(out_w, cfg.k)

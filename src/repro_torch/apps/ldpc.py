@@ -152,9 +152,11 @@ def decode_on_noc(H: np.ndarray, llr: np.ndarray, n_iters: int,
     ``placement``: 'rr' | 'greedy' | 'opt' (annealing search, cut-aware when
     ``pods`` is given) or an explicit PE→node mapping.  Initial check inputs
     are the channel LLRs of the connected bits (the standard initialization
-    u_ij^{(0)} = llr_j).  ``mode``: 'sim', 'buffered' (the wormhole switch:
-    same decode, ``rounds`` are switch cycles and the ``switch_*`` counters
-    fill), 'sim_python' or 'direct'.  With ``pods`` the decode runs
+    u_ij^{(0)} = llr_j).  ``mode``: 'sim', 'spmd' (the messages move over a
+    device mesh, one NoC node per rank of the default process group; every
+    rank calls it alike), 'buffered' (the wormhole switch: same decode,
+    ``rounds`` are switch cycles and the ``switch_*`` counters fill),
+    'sim_python' or 'direct'.  With ``pods`` the decode runs
     partitioned: cut links go through quasi-SERDES bridge endpoints
     (``serdes_cfg``), bit-identically to the uncut run, and the NoCStats carry
     the ``bridge_*`` counters (analytic ones in 'buffered', which routes

@@ -181,12 +181,14 @@ def track_on_noc(frames: np.ndarray, cfg: PFConfig, n_pe: int = 4,
     """Paper-faithful NoC execution; returns (centers (F, 2), total NoCStats).
 
     ``placement``: 'rr' | 'greedy' | 'opt' or an explicit PE→node mapping.
-    ``mode``: 'sim', 'buffered' (the wormhole switch: same tracks, ``rounds``
-    are switch cycles and the ``switch_*`` counters fill), 'sim_python' or
-    'direct'.  ``noise`` as in `track`.  ``pods`` (node→pod) runs the tracker
-    partitioned: cut links go through quasi-SERDES bridges (``serdes_cfg``)
-    with identical tracks and ``bridge_*`` counters in the stats (analytic
-    ones in 'buffered', which routes uncut).  The executor verifies itself
+    ``mode``: 'sim', 'spmd' (each frame's messages move over a device mesh,
+    one NoC node per rank; every rank calls it alike), 'buffered' (the
+    wormhole switch: same tracks, ``rounds`` are switch cycles and the
+    ``switch_*`` counters fill), 'sim_python' or 'direct'.  ``noise`` as in
+    `track`.  ``pods`` (node→pod) runs the tracker partitioned: cut links go
+    through quasi-SERDES bridges (``serdes_cfg``) with identical tracks and
+    ``bridge_*`` counters in the stats (analytic ones in 'buffered', which
+    routes uncut).  The executor verifies itself
     (``verify="strict"``).  ``tracer``: a `telemetry.Tracer` to record the
     run's events into (``NoCExecutor(trace=)``)."""
     dev = resolve_device(device)

@@ -10,7 +10,7 @@ pod-crossing hop funnels its rotating-buffer traffic through a
 `QuasiSerdesConfig`-framed serial link of ``lanes`` narrow beats, with a FIFO
 depth and bandwidth model per bridge.
 
-Two interpreters share the compiled `BridgedProgram`:
+Three interpreters share the compiled `BridgedProgram`:
 
 * :func:`simulate_bridged_program` — round-by-round execution on the message
   cube's device that really serializes every crossing buffer into wire words
@@ -19,15 +19,19 @@ Two interpreters share the compiled `BridgedProgram`:
   beats, serialized wire bytes, stall rounds (back-pressure + drain) and peak
   FIFO occupancy, per bridge and in total;
 * :func:`bridge_program_stats` — the same stats from the static traversal
-  schedule alone, with no data moved.
+  schedule alone, with no data moved (the spmd executor's counters);
+* :func:`run_bridged_program` — the device-mesh lowering: the program runs
+  *linearized* over the mesh of `partition.mesh_for_partition` (``(pod,
+  node)`` when the plan's pods are equal contiguous blocks); intra-pod hops
+  stay one `collectives.ppermute`, cut hops go through
+  `serdes.send_over_link` — encode, ``lanes`` serialized beat transfers,
+  decode.
 
 Both drive one FIFO machine (:class:`_BridgeSim`) that depends only on sizes,
 never on values: the bridged simulation reads nothing back from the device,
 and its index lists reach the device once (`routing._index`).  Both take a
 telemetry ``tracer=``; the machine emits the ``bridge_*`` events, so the two
 give one event stream.
-The device-mesh lowering (``run_bridged_program``) belongs to the device-mesh
-slice (ROADMAP Queue 1 item 7).
 
 Bridge cost model
 -----------------
@@ -48,9 +52,10 @@ from typing import Iterator, Optional
 import torch
 
 from . import serdes as qserdes
+from .collectives import MeshAxis, NoCMesh, all_to_all, ppermute
 from .partition import PartitionPlan
 from .routing import (HopMove, LinePhase, RouteProgram, ScheduleStats, _index,
-                      _line_compiled, _nbytes, route_program_stats)
+                      _line_compiled, _nbytes, route_program_stats, run_route_program)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -432,3 +437,69 @@ def simulate_bridged_program(bprog: BridgedProgram, msgs: torch.Tensor, *,
     b = b.reshape(ry, ry, rx, rx, k)                  # [dy(node), sy, dx, sx, k]
     out = torch.movedim(b, (0, 2, 1, 3), (0, 1, 2, 3))
     return unview(out.contiguous().reshape(n, n, k)), stats, br.finish()
+
+
+# ---------------------------------------------------------------------------
+# device-mesh lowering (spmd execution of the partitioned program)
+# ---------------------------------------------------------------------------
+
+def _bridged_transfer(bprog: BridgedProgram, axis: MeshAxis):
+    """Hop transport for `routing.run_route_program(transfer=...)` over the
+    flat ``axis``: intra-pod pairs stay one ppermute; cut pairs go through
+    serdes endpoints — encode, ``lanes`` serialized beat transfers, decode
+    (`serdes.send_over_link`).  A rank that no pair reaches gets zeros."""
+    pod_of = bprog.pod_of_node
+
+    def transfer(buf: torch.Tensor, pairs) -> torch.Tensor:
+        intra = [(s, d) for s, d in pairs if pod_of[s] == pod_of[d]]
+        cross = [(s, d) for s, d in pairs if pod_of[s] != pod_of[d]]
+        out = ppermute(buf, axis, intra) if intra else torch.zeros_like(buf)
+        if cross:
+            rec, _ = qserdes.send_over_link(buf, axis, cross, bprog.wire_cfg, serialized=True)
+            if any(d == axis.coord for _, d in cross):
+                out = rec
+        return out
+
+    return transfer
+
+
+def _bridged_crossbar(x: torch.Tensor, bprog: BridgedProgram, axis: MeshAxis) -> torch.Tensor:
+    """Fat-tree/crossbar round split at the cut: intra chunks ride the fused
+    all_to_all; every chunk is also serialized into wire words whose beats
+    move through ``lanes`` separate all_to_alls, and the chunks that arrive
+    over a cut link are the decoded ones."""
+    n = bprog.prog.n_nodes
+    pod_of = bprog.pod_of_node
+    out = all_to_all(x, axis)
+    if not any(pod_of[s] != pod_of[d] for s in range(n) for d in range(n)):
+        return out
+    cfg = bprog.wire_cfg
+    meta = qserdes.plan(tuple(x.shape[1:]), x.dtype, cfg)
+    enc = torch.stack([qserdes.encode(row, cfg, meta)[0].view(torch.uint8) for row in x])
+    beats = [all_to_all(enc[:, ln], axis) for ln in range(cfg.lanes)]   # (n_src, w bytes)
+    words = torch.stack(beats, dim=1)                                   # (n_src, lanes, w bytes)
+    no_scales = torch.zeros((cfg.lanes, 0), dtype=torch.uint8, device=x.device)
+    i = axis.coord
+    for s in range(n):
+        if pod_of[s] != pod_of[i]:       # the chunk from s came over a cut link
+            out[s] = qserdes.decode(words[s], no_scales, cfg, meta)
+    return out
+
+
+def run_bridged_program(x: torch.Tensor, bprog: BridgedProgram, mesh: NoCMesh,
+                        axis_name) -> torch.Tensor:
+    """Execute a partitioned program on this rank's row of the cube.
+
+    Same per-rank contract as `routing.run_route_program` — ``x`` is the
+    ``(n, *chunk)`` destination-indexed row, returns the source-indexed row
+    received — but always *linearized* over ``axis_name`` (a mesh axis name
+    or tuple, e.g. ``("pod", "node")`` from `partition.mesh_for_partition`,
+    where the flat index IS the global NoC node id).  Intra-pod hops are
+    plain ppermute rounds; pod-crossing hops move through quasi-SERDES
+    endpoints.  Bit-identical to the uncut program: the wire framing is
+    lossless."""
+    axis = mesh.axis(axis_name)
+    if bprog.prog.fused:
+        return _bridged_crossbar(x, bprog, axis)
+    return run_route_program(x, bprog.prog, mesh, axis_name=axis_name,
+                             transfer=_bridged_transfer(bprog, axis))

@@ -14,6 +14,15 @@ Modes of this port:
   round by round with `simulate_schedule`, and gathered back with one gather.
   Outputs equal ``direct`` bit for bit; `NoCStats` equal the reference's
   field for field.
+* ``spmd``       — the **device-mesh execution** of the same compiled flit
+  program over ``torch.distributed``: one NoC node per rank of the default
+  process group (`partition.mesh_for_topology`), each wave's message cube
+  moved by the topology's compiled route program
+  (`routing.run_route_program`) — one point-to-point transfer per hop move,
+  fat-tree as one ``all_to_all_single``.  Outputs and `NoCStats` equal
+  ``sim``'s: rounds and link bytes come from `routing.route_program_stats`,
+  which counts exactly what the round-by-round simulator counts.  Needs
+  ``n_nodes`` ranks (``torchrun --nproc-per-node``); see below.
 * ``sim_python`` — the seed per-message loop (framing re-derived every wave,
   one copy per message), the baseline the engine is held against: the same
   outputs and `NoCStats` as ``sim``.
@@ -31,8 +40,29 @@ Modes of this port:
 
 ``run_batch`` moves B independent input sets through one ``(B, n, n, bytes)``
 simulation (PEs fire per input set), and ``run_iterative`` reuses the
-compiled program across iterations; both take ``mode="buffered"`` too.  PEs
-fire eagerly on the executor's device.
+compiled program across iterations; both take ``mode="spmd"`` and
+``mode="buffered"`` too.  PEs fire eagerly on the executor's device.
+
+Device-mesh execution (``mode="spmd"``)
+---------------------------------------
+The reference is single-controller: its controller fires every PE, and only
+the wave's message cube is sharded over the device mesh inside
+``shard_map``.  The port is SPMD in torch's sense: every rank of the default
+process group calls the same ``run(..., mode="spmd")`` on the same inputs and
+fires every PE (replicated, as the controller does), then sends its own
+node's row of the cube through the route program and assembles the delivered
+cube with an ``all_gather`` of the rows (`collectives.NoCMesh.gather_nodes`),
+so every rank returns the same outputs and the same `NoCStats`.  Rank ``i``
+is NoC node ``i``, row-major over ``(noc_y, noc_x)``; the NoC group is the
+first ``n_nodes`` ranks of the default group, and ranks past them compute
+the same results.  Without an initialized group, or with too few ranks,
+``RuntimeError`` names ``torchrun --nproc-per-node``.  The transport
+semantics (zeros where no pair arrives, host staging of CUDA tensors under
+gloo) are `core.collectives`'.  With ``plan=`` the cube moves through
+`interchip.run_bridged_program` over `partition.mesh_for_partition`: intra-pod
+hops stay single transfers, cut hops run serdes encode → ``lanes``
+serialized beat transfers → decode, and the bridge counters are the analytic
+`interchip.bridge_program_stats`, which equal the simulator's.
 
 Partitioned execution (``plan=``)
 ---------------------------------
@@ -44,7 +74,8 @@ The cut is transparent: outputs and every pre-existing `NoCStats` field are
 identical to the uncut run; the static ``cross_pod_*`` counters count the
 messages that cross, and the ``bridge_*`` counters record what the serial
 links did.  ``sim`` and ``run_batch`` really serialize every crossing buffer
-(`interchip.simulate_bridged_program`); ``sim_python`` routes uncut and rolls
+(`interchip.simulate_bridged_program`); ``spmd`` serializes them between
+ranks (`interchip.run_bridged_program`); ``sim_python`` routes uncut and rolls
 in the analytic `interchip.bridge_program_stats`, which equal the simulator's.
 
 Static verification (``verify=``)
@@ -75,9 +106,6 @@ every hook is one ``is not None`` check.  Independently of tracing, each run
 publishes its `NoCStats` into the process-wide registry when one is enabled
 (`telemetry.enable_metrics`), labeled by ``mode`` and ``topology``.
 
-Not in this slice, and raising ``NotImplementedError`` rather than being
-ignored: mode ``spmd`` (with or without a plan).
-
 The flit-program compile step
 -----------------------------
 Every channel's shape/dtype is a declared contract, so the framing of a wave
@@ -104,16 +132,12 @@ from ..telemetry.tracer import Tracer
 from . import serdes as qserdes
 from .graph import GraphError, TaskGraph, torch_dtype
 from .interchip import (BridgeConfig, BridgedProgram, _walk_rounds, bridge_program_stats,
-                        compile_bridges, simulate_bridged_program)
-from .partition import PartitionPlan, place_round_robin
-from .routing import _nbytes, compile_routes, simulate_schedule
+                        compile_bridges, run_bridged_program, simulate_bridged_program)
+from .partition import PartitionPlan, mesh_for_partition, mesh_for_topology, place_round_robin
+from .routing import (_nbytes, compile_routes, route_program_stats, run_route_program,
+                      simulate_schedule)
 from .switch import SwitchConfig, dor_route, simulate_wormhole_cube
 from .topology import Topology
-
-# modes of the reference executor that later slices port (ROADMAP Queue 1)
-_LATER_MODES = {
-    "spmd": "device-mesh execution (ROADMAP Queue 1 item 7)",
-}
 
 
 @dataclasses.dataclass
@@ -313,9 +337,12 @@ class NoCExecutor:
             self._chan_by_src[c.src_pe].append(c)
         self.programs: list[_WaveProgram] = [self._compile_wave(w) for w in self.waves]
         # the route program (verifier) and the bridged program (first
-        # partitioned run) are compiled on first use
+        # partitioned run) are compiled on first use; so is the spmd lowering,
+        # which needs n_nodes ranks that the other modes must not require
         self._route_prog = None
         self._bridge_prog: Optional[BridgedProgram] = None
+        self._spmd_mesh = None
+        self._spmd_fn = None
         self._hop_cache: dict[tuple[int, int], int] = {}   # (src, dst) -> hops
         # static verification of everything just compiled (`analysis`)
         self.verification = []
@@ -341,6 +368,56 @@ class NoCExecutor:
                 BridgeConfig(serdes=self.plan.serdes_cfg,
                              fifo_depth=self.cfg.bridge_fifo_depth))
         return self._bridge_prog
+
+    # -- spmd lowering -------------------------------------------------------
+    def _ensure_spmd(self) -> None:
+        """Build the NoC mesh and this rank's route function once per
+        executor: the compiled route program over `partition.mesh_for_topology`,
+        or under a plan the bridged program over `partition.mesh_for_partition`
+        (`interchip.run_bridged_program`)."""
+        if self._spmd_fn is not None:
+            return
+        if self._route_prog is None:
+            self._route_prog = compile_routes(self.topo)
+        prog = self._route_prog
+        if self.plan is not None:
+            bprog = self._ensure_bridge()
+            mesh = mesh_for_partition(self.topo, self.plan)
+
+            def route(row):
+                return run_bridged_program(row, bprog, mesh, mesh.axis_names)
+        else:
+            mesh = mesh_for_topology(self.topo)
+
+            def route(row):
+                return run_route_program(row, prog, mesh)
+        self._spmd_mesh, self._spmd_fn = mesh, route
+
+    def _route_spmd(self, cube: torch.Tensor, B: Optional[int]):
+        """Move one wave's message cube over the device mesh: this rank sends
+        its node's row through the route program, and the delivered rows are
+        gathered from every node.
+
+        cube: (n, n, buf) or (B, n, n, buf).  Same (delivered, stats) contract
+        as :func:`simulate_schedule` — the batch rides along as payload bytes,
+        so rounds are physical while link_bytes scale with B.  Returns
+        ``(delivered, ScheduleStats, BridgeStats | None)``; the bridge stats
+        are analytic (`interchip.bridge_program_stats`), which the simulator
+        matches exactly."""
+        self._ensure_spmd()
+        mesh = self._spmd_mesh
+        rows = cube if B is None else torch.movedim(cube, 0, 2)     # (n, n, [B,] buf)
+        if mesh.node >= 0:
+            got = self._spmd_fn(rows[mesh.node].contiguous())
+        else:
+            got = torch.zeros_like(rows[0])
+        delivered = mesh.gather_nodes(got)                         # (n_dst, n_src, ...)
+        if B is not None:
+            delivered = torch.movedim(delivered, 2, 0).contiguous()
+        bstats = None
+        if self.plan is not None:
+            bstats = bridge_program_stats(self._bridge_prog, _nbytes(cube), tracer=self.tracer)
+        return delivered, route_program_stats(self._route_prog, _nbytes(cube)), bstats
 
     def _switch_cfg(self) -> SwitchConfig:
         """NoCConfig knobs → the buffered transport's SwitchConfig."""
@@ -488,14 +565,12 @@ class NoCExecutor:
 
     @staticmethod
     def _check_mode(mode: str, modes: tuple[str, ...]) -> None:
-        if mode in _LATER_MODES:
-            raise NotImplementedError(f"mode={mode!r} is not ported yet: {_LATER_MODES[mode]}")
         if mode not in modes:
             raise GraphError(f"unknown mode {mode!r}; use {'|'.join(map(repr, modes))}")
 
     # ------------------------------------------------------------------
     def run(self, inputs: Mapping[str, Any], mode: str = "sim") -> tuple[dict[str, Any], NoCStats]:
-        self._check_mode(mode, ("direct", "sim", "buffered", "sim_python"))
+        self._check_mode(mode, ("direct", "sim", "spmd", "buffered", "sim_python"))
         inputs = self._to_device(inputs)
         if mode == "direct":
             return self.graph.run(inputs), NoCStats()
@@ -510,11 +585,12 @@ class NoCExecutor:
         batch axis ``(B, *port.shape)`` and so does every output.
 
         ``sim`` moves all B message sets through the topology in a single
-        ``(B, n, n, bytes)`` :func:`simulate_schedule` call (``buffered``: the
-        B sets ride inside the same wormhole packets).  Stats: waves/rounds
+        ``(B, n, n, bytes)`` :func:`simulate_schedule` call (``spmd``: one
+        route of the batched rows; ``buffered``: the B sets ride inside the
+        same wormhole packets).  Stats: waves/rounds
         are physical (counted once — the batch shares the schedule), while
         payload/flit/link/cross-pod byte counters scale with B."""
-        self._check_mode(mode, ("direct", "sim", "buffered"))
+        self._check_mode(mode, ("direct", "sim", "spmd", "buffered"))
         if not inputs:
             raise GraphError("run_batch needs at least one input")
         inputs = self._to_device(inputs)
@@ -535,13 +611,17 @@ class NoCExecutor:
 
         ``transport`` swaps how each wave's message cube moves: ``"sim"`` is
         the round-by-round schedule simulator (the bridged one under a plan),
+        ``"spmd"`` the compiled route program over the device mesh,
         ``"buffered"`` the cycle-accurate wormhole switch.  Firing, framing
-        and stats accumulation are shared."""
+        and stats accumulation are shared, which is what makes the modes
+        bit-identical on values by construction."""
         g, topo = self.graph, self.topo
         n = topo.n_nodes
         lead = () if B is None else (B,)
         scale = 1 if B is None else B
         stats = NoCStats()
+        if transport == "spmd":
+            self._ensure_spmd()     # fail fast if the mesh cannot be built
         tr = self.tracer
         if tr is not None:
             tr.instant("run", "noc", mode=transport, topology=type(topo).__name__,
@@ -571,7 +651,10 @@ class NoCExecutor:
                 self._trace_msgs(tr, prog, scale, t0)
                 tr.clock = t0 + 1   # transport events start at the route phase
             bstats = None
-            if transport == "buffered":
+            if transport == "spmd":
+                delivered, sstats, bstats = self._route_spmd(cube, B)
+                rounds, link_bytes = sstats.rounds, sstats.link_bytes
+            elif transport == "buffered":
                 delivered, swst = simulate_wormhole_cube(
                     topo, cube, self._switch_cfg(), pairs=prog.pairs, batched=B is not None,
                     tracer=tr)
@@ -608,9 +691,9 @@ class NoCExecutor:
                 stats._roll_bridge(bstats)
             if tr is not None:
                 dur_route = rounds + (bstats.stall_rounds if bstats is not None else 0)
-                if transport == "sim":
+                if transport in ("sim", "spmd"):
                     # buffered emitted its own per-cycle events; the schedule
-                    # transport gets the compiled program's exact rounds
+                    # transports get the compiled program's exact rounds
                     self._trace_rounds(tr, t0 + 1, _nbytes(cube))
                 self._trace_wave(tr, t0, dur_route, iw, len(prog.slots),
                                  scale * prog.payload_nbytes, transport)

@@ -7,21 +7,29 @@ layers of ``repro.core.partition``).
    :func:`placement_cost`.  This is host code: the search draws from
    ``np.random.default_rng(seed)`` in the reference's order, so its
    placements equal the reference's dict for dict.
+1b. **Device-mesh assignment** — the NoC mesh a topology's schedule runs
+   over in ``mode="spmd"`` (:func:`mesh_for_topology`,
+   :func:`mesh_for_partition`): NoC node ``i`` is rank ``i`` of the default
+   process group, row-major over the topology's axes, and
+   :func:`placement_to_device_coords` says which mesh coordinates each PE's
+   messages leave from.
 2. **Cutting** — given a node→pod assignment, classify every channel as
    intra-pod or cross-pod (:func:`cut` → :class:`PartitionPlan`), and
    co-optimize the cut with the serdes settings (:func:`optimize_pod_cut`).
 
-The mesh sharding rules of the reference's third layer belong to the
-device-mesh and LM slices (ROADMAP Queue 1 items 7 and 8).
+The mesh sharding rules of the reference's third layer belong to the LM
+stack's mesh slice (ROADMAP Queue 1 item 8(e)).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
 from . import serdes as qserdes
+from .collectives import NoCMesh, make_mesh, world_size
 from .graph import Channel, TaskGraph
 from .topology import Mesh2D, Topology
 
@@ -233,6 +241,81 @@ def resolve_placement(graph: TaskGraph, topo: Topology, spec="rr",
         return optimize_placement(graph, topo, pod_of_node=pod_of_node, seed=seed,
                                   serdes_cfg=serdes_cfg)
     raise ValueError(f"unknown placement spec {spec!r}; use 'rr'|'greedy'|'opt' or a mapping")
+
+
+# ---------------------------------------------------------------------------
+# placement → device-mesh assignment (spmd execution of the placed graph)
+# ---------------------------------------------------------------------------
+
+def _ranks_for(topo: Topology, need: int, ranks: Optional[Sequence[int]], what: str) -> list[int]:
+    """The ranks to build a mesh on (default: the default group's), or the
+    actionable error when there are too few or no group at all."""
+    have = world_size()
+    ranks = list(range(have)) if ranks is None else list(ranks)
+    if len(ranks) < need:
+        found = (f"have {len(ranks)}" if have else
+                 "but no torch.distributed process group is initialized")
+        raise RuntimeError(
+            f"topology {topo.name!r} needs {need} ranks for {what}, {found}; run under "
+            f"torchrun --nproc-per-node {need} and join the group "
+            f"(repro_torch.launch.mesh.join_process_group)")
+    return ranks
+
+
+def mesh_for_topology(topo: Topology, ranks: Optional[Sequence[int]] = None) -> NoCMesh:
+    """The NoC mesh a topology's compiled routing schedule runs over.
+
+    Mesh axes follow ``routing.topology_axes`` (1D ``noc`` axis for
+    ring/fat-tree, ``(noc_y, noc_x)`` for mesh/torus), so NoC node ``i`` is
+    rank ``i`` of ``ranks`` (default: the default group's) in mesh row-major
+    order — the identity the spmd executor and :func:`node_device_coords`
+    rely on.  Every rank of the default group calls it at the same point;
+    ranks past the first ``n_nodes`` are off the mesh."""
+    from .routing import topology_axes
+
+    axes = topology_axes(topo)
+    need = math.prod(s for _, s in axes)
+    return make_mesh(axes, _ranks_for(topo, need, ranks, "SPMD execution"))
+
+
+def mesh_for_partition(topo: Topology, plan: "PartitionPlan",
+                       ranks: Optional[Sequence[int]] = None) -> NoCMesh:
+    """The NoC mesh for *partitioned* spmd execution (`core.interchip`).
+
+    When the plan's pods are equal-sized contiguous node blocks, the mesh is
+    2D ``(pod, node)`` — pod p owns ranks ``[p*k, (p+1)*k)`` and the flat
+    linearized index over ``("pod", "node")`` is exactly the global NoC node
+    id the bridged program's hop pairs use.  For irregular cuts the topology
+    mesh is returned instead (pod membership then lives only in the bridge
+    tables; the execution is the same, the bridged program always runs
+    linearized over the flat index)."""
+    n = topo.n_nodes
+    pods = tuple(plan.pod_of_node)
+    n_pods = max(pods) + 1 if pods else 1
+    blocked = (n_pods > 1 and n % n_pods == 0
+               and all(pods[i] == i // (n // n_pods) for i in range(n)))
+    if not blocked:
+        return mesh_for_topology(topo, ranks)
+    return make_mesh((("pod", n_pods), ("node", n // n_pods)),
+                     _ranks_for(topo, n, ranks, "partitioned SPMD execution"))
+
+
+def node_device_coords(topo: Topology, node: int) -> dict[str, int]:
+    """Linear NoC node id → mesh-axis coordinates on :func:`mesh_for_topology`."""
+    if not 0 <= node < topo.n_nodes:
+        raise ValueError(f"node {node} out of range for {topo.n_nodes}-node topology")
+    if isinstance(topo, Mesh2D):
+        x, y = topo.coords(node)
+        return {"noc_y": y, "noc_x": x}
+    return {"noc": node}
+
+
+def placement_to_device_coords(placement: Mapping[str, int],
+                               topo: Topology) -> dict[str, dict[str, int]]:
+    """Map a PE→node placement (e.g. an ``optimize_placement`` result) onto
+    mesh coordinates: which rank each PE's messages leave from when the
+    schedule runs on a device mesh."""
+    return {pe: node_device_coords(topo, node) for pe, node in placement.items()}
 
 
 # ---------------------------------------------------------------------------

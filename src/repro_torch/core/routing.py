@@ -14,8 +14,17 @@ and ``link_bytes`` count exactly what the reference counts.
 * :func:`route_program_stats` — analytic rounds and link bytes, matching the
   round-by-round execution exactly.
 
-``run_route_program`` (the device-mesh lowering) belongs to the device-mesh
-slice (ROADMAP Queue 1 item 7).
+Device-mesh execution (`core.collectives`): each rank holds its NoC node's
+``(n, *chunk)`` destination-indexed row and gets back the ``(n, *chunk)``
+source-indexed row it received — the transpose (:func:`transpose_oracle`).
+
+* the handwritten schedules :func:`ring_all_to_all_unidir`,
+  :func:`line_all_to_all`, :func:`grid_all_to_all` and
+  :func:`crossbar_all_to_all`, picked per topology by :func:`all_to_all_for`;
+* :func:`run_route_program` — a compiled program, one `collectives.ppermute`
+  per hop move, over the program's own mesh axes or *linearized* over one
+  flat axis (``axis_name``), with a replaceable hop transport
+  (``transfer=``, the bridged lowering of `core.interchip`).
 """
 from __future__ import annotations
 
@@ -25,7 +34,9 @@ from typing import Callable, Optional
 
 import torch
 
-from .topology import AxisSchedule, FatTree, Mesh2D, Ring, Topology, Torus2D
+from .collectives import MeshAxis, NoCMesh, all_to_all, ppermute
+from .topology import (AxisSchedule, FatTree, Mesh2D, Ring, Topology, Torus2D, bwd_pairs,
+                       fwd_pairs)
 
 
 class ScheduleStats:
@@ -324,3 +335,168 @@ def route_program_stats(prog: RouteProgram, cube_nbytes: int) -> ScheduleStats:
             for mv in rnd.moves:
                 stats.link_bytes += per_row * len(mv.perm)
     return stats
+
+
+# ---------------------------------------------------------------------------
+# device-mesh execution (one rank's view: its node's (n, *chunk) row)
+# ---------------------------------------------------------------------------
+
+def transpose_oracle(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """Reference semantics: the fused all_to_all (what the schedules equal)."""
+    return all_to_all(x, axis)
+
+
+def ring_all_to_all_unidir(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """Paper-faithful unidirectional ring rotation: n-1 rounds."""
+    n, i = axis.size, axis.coord
+    out = torch.zeros_like(x)
+    out[i] = x[i]
+    buf = x
+    for t in range(1, n):
+        buf = ppermute(buf, axis, fwd_pairs(n, True))
+        # after t forward rotations this node holds node (i-t)'s buffer
+        out[(i - t) % n] = buf[i]
+    return out
+
+
+def line_all_to_all(x: torch.Tensor, axis: MeshAxis, wrap: bool) -> torch.Tensor:
+    """Bidirectional 1D exchange.  wrap=True → torus ring (both directions
+    concurrently); wrap=False → mesh line (n-1 rounds)."""
+    n, i = axis.size, axis.coord
+    out = torch.zeros_like(x)
+    out[i] = x[i]
+    if n == 1:
+        return out
+    fwd_steps = n // 2 if wrap else n - 1
+    bwd_steps = (n - 1) // 2 if wrap else n - 1
+    fbuf, bbuf = x, x
+    for t in range(1, max(fwd_steps, bwd_steps) + 1):
+        if t <= fwd_steps:
+            fbuf = ppermute(fbuf, axis, fwd_pairs(n, wrap))
+            src = (i - t) % n if wrap else i - t
+            if wrap or src >= 0:
+                out[src] = fbuf[i]
+        if t <= bwd_steps:
+            bbuf = ppermute(bbuf, axis, bwd_pairs(n, wrap))
+            src = (i + t) % n if wrap else i + t
+            if wrap or src < n:
+                out[src] = bbuf[i]
+    return out
+
+
+def grid_all_to_all(x: torch.Tensor, axis_x: MeshAxis, axis_y: MeshAxis,
+                    wrap: bool) -> torch.Tensor:
+    """Factorized 2D exchange (dimension-ordered XY routing): destination
+    linear index d = dy*rx + dx in, source linear index out."""
+    rx, ry = axis_x.size, axis_y.size
+    c = tuple(x.shape[1:])
+    b = torch.movedim(x.reshape(ry, rx, *c), 1, 0)        # (dx, dy, *c)
+    b = line_all_to_all(b, axis_x, wrap)                    # (sx, dy, *c)
+    b = line_all_to_all(torch.movedim(b, 1, 0), axis_y, wrap)   # (sy, sx, *c)
+    return b.reshape(ry * rx, *c)
+
+
+def crossbar_all_to_all(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """Fat-tree / ideal crossbar: one fused all_to_all."""
+    return all_to_all(x, axis)
+
+
+def all_to_all_for(topo: Topology, mesh: NoCMesh) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``fn(x)``: the topology's handwritten schedule over ``mesh``, whose
+    axes are ``topology_axes(topo)`` (the axes are looked up once, here)."""
+    if isinstance(topo, Ring):
+        ax = mesh.axis("noc")
+        return lambda x: ring_all_to_all_unidir(x, ax)
+    if isinstance(topo, Mesh2D):        # Torus2D is a Mesh2D: wrap tells them apart
+        ax_x, ax_y = mesh.axis("noc_x"), mesh.axis("noc_y")
+        wrap = isinstance(topo, Torus2D)
+        return lambda x: grid_all_to_all(x, ax_x, ax_y, wrap)
+    if isinstance(topo, FatTree):
+        ax = mesh.axis("noc")
+        return lambda x: crossbar_all_to_all(x, ax)
+    raise TypeError(f"no schedule for {type(topo).__name__}")
+
+
+def _line_exchange_compiled(x: torch.Tensor, phase: LinePhase, axis: MeshAxis,
+                            coord: Optional[int] = None,
+                            expand: Optional[Callable] = None,
+                            transfer: Optional[Callable] = None) -> torch.Tensor:
+    """Execute one compiled line phase on this rank's row: ``x`` is
+    (m, *chunk) destination-indexed along the phase axis, returns
+    source-indexed.
+
+    By default the phase runs over ``axis``, the phase's own mesh axis.
+    Linearized, ``axis`` is a flat axis that embeds the phase axis: ``coord``
+    is this rank's position along the phase axis and ``expand`` maps the
+    phase's per-axis (src, dst) hop pairs to flat-axis pairs (every row or
+    column at once).  ``transfer(buf, pairs)`` replaces the hop transport (by
+    default one `collectives.ppermute`); it gets the expanded pairs, global
+    node ids when linearized."""
+    i = axis.coord if coord is None else coord
+    out = torch.zeros_like(x)
+    out[i] = x[i]
+    bufs = [x, x]
+    for rnd in phase.rounds:
+        for mv in rnd.moves:
+            perm = expand(mv.perm) if expand is not None else mv.perm
+            bufs[mv.buf] = (ppermute(bufs[mv.buf], axis, perm) if transfer is None
+                            else transfer(bufs[mv.buf], perm))
+            src = mv.src_table[i]
+            if src >= 0:
+                out[src] = bufs[mv.buf][i]
+    return out
+
+
+def run_route_program(x: torch.Tensor, prog: RouteProgram, mesh: Optional[NoCMesh],
+                      axis_name=None, transfer: Optional[Callable] = None) -> torch.Tensor:
+    """Execute a compiled RouteProgram on this rank's row of the cube.
+
+    Same contract as the handwritten schedules: ``x`` is this node's
+    ``(n, *chunk)`` destination-indexed row; returns the source-indexed row
+    it received (== :func:`transpose_oracle`).
+
+    With ``axis_name=None`` the program runs over its own axes of ``mesh``
+    (``prog.axes``, the NoC executor's ``mode="spmd"``).  With an
+    ``axis_name`` (a mesh axis name, or a tuple of names linearized) the same
+    program runs linearized over that one flat axis of size ``prog.n_nodes``
+    (node linear id ``y*rx + x`` for 2D topologies): each per-axis hop
+    permutation is expanded to the full axis so every row/column exchanges
+    at once, exactly one transfer per hop move.
+
+    ``transfer`` (see :func:`_line_exchange_compiled`) swaps the hop transport
+    and requires ``axis_name``, so that its pairs are global node ids."""
+    if transfer is not None and axis_name is None:
+        raise ValueError("transfer= requires linearized execution (axis_name)")
+    if prog.fused:
+        if transfer is not None:
+            # a fused crossbar has no hop moves to re-transport; ignoring the
+            # hook would run cut links un-bridged
+            raise ValueError("transfer= is not supported for fused programs; use "
+                             "interchip.run_bridged_program, which handles the "
+                             "crossbar case itself")
+        return all_to_all(x, mesh.axis(axis_name or prog.axes[0][0]))
+    if len(prog.phases) == 1:
+        phase = prog.phases[0]
+        return _line_exchange_compiled(x, phase, mesh.axis(axis_name or phase.sched.axis),
+                                       transfer=transfer)
+    # 2D XY routing: the factorized data motion of grid_all_to_all
+    (_, ry), (_, rx) = prog.axes          # axes = (noc_y, noc_x)
+    phase_x, phase_y = prog.phases        # phases ordered X then Y
+    if axis_name is None:
+        ax_x, ax_y = mesh.axis(phase_x.sched.axis), mesh.axis(phase_y.sched.axis)
+        cx = cy = ex_x = ex_y = None
+    else:
+        ax_x = ax_y = mesh.axis(axis_name)
+        cx, cy = ax_x.coord % rx, ax_x.coord // rx
+
+        def ex_x(pairs):
+            return [(y * rx + s, y * rx + d) for y in range(ry) for s, d in pairs]
+
+        def ex_y(pairs):
+            return [(s * rx + xc, d * rx + xc) for xc in range(rx) for s, d in pairs]
+    c = tuple(x.shape[1:])
+    b = torch.movedim(x.reshape(ry, rx, *c), 1, 0)                 # (dx, dy, *c)
+    b = _line_exchange_compiled(b, phase_x, ax_x, cx, ex_x, transfer)   # (sx, dy, *c)
+    b = _line_exchange_compiled(torch.movedim(b, 1, 0), phase_y, ax_y, cy, ex_y,
+                                transfer)                          # (sy, sx, *c)
+    return b.reshape(ry * rx, *c)

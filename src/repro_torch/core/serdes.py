@@ -6,12 +6,12 @@ or 32), split into ``lanes`` serialized beats, optionally narrowed by a bf16
 cast or int8 block quantization with an error-feedback residual.
 
 The framing plan and wire accounting (``plan``, ``link_wire_beats``,
-``link_bytes_on_wire``) and the endpoints ``encode``/``decode`` on torch
-tensors, as ``repro.core.serdes`` has them.  Framing works on byte views:
-a message's bytes are zero-padded to whole words and ``.view``-ed as the
-wire's unsigned type, which is only ever viewed, never computed on (torch has
-no shifts, ``%`` or indexing on ``uint32``).  ``send_over_link`` belongs to
-the device-mesh slice (ROADMAP Queue 1 item 7).
+``link_bytes_on_wire``), the endpoints ``encode``/``decode`` on torch
+tensors, and ``send_over_link`` across a cut of a device mesh, as
+``repro.core.serdes`` has them.  Framing works on byte views: a message's
+bytes are zero-padded to whole words and ``.view``-ed as the wire's unsigned
+type, which is only ever viewed, never computed on (torch has no shifts,
+``%`` or indexing on ``uint32``).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .collectives import MeshAxis, ppermute
 from .graph import torch_dtype
 
 
@@ -160,6 +161,33 @@ def decode(words: torch.Tensor, scale_words: torch.Tensor, cfg: QuasiSerdesConfi
     scale = _bytes(scale_words)[:n_blocks * 4].view(torch.float32).reshape(-1, 1)
     deq = (q.reshape(-1, cfg.block).to(torch.float32) * scale).reshape(-1)[:n]
     return deq.reshape(meta.shape).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# link transfer (device-mesh execution, across the cut axis)
+# ---------------------------------------------------------------------------
+
+def send_over_link(x: torch.Tensor, axis: MeshAxis, perm, cfg: QuasiSerdesConfig,
+                   meta: Optional[LinkMeta] = None, residual: Optional[torch.Tensor] = None,
+                   serialized: bool = True):
+    """Move ``x`` across the cut (e.g. pod to pod) through quasi-SERDES
+    endpoints: encode, transfer over ``axis`` along ``perm`` (a
+    `collectives.ppermute`, so a rank that no pair reaches decodes zeros),
+    decode.
+
+    serialized=True sends the ``lanes`` beats as separate transfers — the
+    paper-faithful "8 bits at a time" behaviour; False sends the whole frame
+    at once.  The scale words follow when the framing has any (int8).
+    Returns (received, new_residual)."""
+    meta = meta or plan(tuple(x.shape), x.dtype, cfg)
+    words, scales, new_res = encode(x, cfg, meta, residual)
+    if serialized:
+        beats = [ppermute(words[i], axis, perm).view(torch.uint8) for i in range(cfg.lanes)]
+        rwords = torch.stack(beats).view(words.dtype)
+    else:
+        rwords = ppermute(words, axis, perm)
+    rscales = ppermute(scales, axis, perm) if meta.n_scale_words else scales
+    return decode(rwords, rscales, cfg, meta), new_res
 
 
 def link_wire_beats(shape, dtype, cfg: QuasiSerdesConfig) -> int:

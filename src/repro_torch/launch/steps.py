@@ -38,8 +38,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, pod_sync: str = "
     ``grad_norm``, 0-d tensors.  The state's tensors are updated in place."""
     if pod_sync == "serdes":
         raise NotImplementedError("pod_sync='serdes' (the cross-pod gradient exchange over "
-                                  "quasi-SERDES links) waits for device-mesh execution, "
-                                  "ROADMAP item 7")
+                                  "quasi-SERDES links, serdes.send_over_link of ROADMAP "
+                                  "item 7) waits for the mesh half of the LM stack, "
+                                  "ROADMAP item 8(e)")
     if pod_sync != "auto":
         raise ValueError(f"pod_sync must be 'auto' or 'serdes', got {pod_sync!r}")
 

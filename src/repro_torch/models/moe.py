@@ -234,9 +234,9 @@ def moe_apply(params: dict, x: torch.Tensor, c: MoEConfig):
         return out, aux, _static_stats("dense", c)
     if c.impl == "noc":
         raise NotImplementedError(
-            "moe_impl='noc' routes packets over a device mesh: it waits for ROADMAP item 7 "
-            "(device-mesh execution) and item 8(e) (the mesh half of the LM stack); use "
-            "'gather' on one card")
+            "moe_impl='noc' routes packets over a device mesh with the route programs of "
+            "ROADMAP item 7 (device-mesh execution) and waits for item 8(e) (the mesh half "
+            "of the LM stack); use 'gather' on one card")
     if c.impl != "gather":
         raise ValueError(f"moe impl must be 'gather', 'dense' or 'noc', got {c.impl!r}")
     B, S, d = x.shape

@@ -3,9 +3,10 @@
 
 Run on a GPU host with ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  The file imports neither jax nor the reference
-package: it holds each kernel to its plain PyTorch version on the card, and the
+package: it holds each kernel to its plain PyTorch version on the card, the
 GPU paths of the apps (traced too) and of the whisper serve path to the same
-paths on the CPU."""
+paths on the CPU, and device-mesh execution in a gloo world on the card to
+``mode="sim"``."""
 import numpy as np
 import pytest
 
@@ -597,3 +598,24 @@ def test_mixer_on_gpu_matches_cpu(dev, mixer):
 
     for a, b in zip(run("cpu"), run(dev)):
         assert (a - b).abs().max() <= 1e-4 * max(a.abs().max().item(), 1.0)
+
+
+def test_spmd_on_gpu_matches_sim(dev, tmp_path):
+    """A 4-rank gloo world whose ranks all compute on the card (cuda:0 on a
+    one-card host; gloo's transfers staged through the host): the diamond on
+    the 4-node mesh in mode="spmd" equals sim in outputs and NoCStats (run,
+    run_batch, a 2-pod plan), and bmvm.iterate_spmd equals the direct product
+    with the gf2_bmvm kernel launched in every rank."""
+    import torch_spmd_worlds as W   # beside this file; pytest puts tests/ on sys.path
+
+    diamond = W.World("noc_diamond", 4, tmp_path / "diamond", device="cuda")
+    for key, (out, st, out_sim, st_sim) in W.one_result(diamond).items():
+        assert out.keys() == out_sim.keys(), key
+        assert all(np.array_equal(out[k], out_sim[k]) for k in out), key
+        assert st == st_sim, key
+    res = W.one_result(W.World("iterate_spmd", 4, tmp_path / "bmvm", device="cuda"))
+    A, V = W.bmvm_spmd_inputs()
+    want = bmvm.software_ref(A, V, 3, device="cpu")
+    for name in W.TOPOLOGIES:
+        assert np.array_equal(res[name], want), name
+        assert res[("launches", name)] == 3, name

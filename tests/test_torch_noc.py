@@ -3,8 +3,9 @@ round-by-round schedule simulator (plain and batched), placement, serdes
 accounting, the compiled flit-program executor (direct == sim == sim_python
 == run_batch on the diamond and mixed-dtype graphs rebuilt with torch PE
 bodies), the golden NoCStats, and the options that later slices port
-(``buffered`` and ``verify=`` have been ported; their cases here check what
-they do now)."""
+(``spmd``, ``buffered`` and ``verify=`` have been ported; their cases here
+check what they do now, ``spmd`` in a 4-rank gloo world of
+`tests/torch_spmd_worlds.py`)."""
 import warnings
 
 import numpy as np
@@ -23,6 +24,7 @@ from repro_torch.apps import bmvm as tbmvm  # noqa: E402
 from repro_torch.apps import ldpc as tldpc  # noqa: E402
 from repro_torch.apps import particle_filter as tpf  # noqa: E402
 from repro_torch.telemetry import Tracer, trace_stats  # noqa: E402
+from tests import torch_spmd_worlds as W  # noqa: E402
 
 TOPOLOGIES = ["ring", "mesh", "torus", "fattree"]
 CPU = "cpu"
@@ -349,26 +351,46 @@ def test_run_batch_refuses_sim_python_as_the_reference_does():
                                                          mode="sim_python")
 
 
-# -- what later slices port raises --------------------------------------------------
+# -- what later slices port runs now ----------------------------------------------
 
 def _graph_and_topo():
     g, inp = _diamond(tcore, torch)
     return g, tcore.make_topology("mesh", 4), inp
 
 
+@pytest.fixture(scope="module")
+def spmd_world(tmp_path_factory):
+    """The diamond on the 4-node mesh in ``mode="spmd"`` over 4 gloo ranks
+    (uncut run and run_batch, and under a 2-pod plan), with each rank's
+    ``sim`` run beside it; the result every rank returned."""
+    w = W.World("noc_diamond", 4, tmp_path_factory.mktemp("noc_diamond"))
+    yield lambda: W.one_result(w)
+    w.close()
+
+
+def _spmd_equals_sim(case):
+    out, st, out_sim, st_sim = case
+    assert out.keys() == out_sim.keys()
+    assert all(np.array_equal(out[k], out_sim[k]) for k in out)
+    assert st == st_sim
+    return st
+
+
 @pytest.mark.parametrize("mode", ["spmd", "buffered"])
-def test_later_modes_raise(mode):
-    """``spmd`` belongs to a later slice and raises in run and run_batch;
-    ``buffered`` has been ported: it runs in both and equals ``sim``."""
+def test_later_modes_raise(mode, request):
+    """Both have been ported: ``spmd`` (one node a rank) equals ``sim`` and
+    ``direct`` in outputs and ``sim`` in NoCStats through run and run_batch;
+    ``buffered`` runs in both and equals ``sim`` in outputs."""
     g, topo, inp = _graph_and_topo()
     ex = tcore.NoCExecutor(g, topo, device=CPU)
-    binp = {k: v[None] for k, v in inp.items()}
     if mode == "spmd":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ex.run(inp, mode=mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ex.run_batch(binp, mode=mode)
+        res = request.getfixturevalue("spmd_world")()
+        for call in ("run", "run_batch"):
+            assert _spmd_equals_sim(res[call])["rounds"] > 0
+        want, _ = ex.run(inp, mode="direct")
+        assert all(np.array_equal(res["run"][0][k], want[k].numpy()) for k in want)
         return
+    binp = {k: v[None] for k, v in inp.items()}
     for call in (ex.run, ex.run_batch):
         x = inp if call == ex.run else binp
         (out, st), (ref, st_sim) = call(x, mode=mode), call(x, mode="sim")
@@ -406,16 +428,18 @@ def test_later_executor_options_raise(kwargs, err):
 
 
 @pytest.mark.parametrize("mode", ["spmd", "buffered"])
-def test_plan_with_later_modes_raises(mode):
-    """Under a plan ``spmd`` raises; ``buffered`` routes uncut and rolls in
-    the analytic bridge counters, which equal the bridged simulator's."""
+def test_plan_with_later_modes_raises(mode, request):
+    """Under a plan ``spmd`` serializes the cut hops between ranks and
+    equals the bridged ``sim`` in outputs and every NoCStats field, bridge
+    counters included; ``buffered`` routes uncut and rolls in the analytic
+    bridge counters, which equal the bridged simulator's."""
+    if mode == "spmd":
+        st = _spmd_equals_sim(request.getfixturevalue("spmd_world")()["plan"])
+        assert st["bridge_beats"] > 0 and st["cross_pod_msgs"] > 0
+        return
     g, topo, inp = _graph_and_topo()
     placement = {p: i for i, p in enumerate(g.pes)}
     ex = tcore.NoCExecutor(g, topo, plan=tcore.cut(g, placement, [0, 0, 1, 1]), device=CPU)
-    if mode == "spmd":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ex.run(inp, mode=mode)
-        return
     (out, st), (ref, st_sim) = ex.run(inp, mode=mode), ex.run(inp, mode="sim")
     assert all(torch.equal(out[k], ref[k]) for k in ref)
     assert st.bridge_counters() == st_sim.bridge_counters() and st.bridge_beats > 0
@@ -444,5 +468,9 @@ def test_app_later_options_raise(option, app):
 
 
 def test_bmvm_iterate_spmd_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbmvm.iterate_spmd(None, None, tbmvm.BMVMConfig(), 1)
+    """iterate_spmd has been ported; without a process group it raises the
+    error that names torchrun (tests/test_torch_spmd.py runs it on 8 ranks)."""
+    cfg = tbmvm.BMVMConfig(n=16, k=4, fold=1)
+    lut = tbmvm.preprocess(np.eye(16, dtype=np.uint8), cfg, device=CPU)
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node"):
+        tbmvm.iterate_spmd(lut, np.ones((1, 16), np.uint8), cfg, 1, device=CPU)
