@@ -102,8 +102,8 @@ def run(argv=None):
     dev = resolve_device(args.device)
     reg = enable_metrics() if args.metrics else None
     cfg = get_config(args.arch, smoke=args.smoke)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = T.cast_params(init_params(T.abstract_params(cfg), gen), cfg.cdtype)
+    gen = torch.Generator().manual_seed(args.seed)   # the same model on every device
+    params = T.cast_params(init_params(T.abstract_params(cfg), gen, dev), cfg.cdtype)
     rng = np.random.default_rng(args.seed)
 
     t0 = time.monotonic()

@@ -39,9 +39,11 @@ from .steps import make_train_step
 
 
 def build_state(cfg, seed: int = 0, device="cuda") -> dict:
-    """Params drawn from ``seed`` on ``device`` and a fresh AdamW state."""
+    """Params drawn from ``seed`` and a fresh AdamW state on ``device``.  The
+    draws come from a CPU generator, so a seed gives the same model on every
+    device (as the reference's ``jax.random.key`` does)."""
     dev = resolve_device(device)
-    params = init_params(T.abstract_params(cfg), torch.Generator(device=dev).manual_seed(seed))
+    params = init_params(T.abstract_params(cfg), torch.Generator().manual_seed(seed), dev)
     return {"params": params, "opt": adamw_init(params)}
 
 

@@ -50,7 +50,8 @@ def init_param(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-    normal = torch.randn(spec.shape, generator=gen, device=device, dtype=torch.float32)
+    normal = torch.randn(spec.shape, generator=gen, device=gen.device,
+                         dtype=torch.float32).to(device)
     if spec.init == "embed":
         return (normal * spec.scale).to(spec.dtype)
     if spec.init == "small":
@@ -65,7 +66,8 @@ def init_param(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
 
 def init_params(spec_tree, gen: torch.Generator, device=None):
     """Materialize a spec tree, drawing every leaf from ``gen`` in sorted-key
-    order; ``device`` defaults to the generator's."""
+    order on the generator's device and placing it on ``device`` (default:
+    the generator's)."""
     device = gen.device if device is None else device
     if is_spec(spec_tree):
         return init_param(gen, spec_tree, device)

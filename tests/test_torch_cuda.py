@@ -493,6 +493,19 @@ def test_whisper_serve_path_on_gpu_matches_cpu(dev):
 
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-moe-235b-a22b"])
+def test_seeded_train_state_is_the_same_model_on_every_device(dev, arch):
+    """``launch.train.build_state`` draws from a CPU generator: a seed gives the
+    card the CPU's weights, as the reference's ``jax.random.key`` does."""
+    from repro_torch._tree import leaves
+    from repro_torch.launch.train import build_state
+    cfg = get_config(arch, smoke=True)
+    on_card, on_cpu = build_state(cfg, 0, dev), build_state(cfg, 0, "cpu")
+    card, cpu = leaves(on_card["params"]), leaves(on_cpu["params"])
+    assert len(card) == len(cpu) and all(a.is_cuda for a in card)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+
+
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma-7b"])
 def test_dense_train_steps_on_gpu_match_cpu(dev, arch):
     """Dense SMOKE with the flash impl and remat, three train steps: the

@@ -506,3 +506,19 @@ def test_opt_state_convert_round_trip(init):
     _equal(back, st)
     with pytest.raises(KeyError):
         convert.opt_state_to_torch({"m": {}, "v": {}}, "cpu")
+
+
+def test_build_state_draws_from_a_cpu_generator_and_places_on_the_device():
+    """The seeded weights come from a CPU generator, whatever the device: the
+    leaves are drawn there and then placed (here on the meta device)."""
+    from repro_torch._tree import leaves
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+
+    cfg = torch_config("llama3.2-1b", smoke=True)
+    state = ttrain.build_state(cfg, 3, "cpu")
+    want = init_params(T.abstract_params(cfg), torch.Generator().manual_seed(3))
+    assert all(torch.equal(a, b) for a, b in zip(leaves(state["params"]), leaves(want)))
+    placed = init_params(T.abstract_params(cfg), torch.Generator().manual_seed(3), "meta")
+    assert all(p.is_meta and p.shape == w.shape and p.dtype == w.dtype
+               for p, w in zip(leaves(placed), leaves(want)))
