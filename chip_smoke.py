@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, then runs thirteen phases and raises on any failure:
+with ``nvcc``, then runs fourteen phases and raises on any failure:
 
 1. environment — the card, its power limit, torch/CUDA versions, build time,
                  ptxas's registers, spills and shared memory of each kernel;
@@ -111,7 +111,19 @@ with ``nvcc``, then runs thirteen phases and raises on any failure:
    ``gf2_bmvm`` launch at its shape and each example's wall printed;
    then ``python -m repro_torch.telemetry --app bmvm --mode buffered --out``
    and ``python -m repro_torch.launch.report --trace/--csv/--profile`` on
-   that trace, each exiting 0.
+   that trace, each exiting 0;
+14. the MoE layer on a device mesh — 4 ranks on a (1, 4) ``("data",
+   "model")`` mesh, spawned as phase 12's: qwen3-moe's layer at full width
+   (d 4096, 128 experts top-8) on a seeded (4, 32, 4096) input in float32
+   and bf16, each rank drawing only its 32 experts, ``gather`` and ``noc``
+   on four topologies against the one-rank engine with all 128 experts in
+   this process, the noc topologies bit-identical, drops and peak equal
+   across engines at the config's capacity and at flit buffer depth 2;
+   qwen3-moe at full width cut to 4 of 94 layers, bf16, serving phase 10's
+   traffic through ``serve_batch(mesh=)`` on ``noc`` and on ``gather``, every
+   rank's tokens equal, the prefill on noc and each decode step demoted to
+   gather with its warning; then 8 ranks on a (2, 4) mesh, the SMOKE layer
+   against ``dense_ref``.  No kernel runs on this path.
 
 Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
@@ -717,6 +729,9 @@ def main():
 
     # -- phase 13: the examples on the card, and the report CLI ---------------------
     examples = examples_phase(torch, smi)
+
+    # -- phase 14: the MoE layer on a device mesh, 4 and 8 ranks on the card --------
+    moe_mesh_phase(torch, dev, smi)
     phase3_path = {"gf2_bmvm": "iterate_kernel", "minsum_check": "decode_minsum",
                    "particle_histogram": "track"}
     for kern in kernels:
@@ -2187,11 +2202,406 @@ def _spmd_rank(rank, world, tmp, part):
                             rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
     try:
         dev = join_process_group("gloo", "cuda")
-        out = (_spmd_mesh8 if part == "mesh8" else _spmd_ldpc16)(torch, dev, rank)
+        out = {"mesh8": _spmd_mesh8, "ldpc16": _spmd_ldpc16, "moe4": _moe_mesh4,
+               "moe8": _moe_mesh8}[part](torch, dev, rank)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"{part}-{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+MOE_SEED = 14
+MOE_X_SHAPE = (4, 32, 4096)                  # batch 4 x seq 32 at qwen3-moe's d_model
+MOE_TOPOLOGIES = ("fattree", "ring", "mesh2d", "torus2d")
+MOE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # x max(1, max |one-rank out|)
+
+
+def moe_mesh_phase(torch, dev, smi):
+    """Phase 14: the MoE layer on a device mesh (``impl="gather"`` and
+    ``"noc"`` over a ``("data", "model")`` mesh of gloo ranks on the card),
+    spawned as phase 12's ranks are, each world with a 400 s deadline:
+
+    (a) one qwen3-moe layer at full width (d 4096, 128 experts top-8, f 1536)
+        on x (4, 32, 4096) from a seed, in float32 and bf16, on a (1, 4) mesh
+        of 4 ranks, each rank drawing only its 32 experts (each expert from a
+        generator seeded by (seed, layer, expert, leaf)): at capacity_factor
+        8 gather and noc on four topologies within ``MOE_TOL`` of the
+        one-rank engine that this process runs with all 128 experts, drop
+        free; the four noc topologies bit-identical; at the config's
+        capacity gather's and noc's drops and peak equal;
+    (b) qwen3-moe at full width cut to 4 of 94 layers, bf16, on that mesh:
+        phase 10's traffic (16 requests at batch 4, prompt 32, 16 tokens)
+        served through ``serve_batch(mesh=)`` with ``moe_impl="noc"``
+        (torus2d) and with ``"gather"``; every rank's tokens equal, the
+        prefill on noc, every decode step demoted to gather with the
+        warning;
+    (c) a (2, 4) mesh of 8 ranks: the qwen3-moe SMOKE layer in float32, the
+        engines against ``dense_ref`` within 1e-4.
+
+    No kernel of the port runs here: the MoE path is plain PyTorch and the
+    serve prefill holds a cache, which takes attention's plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-moe-235b-a22b")
+    E, d, k, f = cfg.n_experts, cfg.d_model, cfg.top_k, cfg.d_ff_expert
+
+    # the one-rank engine with all 128 experts, in this process
+    w = moe_layer_weights(torch, cfg, dev, range(E))
+    x = moe_input(torch, dev)
+    one = {}
+    c = M.MoEConfig(d, E, k, f, capacity_factor=8.0, impl="gather")
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            M.moe_apply(w, xd, c)                                # warm-up
+            (out, _, st), secs = wall(torch, lambda: M.moe_apply(w, xd, c))
+            one[str(dt).split(".")[1]] = (out.float().cpu().numpy(), int(st.drops), secs)
+    del w, out
+    torch.cuda.empty_cache()
+
+    ranks4 = run_ranks(torch, "moe4", 4)
+    ranks8 = run_ranks(torch, "moe8", 8)
+    r0 = ranks4[0]
+    print(f"phase 14: MoE layer on a (1, 4) mesh of 4 ranks and a (2, 4) mesh of 8, backend "
+          f"{r0['backend']} (FileStore), every rank on {r0['device']} ({r0['name']}); CUDA "
+          f"tensors staged through the host at every transfer ({smi})")
+
+    # (a) every rank's outputs bit-equal; the noc topologies bit-identical; each
+    # engine within MOE_TOL of the one-rank engine
+    for key in r0["digest"]:
+        check(all(r["digest"][key] == r0["digest"][key] for r in ranks4),
+              f"phase 14 (a): the ranks' outputs differ for {key}")
+    for dt, tol in MOE_TOL.items():
+        ref, ref_drops, ref_secs = one[dt]
+        check(ref_drops == 0, f"phase 14 (a): the one-rank engine dropped {ref_drops} in {dt}")
+        nocs = {r0["digest"][(dt, f"noc-{t}")] for t in MOE_TOPOLOGIES}
+        check(len(nocs) == 1, f"phase 14 (a): the noc topologies differ in {dt}")
+        scale = max(1.0, float(np.abs(ref).max()))
+        for eng in ["gather"] + [f"noc-{t}" for t in MOE_TOPOLOGIES]:
+            got = r0["out"][(dt, eng)]
+            err = float(np.abs(got - ref).max())
+            st = r0["runs"][(dt, eng)]
+            check(err <= tol * scale and st["drops"] == 0,
+                  f"phase 14 (a): {eng} in {dt}: max |diff| {err:.3e} against the one-rank "
+                  f"engine (limit {tol} x {scale:.3f}), drops {st['drops']}")
+            walls = [r["runs"][(dt, eng)]["wall_ms"] for r in ranks4]
+            trans = [r["runs"][(dt, eng)]["transport_ms"] for r in ranks4]
+            print(f"  (a) {eng:13s} {dt:8s} max |diff| {err:.3e} against the one-rank engine "
+                  f"(limit {tol} x {scale:.3f}); drops 0; rounds {st['rounds']}, flits "
+                  f"{st['flits']}, link_bytes {st['link_bytes']}; wall {min(walls):.3f}-"
+                  f"{max(walls):.3f} ms over ranks, of it transport {min(trans):.3f}-"
+                  f"{max(trans):.3f} ms in {st['calls']} transfers, staged {st['staged']} bytes a "
+                  f"rank")
+        print(f"  (a) one-rank engine, {dt}, {E} experts in one process: wall "
+              f"{ref_secs * 1e3:.3f} ms; the four noc topologies bit-identical")
+    cap = r0["config_capacity"]
+    for depth, what in ((0, f"the config's capacity factor {cfg.capacity_factor}"),
+                        (2, "flit buffer depth 2")):
+        g, n = cap[(depth, "gather")], cap[(depth, "noc")]
+        check(g == n and (depth == 0 or g[0] > 0),
+              f"phase 14 (a): at {what} gather (drops, peak, capacity) {g} != noc {n}")
+        print(f"  (a) at {what} (capacity {g[2]} slots a FIFO): gather and noc drops {g[0]}, "
+              f"peak {g[1]}, equal")
+
+    # (b) the served tokens: every rank equal; prefill on noc, decode on gather
+    for impl in ("noc", "gather"):
+        runs = [r["serve"][impl] for r in ranks4]
+        check(all(np.array_equal(s["tokens"], runs[0]["tokens"]) for s in runs),
+              f"phase 14 (b): the ranks served different tokens on {impl}")
+        s = runs[0]
+        want_pre = "noc" if impl == "noc" else "gather"
+        check(s["engines"] == {("prefill", want_pre): 4 * 4, ("decode", "gather"): 4 * 15 * 4}
+              and s["tokens"].shape == (16, 16) and s["flash"] == 0,
+              f"phase 14 (b) {impl}: engines {s['engines']}, tokens {s['tokens'].shape}, "
+              f"flash launches {s['flash']}")
+        if impl == "noc":
+            check(s["decode_warnings"] == 4 * 15 * 4,
+                  f"phase 14 (b): {s['decode_warnings']} decode-shaped warnings, expected 240")
+        peak = max(r["serve"][impl]["peak"] for r in ranks4)
+        print(f"  (b) qwen3-moe-235b-a22b (4 of 94 layers, bf16, {s['params']:,} params a rank) "
+              f"moe_impl={impl!r}: 16 requests x 16 tokens at batch 4 (prompt 32) in "
+              f"{s['secs']:.3f} s ({16 * 16 / s['secs']:.1f} tokens/s); prefill p50 "
+              f"{s['prefill_ms']:.3f} ms, decode p50 {s['decode_ms']:.3f} ms/token; transport "
+              f"{s['transport_s']:.3f} s in {s['calls']} transfers, of it staging "
+              f"{s['staging_s']:.3f} s, {s['staged'] / 2**20:.1f} MiB staged a rank; prefill "
+              f"drops {s['drops']}; engines {s['engines']}; decode-shaped warnings "
+              f"{s['decode_warnings']}; peak memory {peak / 2**30:.2f} GiB a rank; every "
+              f"rank's tokens equal ({smi})")
+    same = np.array_equal(r0["serve"]["noc"]["tokens"], r0["serve"]["gather"]["tokens"])
+    print(f"  (b) noc and gather served {'the same' if same else 'different'} tokens "
+          f"({int((r0['serve']['noc']['tokens'] != r0['serve']['gather']['tokens']).sum())} of "
+          "256 differ; bf16 sums in another order may flip a greedy token)")
+
+    # (c) the (2, 4) mesh at SMOKE
+    for key in ranks8[0]["digest"]:
+        check(all(r["digest"][key] == ranks8[0]["digest"][key] for r in ranks8),
+              f"phase 14 (c): the ranks' outputs differ for {key}")
+    errs = ranks8[0]["errs"]
+    check(max(errs.values()) <= 1e-4 and not any(ranks8[0]["drops"].values()),
+          f"phase 14 (c): against dense_ref {errs}, drops {ranks8[0]['drops']}")
+    print(f"  (c) qwen3-moe SMOKE layer ({ranks8[0]['layer']}) on a (2, 4) mesh of 8 ranks, "
+          f"float32: max |diff| against dense_ref {errs} (limit 1e-4), drop free, every rank "
+          "equal")
+    print(f"moe mesh phase {time.perf_counter() - t_phase:.2f} s")
+
+
+def expert_seed(seed, layer, expert, leaf):
+    """The seed of one expert's leaf: any rank rebuilds any expert alone."""
+    return ((seed * 1000 + layer) * 1000 + expert) * 10 + ("gate", "up", "down").index(leaf)
+
+
+def draw_expert(torch, spec, dev, seed, layer, expert, leaf):
+    """One expert of a stacked (E, a, b) spec, by the reference's init rules."""
+    import dataclasses
+
+    from repro_torch.models.layers import init_param
+
+    one = dataclasses.replace(spec, shape=spec.shape[-2:], axes=spec.axes[-2:])
+    gen = torch.Generator(device=dev).manual_seed(expert_seed(seed, layer, expert, leaf))
+    return init_param(gen, one, dev)
+
+
+def moe_layer_weights(torch, cfg, dev, experts, seed=MOE_SEED):
+    """Layer 0 of ``cfg``'s MoE in float32: the router from the seed, and
+    gate/up/down of ``experts`` (ids), each from its own seed."""
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import init_param
+
+    specs = M.moe_specs(M.MoEConfig(cfg.d_model, cfg.n_experts, cfg.top_k, cfg.d_ff_expert))
+    w = {"router": init_param(torch.Generator(device=dev).manual_seed(seed), specs["router"],
+                              dev)}
+    for leaf in ("gate", "up", "down"):
+        w[leaf] = torch.stack([draw_expert(torch, specs[leaf], dev, seed, 0, e, leaf)
+                               for e in experts])
+    return w
+
+
+def moe_input(torch, dev):
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED + 1)
+    return torch.randn(MOE_X_SHAPE, generator=gen, device=dev)
+
+
+def run_ranks(torch, part, world, deadline=400.0):
+    """Spawn ``world`` ranks running ``part`` (phase 12's ``_spmd_rank``),
+    wait for them with a deadline, and return what each wrote, in rank
+    order; a rank that fails or outlives the deadline fails the run."""
+    import torch.multiprocessing as mp
+
+    os.environ.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{part}_")
+    t0 = time.perf_counter()
+    try:
+        ctx = mp.start_processes(_spmd_rank, args=(world, tmp, part), nprocs=world,
+                                 join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                check(time.perf_counter() - t0 < deadline,
+                      f"{part}: the ranks still run after {deadline:.0f} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"{part}-{r}.pkl"), "rb") as fh:
+                out.append(pickle.load(fh))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  world of {world} ranks ({part}) started, ran and joined in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def _digest(t):
+    """A hash of a tensor's values (bf16 widens to float32 exactly)."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()
+
+
+def _moe_mesh4(torch, dev, rank):
+    """Phase 14 (a) and (b) in one of 4 ranks on a (1, 4) mesh."""
+    import collections
+    import warnings
+
+    import torch.distributed as dist
+
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.core.noc import NoCConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.telemetry import MetricsRegistry
+
+    mesh = make_host_mesh(model=4)
+    coord = mesh.axis("model").coord
+    out = dict(device=str(dev), name=torch.cuda.get_device_name(dev),
+               backend=str(dist.get_backend()), digest={}, runs={}, out={}, serve={})
+    cfg = get_config("qwen3-moe-235b-a22b")
+    E, d, k, f = cfg.n_experts, cfg.d_model, cfg.top_k, cfg.d_ff_expert
+    epr = E // 4
+
+    # (a) the rank's 32 experts, drawn alone
+    w = moe_layer_weights(torch, cfg, dev, range(coord * epr, (coord + 1) * epr))
+    x = moe_input(torch, dev)
+    engines = [("gather", "fattree")] + [("noc", t) for t in MOE_TOPOLOGIES]
+    with set_mesh(mesh), torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            xd = x.to(dt)
+            for impl, topo in engines:
+                key = (name, impl if impl == "gather" else f"noc-{topo}")
+                c = M.MoEConfig(d, E, k, f, capacity_factor=8.0, impl=impl, noc_topology=topo)
+                M.moe_apply(w, xd, c)                        # warm-up
+                torch.cuda.synchronize()
+                mesh.stats.reset()
+                (o, _, st), secs = wall(torch, lambda: M.moe_apply(w, xd, c))
+                out["digest"][key] = _digest(o)
+                out["runs"][key] = dict(drops=int(st.drops), rounds=st.rounds, flits=st.flits,
+                                        link_bytes=st.link_bytes, wall_ms=secs * 1e3,
+                                        transport_ms=mesh.stats.seconds * 1e3,
+                                        calls=mesh.stats.calls, staged=mesh.stats.staged_bytes)
+                check(st.engine == impl and st.fallback is None,
+                      f"rank {rank}: {key} ran {st.engine} ({st.fallback})")
+                if rank == 0:
+                    out["out"][key] = o.float().cpu().numpy()
+        cap = {}
+        for depth in (0, 2):            # the config's capacity formula, and 2 slots
+            for impl in ("gather", "noc"):
+                c = M.MoEConfig(d, E, k, f, capacity_factor=cfg.capacity_factor, impl=impl,
+                                noc_topology=cfg.moe_topology,
+                                noc=NoCConfig(flit_buffer_depth=depth) if depth else None)
+                _, _, st = M.moe_apply(w, x, c)
+                cap[(depth, impl)] = (int(st.drops), int(st.peak_occupancy), st.capacity)
+        out["config_capacity"] = cap
+    del w
+    torch.cuda.empty_cache()
+
+    # (b) qwen3-moe at 4 layers, bf16, served on the mesh under noc and gather
+    prompts = torch.randint(0, cfg.vocab, (16, 32), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev).cpu().numpy()
+    record = collections.Counter()
+    drops = []
+    apply = M.moe_apply
+
+    def recorded(p, h, c):
+        o, aux, st = apply(p, h, c)
+        record[("prefill" if h.shape[1] > 1 else "decode", st.engine)] += 1
+        if h.shape[1] > 1:
+            drops.append(st.drops)
+        return o, aux, st
+
+    params = draw_mesh_serving_params(torch, cfg.replace(n_layers=4), dev, coord, 4)
+    n_params = sum(t.numel() for t in leaves(params))
+    for impl in ("noc", "gather"):
+        scfg = cfg.replace(n_layers=4, attn_impl="flash", moe_impl=impl)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            serve.serve_batch(params, scfg, prompts[:4], 2, device=dev, mesh=mesh)  # warm-up
+        reg = MetricsRegistry()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.stats.reset()
+        ops.reset_launch_counts()
+        record.clear()
+        drops.clear()
+        M.moe_apply = recorded
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                ts = time.perf_counter()
+                tokens = np.concatenate([serve.serve_batch(params, scfg, prompts[i:i + 4], 16,
+                                                           device=dev, reg=reg, mesh=mesh)
+                                         for i in range(0, 16, 4)])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - ts
+        finally:
+            M.moe_apply = apply
+        pre, dec = reg.histogram("serve.prefill.seconds"), reg.histogram("serve.decode.seconds")
+        out["serve"][impl] = dict(
+            tokens=tokens, secs=secs, prefill_ms=pre.p50 * 1e3, decode_ms=dec.p50 * 1e3,
+            transport_s=mesh.stats.seconds, staging_s=mesh.stats.staging_seconds,
+            calls=mesh.stats.calls, staged=mesh.stats.staged_bytes,
+            drops=int(sum(int(t) for t in drops)), engines=dict(record), params=n_params,
+            flash=ops.launch_counts()["flash_attention"],
+            decode_warnings=sum("decode-shaped" in str(m.message) for m in caught),
+            peak=torch.cuda.max_memory_allocated())
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def draw_mesh_serving_params(torch, cfg, dev, coord, n_model, seed=MOE_SEED):
+    """``cfg``'s params in their serving dtypes for model rank ``coord`` of
+    ``n_model``: every leaf but the experts from one seeded generator (the
+    same on every rank), the MoE gate/up/down leaves only the rank's block of
+    experts, each expert from its own seed (`expert_seed`)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_param, is_spec
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(sp, path):
+        sp = dataclasses.replace(sp, dtype=T.serving_dtype(path, cfg.cdtype))
+        if path[-2:-1] == ("moe",) and path[-1] in ("gate", "up", "down"):
+            L, E = sp.shape[:2]
+            epr = E // n_model
+            out = torch.empty((L, epr) + sp.shape[2:], dtype=sp.dtype, device=dev)
+            for layer in range(L):
+                for j in range(epr):
+                    out[layer, j] = draw_expert(torch, sp, dev, seed, layer, coord * epr + j,
+                                                path[-1])
+            return out
+        if len(sp.shape) < 3:
+            return init_param(gen, sp, dev)
+        one = dataclasses.replace(sp, shape=sp.shape[1:], axes=sp.axes[1:])
+        out = torch.empty(sp.shape, dtype=sp.dtype, device=dev)
+        for layer in out:
+            layer.copy_(init_param(gen, one, dev))
+        return out
+
+    def walk(tree, path):
+        if is_spec(tree):
+            return draw(tree, path)
+        return {k: walk(v, path + (k,)) for k, v in tree.items()}
+
+    return walk(T.abstract_params(cfg), ())
+
+
+def _moe_mesh8(torch, dev, rank):
+    """Phase 14 (c) in one of 8 ranks on a (2, 4) mesh: the qwen3-moe SMOKE
+    layer, float32, the engines against dense_ref."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.models import moe as M
+
+    mesh = make_host_mesh(model=4)
+    cfg = get_config("qwen3-moe-235b-a22b", smoke=True)
+    E, d, k, f = cfg.n_experts, cfg.d_model, cfg.top_k, cfg.d_ff_expert
+    w = moe_layer_weights(torch, cfg, dev, range(E))
+    x = torch.randn((4, 16, d), generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    out = {"digest": {}, "errs": {}, "drops": {}, "layer": f"d {d}, {E} experts top-{k}, f {f}"}
+    with torch.no_grad():
+        ref, _ = M.dense_ref(w, x, M.MoEConfig(d, E, k, f, impl="dense"))
+        with set_mesh(mesh):
+            wl = M.shard_experts({"moe": w})["moe"]
+            for impl, topo in [("gather", "fattree")] + [("noc", t) for t in MOE_TOPOLOGIES]:
+                tag = impl if impl == "gather" else f"noc-{topo}"
+                o, _, st = M.moe_apply(wl, x, M.MoEConfig(d, E, k, f, capacity_factor=8.0,
+                                                          impl=impl, noc_topology=topo))
+                out["digest"][tag] = _digest(o)
+                out["errs"][tag] = float((o - ref).abs().max())
+                out["drops"][tag] = int(st.drops)
+    return out
 
 
 def _spmd_ldpc16(torch, dev, rank):

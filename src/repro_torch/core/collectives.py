@@ -1,6 +1,7 @@
 """Collectives of device-mesh execution over ``torch.distributed``: the port's
-counterparts of ``lax.ppermute``, ``lax.all_to_all`` and the assembled output
-of a ``shard_map``.
+counterparts of ``lax.ppermute``, ``lax.all_to_all``, ``lax.psum``,
+``lax.pmean``, ``lax.pmax``, ``lax.all_gather`` and the assembled output of a
+``shard_map``, and the ambient mesh a model call reads.
 
 The execution model
 -------------------
@@ -14,6 +15,17 @@ are NoC nodes — the first ``n`` ranks of the default group, node ``i`` = rank
 into one: the group, the ranks along it and this rank's coordinate.  It is
 the counterpart of an axis name inside ``shard_map``, built once per mesh.
 
+A mesh made with ``axis_groups=True`` (the LM's ``("data", "model")`` meshes,
+`launch.mesh.make_host_mesh`) also holds a process group for each row of
+each set of its axes, made collectively when the mesh is made: every rank of
+the default group calls ``dist.new_group`` for every row, in the same order.
+The reductions and the all-gather run over such a row; without one, only an
+axis that holds every node of the mesh (the mesh's own group) can.
+
+The ambient mesh (the counterpart of ``jax.sharding.get_abstract_mesh()``)
+is a ``contextvars`` variable: :func:`use_mesh` enters a mesh
+(`launch.mesh.set_mesh` wraps it) and :func:`current_mesh` reads it.
+
 Transport semantics
 -------------------
 * :func:`ppermute` (``lax.ppermute``): one ``dist.batch_isend_irecv`` of the
@@ -23,7 +35,12 @@ Transport semantics
   destination of no pair receives zeros, as under ``ppermute``; a self pair
   is a local copy.
 * :func:`all_to_all` (``lax.all_to_all`` with split and concat axis 0):
-  ``dist.all_to_all_single`` over an axis that spans the mesh.
+  ``dist.all_to_all_single`` over the axis's group.
+* :func:`all_gather`, :func:`psum`, :func:`pmean`, :func:`pmax`: one
+  ``dist.all_gather`` over the axis's group, then, for the reductions, a sum
+  (or max) in axis order on the tensor's device, so every rank of the row
+  gets the same bits whatever the backend's reduction order.  An axis of
+  one rank moves nothing.
 * :meth:`NoCMesh.gather_nodes` (a ``shard_map`` output assembled):
   ``dist.all_gather`` over the default group, so every rank, a node of the
   mesh or not, returns the same rows.
@@ -36,11 +53,13 @@ Transport semantics
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import itertools
 import math
 import time
-from typing import Sequence, Union
+from typing import Any, Iterator, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -69,26 +88,25 @@ def world_size() -> int:
     return dist.get_world_size()
 
 
+_NO_GROUP = object()     # an axis row with no process group of its own
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class MeshAxis:
     """One rank's view of a mesh axis (``names`` linearized row-major when
     there are several): the ranks along it through this rank, in axis order,
-    and this rank's coordinate among them."""
+    this rank's coordinate among them, and the process group of exactly
+    those ranks (``None``: the default group; ``_NO_GROUP``: none was made)."""
 
     mesh: "NoCMesh"
     names: tuple[str, ...]
     ranks: tuple[int, ...]
     coord: int
+    group: Any = _NO_GROUP
 
     @property
     def size(self) -> int:
         return len(self.ranks)
-
-    @property
-    def spans_mesh(self) -> bool:
-        """The axis holds every node of the mesh in node order, so a group
-        collective over the mesh's group runs along it."""
-        return self.ranks == self.mesh.ranks
 
 
 class NoCMesh:
@@ -110,6 +128,37 @@ class NoCMesh:
         self.backend = str(dist.get_backend())
         self.stats = TransportStats()
         self._axes: dict[tuple[str, ...], MeshAxis] = {}
+        # sorted ranks of an axis row -> the row's process group
+        self._row_groups: dict[tuple[int, ...], Any] = {}
+
+    def rows(self, names: Sequence[str]) -> list[tuple[int, ...]]:
+        """Every row of the axes ``names``: the ranks that share their
+        coordinates on the other axes, in mesh order, rows in mesh order."""
+        dims = [self.axis_names.index(a) for a in names]
+        rest = [d for d in range(len(self.shape)) if d not in dims]
+        rows = []
+        for fixed in itertools.product(*(range(self.shape[d]) for d in rest)):
+            row = []
+            for node in range(self.size):
+                c = self._coords(node)
+                if all(c[d] == f for d, f in zip(rest, fixed)):
+                    row.append(self.ranks[node])
+            rows.append(tuple(row))
+        return rows
+
+    def make_axis_groups(self) -> None:
+        """A process group for each row of each non-empty set of the mesh's
+        axes (rows of one rank need none, a row of every node is the mesh's
+        own group, rows of the same ranks share one).  Collective: every rank
+        of the default group calls it at the same point, and makes the
+        groups in the same order."""
+        names = self.axis_names
+        for k in range(1, len(names) + 1):
+            for subset in itertools.combinations(names, k):
+                for row in self.rows(subset):
+                    key = tuple(sorted(row))
+                    if len(row) > 1 and set(row) != set(self.ranks) and key not in self._row_groups:
+                        self._row_groups[key] = dist.new_group(list(row))
 
     @property
     def size(self) -> int:
@@ -143,7 +192,12 @@ class NoCMesh:
             if node == self.node:
                 coord = len(ranks)
             ranks.append(self.ranks[node])
-        ax = self._axes[names] = MeshAxis(self, names, tuple(ranks), coord)
+        ranks = tuple(ranks)
+        if set(ranks) == set(self.ranks):
+            group = self.group
+        else:
+            group = self._row_groups.get(tuple(sorted(ranks)), _NO_GROUP)
+        ax = self._axes[names] = MeshAxis(self, names, ranks, coord, group)
         return ax
 
     def _coords(self, node: int) -> list[int]:
@@ -195,18 +249,23 @@ class NoCMesh:
         self.stats.seconds += time.perf_counter() - t0
 
 
-def make_mesh(axes: Sequence[tuple[str, int]], ranks: Sequence[int]) -> NoCMesh:
+def make_mesh(axes: Sequence[tuple[str, int]], ranks: Sequence[int],
+              axis_groups: bool = False) -> NoCMesh:
     """A :class:`NoCMesh` of ``axes`` ((name, size) pairs) over the first
     ``prod(sizes)`` of ``ranks``, with the process group of exactly those
-    ranks.  Every rank of the default group calls it at the same point (a
-    new group is collective); under NCCL the mesh's ranks meet at a barrier,
-    so each communicator is created with all of them present."""
+    ranks, and with ``axis_groups`` a group for each row of each set of its
+    axes (:meth:`NoCMesh.make_axis_groups`).  Every rank of the default group
+    calls it at the same point (a new group is collective); under NCCL the
+    mesh's ranks meet at a barrier, so each communicator is created with all
+    of them present."""
     shape = tuple(s for _, s in axes)
     ranks = tuple(ranks)[:math.prod(shape)]
     group = None
     if ranks != tuple(range(dist.get_world_size())):
         group = dist.new_group(list(ranks))
     mesh = NoCMesh(tuple(a for a, _ in axes), shape, ranks, group)
+    if axis_groups:
+        mesh.make_axis_groups()
     if not mesh.stages_cuda and mesh.node >= 0:
         dist.barrier(group=group, device_ids=[torch.cuda.current_device()])
     return mesh
@@ -246,19 +305,95 @@ def ppermute(x: torch.Tensor, axis: MeshAxis, perm: Sequence[tuple[int, int]]) -
     return out.view(x.dtype).reshape(x.shape)
 
 
+def _group_order(axis: MeshAxis) -> tuple[Any, list[int]]:
+    """The axis's process group, and for each of its group ranks the axis
+    coordinate of that rank.  Raises for an axis that has no group."""
+    if axis.group is _NO_GROUP:
+        raise ValueError(f"a collective over {axis.names} needs an axis that holds every "
+                         f"node of the mesh, or a mesh made with axis_groups=True")
+    group_ranks = dist.get_process_group_ranks(
+        axis.group if axis.group is not None else dist.group.WORLD)
+    return axis.group, [axis.ranks.index(r) for r in group_ranks]
+
+
 def all_to_all(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """``lax.all_to_all(x, axis, split_axis=0, concat_axis=0)``: ``x[d]`` goes
     to node ``d`` of the axis; returns ``out[s]``, what node ``s`` sent here."""
-    if not axis.spans_mesh:
-        raise ValueError(f"all_to_all over {axis.names} needs an axis that holds every "
-                         f"node of the mesh in node order")
     if x.shape[0] != axis.size:
         raise ValueError(f"all_to_all over {axis.size} nodes got {x.shape[0]} rows")
+    if axis.size == 1:
+        return x.clone()
+    group, order = _group_order(axis)
+    mesh = axis.mesh
+    t0 = time.perf_counter()
+    ident = order == list(range(axis.size))
+    src = x if ident else x[order]                 # rows in group-rank order
+    wire = mesh._to_wire(_bytes(src))
+    recv = torch.empty_like(wire)
+    dist.all_to_all_single(recv, wire, group=group)
+    out = mesh._from_wire(recv, x.device).view(x.dtype).reshape(x.shape)
+    if not ident:
+        out = out[torch.as_tensor(order, device=out.device).argsort()]
+    mesh._count(t0)
+    return out
+
+
+def all_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """``lax.all_gather(x, axis)``: every node's ``x`` stacked in axis order,
+    ``(axis.size, *x.shape)``, on every rank of the row."""
+    if axis.size == 1:
+        return x.unsqueeze(0)
+    group, order = _group_order(axis)
     mesh = axis.mesh
     t0 = time.perf_counter()
     wire = mesh._to_wire(_bytes(x))
-    recv = torch.empty_like(wire)
-    dist.all_to_all_single(recv, wire, group=mesh.group)
-    out = mesh._from_wire(recv, x.device)
+    bufs = [torch.empty_like(wire) for _ in range(axis.size)]
+    dist.all_gather(bufs, wire, group=group)
+    by_coord = [None] * axis.size
+    for buf, c in zip(bufs, order):
+        by_coord[c] = buf
+    out = mesh._from_wire(torch.stack(by_coord), x.device)
     mesh._count(t0)
-    return out.view(x.dtype).reshape(x.shape)
+    return out.view(x.dtype).reshape((axis.size,) + tuple(x.shape))
+
+
+def psum(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """``lax.psum(x, axis)``: the row's tensors added in axis order."""
+    if axis.size == 1:
+        return x
+    parts = all_gather(x, axis)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def pmean(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """``lax.pmean(x, axis)``: :func:`psum` over the axis's size."""
+    return x if axis.size == 1 else psum(x, axis) / axis.size
+
+
+def pmax(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """``lax.pmax(x, axis)``: the row's elementwise maximum."""
+    return x if axis.size == 1 else all_gather(x, axis).amax(0)
+
+
+# -- the ambient mesh -------------------------------------------------------------
+
+_CURRENT: contextvars.ContextVar[Optional[NoCMesh]] = contextvars.ContextVar(
+    "repro_torch_current_mesh", default=None)
+
+
+def current_mesh() -> Optional[NoCMesh]:
+    """The mesh entered by the innermost :func:`use_mesh`, or None."""
+    return _CURRENT.get()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[NoCMesh]) -> Iterator[Optional[NoCMesh]]:
+    """Enter ``mesh`` as the ambient mesh for the block (None: no mesh)."""
+    token = _CURRENT.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _CURRENT.reset(token)

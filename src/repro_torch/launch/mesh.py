@@ -1,22 +1,64 @@
-"""Joining the process group that device-mesh execution runs over (the
-counterpart of ``repro.launch.mesh`` for the NoC's ``mode="spmd"``).
+"""Joining the process group that device-mesh execution runs over, and the
+LM's ``("data", "model")`` meshes (the counterpart of ``repro.launch.mesh``).
 
 The reference builds a ``jax.sharding.Mesh`` from the devices one controller
 sees.  The port's ranks are processes: ``torchrun --nproc-per-node N`` starts
 them with ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
 ``MASTER_PORT`` in their environment, and each joins the default group here
 with a backend named by the caller; `core.partition.mesh_for_topology` then
-lays the NoC's nodes over its first ranks.
+lays the NoC's nodes over its first ranks, and :func:`make_host_mesh` /
+:func:`make_production_mesh` lay the LM's mesh over them, entered with
+:func:`set_mesh`.  Making a mesh is collective: every rank calls it at the
+same point.
 """
 from __future__ import annotations
 
 import datetime
+import math
 import os
 
 import torch
 import torch.distributed as dist
 
 from .._device import resolve_device
+from ..core.collectives import NoCMesh, make_mesh, use_mesh, world_size
+
+
+def set_mesh(mesh: NoCMesh):
+    """Enter ``mesh`` as the ambient mesh: ``with set_mesh(mesh): ...``
+    (what `models.moe.moe_apply` reads)."""
+    return use_mesh(mesh)
+
+
+def _ranks() -> int:
+    n = world_size()
+    if n == 0:
+        raise RuntimeError("no default process group: call join_process_group first")
+    return n
+
+
+def _lm_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> NoCMesh:
+    n = _ranks()
+    if n < math.prod(shape):
+        raise ValueError(f"number of ranks {n} must be >= the product of mesh_shape {shape}")
+    return make_mesh(tuple(zip(axes, shape)), range(n), axis_groups=True)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> NoCMesh:
+    """16×16 = 256 ranks a pod; 2 pods = 512, over the default group's first
+    ranks.  Raises when the group holds fewer."""
+    if multi_pod:
+        return _lm_mesh((2, 16, 16), ("pod", "data", "model"))
+    return _lm_mesh((16, 16), ("data", "model"))
+
+
+def make_host_mesh(model: int = 1) -> NoCMesh:
+    """``("data", "model")`` of shape ``(W // model, model)`` over the default
+    group's W ranks.  Raises when ``model`` does not divide W."""
+    n = _ranks()
+    if model < 1 or n % model:
+        raise ValueError(f"model={model} does not divide the {n} ranks of the default group")
+    return _lm_mesh((n // model, model), ("data", "model"))
 
 
 def join_process_group(backend: str, device="cuda", timeout_s: float = 120.0) -> torch.device:

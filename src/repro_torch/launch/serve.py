@@ -6,7 +6,8 @@
 
 Requests are grouped into fixed-size batches; each batch is prefilled once,
 then decoded token by token against a shared cache (greedy sampling).  Eager
-PyTorch.  ``--model-parallel`` waits for the mesh slice, and ``--arch`` takes
+PyTorch.  ``serve_batch(mesh=)`` serves under a mesh; the CLI's
+``--model-parallel`` waits for ROADMAP item 8(e) part 2.  ``--arch`` takes
 the archs the port registers (default llama3.2-1b, as in the reference).
 
 ``--metrics PATH`` turns on the telemetry metrics registry: prefill and
@@ -21,19 +22,21 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 from .._device import resolve_device, synchronize
 from ..configs import ALL_ARCHS, get_config
+from ..core.collectives import use_mesh
 from ..models import transformer as T
 from ..models.layers import init_params
 from ..telemetry.metrics import disable_metrics, enable_metrics
 
 
 def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
-                device="cuda", reg=None) -> np.ndarray:
+                device="cuda", reg=None, mesh=None) -> np.ndarray:
     """One batch: prefill once, decode token by token; (B, S) prompts →
     (B, gen) greedy tokens.  ``frames`` (B, enc_seq, d_frontend) feed the
     encoder of an encdec model, zeros by default as in the reference; a vlm
@@ -47,7 +50,12 @@ def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
     clock is observed into ``serve.prefill.seconds`` once and each decode
     step's into ``serve.decode.seconds``.  Each sample is bracketed by device
     synchronizations, so it bounds the real latency of that step; without
-    ``reg`` nothing is synchronized."""
+    ``reg`` nothing is synchronized.
+
+    ``mesh``: a `launch.mesh` mesh entered for the batch, as the reference's
+    ``serve_batch`` enters its mesh (every rank of it calls ``serve_batch``
+    on the same prompts; a MoE model's expert leaves hold the rank's block,
+    `models.moe.shard_experts`); None keeps the caller's ambient mesh."""
     dev = resolve_device(device)
     params = T.cast_params(params, cfg.cdtype)
     B, S = prompts.shape
@@ -63,7 +71,7 @@ def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
                            else torch.as_tensor(frames, device=dev).to(cfg.cdtype))
         if tuple(batch["frames"].shape) != shape:
             raise ValueError(f"frames must be {shape}, got {tuple(batch['frames'].shape)}")
-    with torch.inference_mode():
+    with torch.inference_mode(), (use_mesh(mesh) if mesh is not None else nullcontext()):
         if reg is not None:
             synchronize(dev)
         ts = time.perf_counter()

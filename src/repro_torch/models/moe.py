@@ -7,14 +7,26 @@ dropped, as a bounded FIFO back-pressures.
 Engines, by ``MoEConfig.impl``:
 
 * ``"dense"`` — `dense_ref`, every token through every expert, gate-combined.
-* ``"gather"`` — the reference's ``_gather_local`` with one rank: one source
-  block, every expert local, the capacity-bounded dispatch and no collective.
-  That is what the reference computes under a one-device ``("data",
-  "model")`` mesh, the mesh its serve and train CLIs enter.  The port has
-  no mesh, so it does not take the reference's no-mesh fallback to
-  `dense_ref`: on one card the gather engine always runs.
-* ``"noc"`` — the packet route over a device mesh; it raises until
-  device-mesh execution lands.
+* ``"gather"`` — expert parallelism over model-replicated activations: each
+  model rank takes the packets addressed to its ``E / n_ranks`` experts
+  (capacity-bounded per (source block, expert)), computes, scatter-adds,
+  and a psum over ``model`` combines.
+* ``"noc"`` — the paper's packet route: the sequence is sharded over
+  ``model``; per-destination-rank token cubes go out and back through the
+  topology's compiled route program (`core.routing.run_route_program`
+  linearized over the ``model`` axis: fat-tree one all_to_all, ring/mesh/
+  torus ppermute rounds), and the stats carry ``2 ×
+  route_program_stats`` of the cube.
+
+The mesh is the ambient one (`core.collectives.current_mesh`, entered with
+`launch.mesh.set_mesh`); the port is SPMD, so every rank runs the layer on
+the same activations and `moe_apply` cuts the rank's block on the way in and
+all-gathers on the way out (see its docstring).  With no mesh both engines
+run on one rank with every expert local and no transfer: what the reference
+computes under a one-device ``("data", "model")`` mesh.  The port does not
+take the reference's no-mesh fallback to `dense_ref` (a decided divergence);
+it keeps the reference's other fallbacks (E not divisible by the ranks:
+`dense_ref`; ``noc`` on a decode-shaped input: ``gather``).
 
 The drop set is the reference's: each expert keeps the first ``cap`` packets
 in arrival order (packet ``t·k + j`` is token t's j-th choice).  The port
@@ -25,12 +37,17 @@ with weight 0 and contributes exact zeros.
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..core import collectives as coll
 from ..core.noc import NoCConfig
+from ..core.routing import compile_routes, route_program_stats, run_route_program
+from ..core.topology import make_topology
 from .layers import ParamSpec, _act
 
 
@@ -54,9 +71,10 @@ class MoEDispatchStats:
     """Per-invocation dispatch accounting, returned by :func:`moe_apply`.
 
     ``drops`` / ``peak_occupancy`` are data-dependent (0-d tensors on the
-    activations' device); the rest follows from shapes.  The one-rank gather
-    engine moves nothing over links, so ``flits``, ``rounds`` and
-    ``link_bytes`` are 0."""
+    activations' device); the rest follows from shapes and, for ``noc``, the
+    compiled route program: ``flits``, ``rounds`` and ``link_bytes`` are
+    ``2 ×`` its counters for the dispatched cube (out and back), 0 for the
+    gather engine.  Counters are per model-axis invocation."""
 
     engine: str                     # engine that actually ran
     topology: Optional[str]         # noc engine: the routed topology
@@ -123,30 +141,41 @@ def _dispatch_counts(flat_dst, blk_of_pkt, n_experts: int, n_blocks: int):
         n_experts, n_blocks)
 
 
-def _dispatch_slots(flat_dst, blk_of_pkt, n_experts: int, n_blocks: int, cap: int):
+def _dispatch_slots(flat_dst, blk_of_pkt, experts, n_blocks: int, cap: int):
     """First-``cap`` (arrival order) packet slots per (expert, source block).
 
     flat_dst: (P,) destination expert of each packet; blk_of_pkt: (P,) its
-    source block.  Returns (slots, valid), each (n_experts, n_blocks, cap): a
-    packet's rank among the earlier packets of its (expert, block) by a stable
-    sort, and slot ``rank`` of that FIFO when ``rank < cap``.  Slots past the
-    demand hold packet 0 with ``valid`` False.  No host synchronization."""
+    source block; experts: the expert ids to dispatch, a (E',) tensor, or a
+    count E for ``0..E-1``.  Returns (slots, valid), each (E', n_blocks,
+    cap): a packet's rank among the earlier packets of its (expert, block)
+    by a stable sort, and slot ``rank`` of that FIFO when ``rank < cap``.
+    Slots past the demand hold packet 0 with ``valid`` False.  No host
+    synchronization."""
     npkt = flat_dst.shape[0]
     dev = flat_dst.device
-    key = flat_dst * n_blocks + blk_of_pkt
+    if isinstance(experts, int):
+        ne, pos = experts, flat_dst
+    else:
+        # each packet's position in ``experts``; packets for other experts
+        # go to one spare key past the last FIFO
+        ne = experts.shape[0]
+        match = flat_dst[:, None] == experts[None, :]
+        pos = torch.where(match.any(1), match.long().argmax(1), ne)
+    key = pos * n_blocks + blk_of_pkt
     order = torch.sort(key, stable=True).indices
-    counts = _dispatch_counts(flat_dst, blk_of_pkt, n_experts, n_blocks).view(-1).long()
+    counts = _dispatch_counts(pos, blk_of_pkt, ne + 1, n_blocks).view(-1).long()
     start = torch.cumsum(counts, 0) - counts
     pkt = torch.arange(npkt, device=dev)
     rank = torch.empty_like(pkt)
     rank[order] = pkt - start[key[order]]
-    n_slots = n_experts * n_blocks * cap
-    # packets past capacity land in one spare slot, cut off below
-    dest = torch.where(rank < cap, key * cap + rank, n_slots)
+    n_slots = ne * n_blocks * cap
+    # packets past capacity, or for other experts, land in one spare slot,
+    # cut off below
+    dest = torch.where((rank < cap) & (pos < ne), key * cap + rank, n_slots)
     slots = torch.zeros(n_slots + 1, dtype=torch.long, device=dev).scatter_(0, dest, pkt)
     valid = torch.zeros(n_slots + 1, dtype=torch.bool, device=dev).scatter_(
         0, dest, torch.ones_like(dest, dtype=torch.bool))
-    shape = (n_experts, n_blocks, cap)
+    shape = (ne, n_blocks, cap)
     return slots[:n_slots].view(shape), valid[:n_slots].view(shape)
 
 
@@ -196,54 +225,251 @@ def _expert_ffn(xe, wg, wu, wd, act):
     return torch.bmm(_act(torch.bmm(xe, wg), act) * torch.bmm(xe, wu), wd)
 
 
-def _gather_local(x_flat, wr, wg, wu, wd, c: MoEConfig):
-    """The gather engine on one rank: every expert local, one source block.
-    Returns (out (T, d), aux, drops, peak)."""
+def _combine(contrib, slots, valid, idx):
+    """out (T, d): each token's kept packets' contributions added in
+    ascending expert order, the order a serial scatter-add over the
+    expert-major slots takes, with no atomics, so the card gives the same
+    bits on every run.  contrib (E', C, d) per slot; slots, valid (E', C);
+    idx (T, k) each token's experts."""
+    T, k = idx.shape
+    d = contrib.shape[-1]
+    # one row per packet (a packet holds at most one slot); empty slots
+    # write a spare row past the end
+    dest = torch.where(valid, slots, T * k).reshape(-1)
+    per_pkt = contrib.new_zeros(T * k + 1, d)
+    per_pkt[dest] = contrib.reshape(-1, d)
+    order = idx.argsort(dim=1)[..., None].expand(T, k, d)
+    per = per_pkt[:T * k].view(T, k, d).gather(1, order)
+    out = per[:, 0]
+    for j in range(1, k):
+        out = out + per[:, j]
+    return out
+
+
+def _gather_local(x_flat, wr, wg, wu, wd, c: MoEConfig, axis, blk_of, n_blocks: int):
+    """The gather engine on this rank's tokens (T, d), replicated over
+    ``axis`` (the model axis; None: one rank): the rank's ``E / n_ranks``
+    experts take the first ``cap`` packets of each (source block, expert),
+    compute, scatter-add, and a psum over ``axis`` combines.  blk_of: (T,)
+    source block of each token.  Returns (out, aux, (me, ce), drops, peak),
+    the drops and peak of the whole layer (replicated over ``axis``)."""
     T, d = x_flat.shape
     E = c.n_experts
-    cap = dispatch_capacity(T, c)
-    w, idx, aux, _ = _router(x_flat, wr, c)
+    n_ranks = axis.size if axis is not None else 1
+    epr = E // n_ranks
+    cap = dispatch_capacity(T // n_blocks, c)
+    w, idx, aux, mece = _router(x_flat, wr, c)
     flat_dst = idx.reshape(-1)                                  # (T*k,) expert id
     flat_w = w.reshape(-1)
     tok_of = torch.arange(T, device=x_flat.device).repeat_interleave(c.top_k)
-    blk0 = torch.zeros_like(flat_dst)
-    slots, valid = _dispatch_slots(flat_dst, blk0, E, 1, cap)
-    slots, valid = slots.view(E, cap), valid.view(E, cap)
+    blk_of_pkt = blk_of.repeat_interleave(c.top_k)
+    local_e = (E if n_ranks == 1 else
+               axis.coord * epr + torch.arange(epr, device=x_flat.device))
+    slots, valid = _dispatch_slots(flat_dst, blk_of_pkt, local_e, n_blocks, cap)
+    slots, valid = slots.reshape(epr, -1), valid.reshape(epr, -1)   # (epr, n_blocks*cap)
     toks = tok_of[slots]
-    xe = x_flat[toks] * valid[..., None].to(x_flat.dtype)       # (E, cap, d)
+    xe = x_flat[toks] * valid[..., None].to(x_flat.dtype)
     ye = _expert_ffn(xe, wg, wu, wd, c.act)
     comb = (flat_w[slots] * valid.to(flat_w.dtype))[..., None]
-    out = torch.zeros_like(x_flat).index_add(0, toks.reshape(-1), (ye * comb).reshape(-1, d))
-    drops, peak = _drops_and_peak(_dispatch_counts(flat_dst, blk0, E, 1), cap, 1)
-    return out, aux, drops, peak
+    out = _combine(ye * comb, slots, valid, idx)
+    if n_ranks > 1:
+        out = coll.psum(out, axis)                              # combine expert ranks
+    counts = _dispatch_counts(flat_dst, blk_of_pkt, E, n_blocks)
+    drops, peak = _drops_and_peak(counts, cap, n_ranks)
+    return out, aux, mece, drops, peak
 
 
-def _static_stats(engine: str, c: MoEConfig, *, capacity=0, tokens_per_src=0,
-                  drops=0, peak=0) -> MoEDispatchStats:
+def _noc_local(x_flat, wr, wg, wu, wd, c: MoEConfig, axis, prog, cap: int):
+    """The noc engine on this rank's sequence shard (T_loc, d): pack one
+    token cube per destination rank (static (expert, slot) framing), move it
+    out and back with the compiled route program linearized over ``axis``
+    (the model axis; None: one rank, the cube stays local), compute,
+    combine.  Returns (out, aux, (me, ce), drops, peak), this shard's share
+    of the drops."""
+    T, d = x_flat.shape
+    E = c.n_experts
+    n_ranks = axis.size if axis is not None else 1
+    epr = E // n_ranks
+    w, idx, aux, mece = _router(x_flat, wr, c)
+    flat_dst = idx.reshape(-1)
+    flat_w = w.reshape(-1)
+    tok_of = torch.arange(T, device=x_flat.device).repeat_interleave(c.top_k)
+    blk0 = torch.zeros_like(flat_dst)                           # one local source block
+    slots, valid = _dispatch_slots(flat_dst, blk0, E, 1, cap)
+    slots, valid = slots[:, 0], valid[:, 0]                     # (E, cap)
+    toks = tok_of[slots]
+    payload = x_flat[toks] * valid[..., None].to(x_flat.dtype)  # (E, cap, d)
+
+    def route(cube):
+        if n_ranks == 1:
+            return cube
+        return run_route_program(cube, prog, axis.mesh, axis_name=axis.names)
+
+    # outbound: row e = (destination rank e // epr, local expert e % epr), so
+    # the (n_ranks, epr*cap, d) cube is destination-indexed
+    rx = route(payload.reshape(n_ranks, epr * cap, d))         # (src rank, epr*cap, d)
+    xe = rx.reshape(n_ranks, epr, cap, d).movedim(1, 0).reshape(epr, n_ranks * cap, d)
+    ye = _expert_ffn(xe, wg, wu, wd, c.act)                     # (epr, R*cap, d)
+    # return trip: the same program, the cube destination-indexed by source rank
+    ycube = ye.reshape(epr, n_ranks, cap, d).movedim(1, 0).reshape(n_ranks, epr * cap, d)
+    back = route(ycube).reshape(E, cap, d)                      # slot-aligned with payload
+    contrib = back * (flat_w[slots] * valid.to(flat_w.dtype))[..., None]
+    out = _combine(contrib, slots, valid, idx)
+    drops, peak = _drops_and_peak(_dispatch_counts(flat_dst, blk0, E, 1), cap, n_ranks)
+    return out, aux, mece, drops, peak
+
+
+def _static_stats(engine: str, c: MoEConfig, *, fallback=None, topology=None, capacity=0,
+                  tokens_per_src=0, flits=0, rounds=0, link_bytes=0, drops=0,
+                  peak=0) -> MoEDispatchStats:
     cf = (effective_capacity_factor(tokens_per_src, c) if tokens_per_src
           else c.capacity_factor)
-    return MoEDispatchStats(engine=engine, topology=None, fallback=None,
-                            capacity=capacity, capacity_factor=cf, flits=0, rounds=0,
-                            link_bytes=0, drops=drops, peak_occupancy=peak)
+    return MoEDispatchStats(engine=engine, topology=topology, fallback=fallback,
+                            capacity=capacity, capacity_factor=cf, flits=flits,
+                            rounds=rounds, link_bytes=link_bytes, drops=drops,
+                            peak_occupancy=peak)
+
+
+def shard_experts(params, mesh=None):
+    """``params`` with every ``moe`` gate/up/down leaf cut to this rank's
+    block of experts on ``mesh``'s model axis (default: the ambient mesh),
+    the block ``P("model", None, None)`` gives a device; stacked leaves are
+    ``(L, E, ...)``.  Leaves are copied, so the full ones can be freed.
+    Without a model axis of more than one rank, or when it does not divide
+    E, the tree comes back as it is."""
+    mesh = coll.current_mesh() if mesh is None else mesh
+    if mesh is None or "model" not in mesh.axis_names or mesh.shape[
+            mesh.axis_names.index("model")] == 1:
+        return params
+    axis = mesh.axis("model")
+
+    def cut(tree):
+        if not isinstance(tree, dict):
+            return tree
+        out = {k: cut(v) for k, v in tree.items()}
+        moe = tree.get("moe")
+        if isinstance(moe, dict) and "gate" in moe:
+            dim = moe["gate"].dim() - 3                         # the expert axis
+            E = moe["gate"].shape[dim]
+            if E % axis.size == 0:
+                epr = E // axis.size
+                out["moe"] = dict(out["moe"], **{
+                    k: moe[k].narrow(dim, axis.coord * epr, epr).clone()
+                    for k in ("gate", "up", "down")})
+        return out
+    return cut(params)
 
 
 def moe_apply(params: dict, x: torch.Tensor, c: MoEConfig):
-    """x: (B, S, d) -> (out, aux_loss, MoEDispatchStats), engine per ``c.impl``."""
+    """x: (B, S, d) -> (out, aux_loss, MoEDispatchStats), engine per ``c.impl``.
+
+    Under an ambient mesh with a ``model`` axis (`launch.mesh.set_mesh`)
+    every rank calls it on the same x and the same non-expert weights; the
+    expert leaves hold the rank's ``E / n_model`` experts (`shard_experts`).
+    The rank takes its block of x (the batch over the data axes when they
+    divide B, and for ``noc`` the sequence over ``model``), runs the engine,
+    and all-gathers the blocks, so every rank returns the whole (B, S, d).
+    Without a mesh (or a model axis) the engines run on one rank with every
+    expert, as the reference does under a one-device mesh.
+
+    Fallbacks, each recorded in ``stats.fallback`` with a ``UserWarning``:
+    E not divisible by the model ranks runs `dense_ref` (the expert leaves
+    then hold all E); ``noc`` on a sequence the model ranks do not divide
+    (decode) runs ``gather``.  A multi-rank call with grad enabled on an
+    input or weight that requires grad raises: the transfers move bytes,
+    which would cut the graph."""
     if c.impl == "dense":
         out, aux = dense_ref(params, x, c)
         return out, aux, _static_stats("dense", c)
-    if c.impl == "noc":
-        raise NotImplementedError(
-            "moe_impl='noc' routes packets over a device mesh with the route programs of "
-            "ROADMAP item 7 (device-mesh execution) and waits for item 8(e) (the mesh half "
-            "of the LM stack); use 'gather' on one card")
-    if c.impl != "gather":
+    if c.impl not in ("gather", "noc"):
         raise ValueError(f"moe impl must be 'gather', 'dense' or 'noc', got {c.impl!r}")
+    mesh = coll.current_mesh()
+    if mesh is not None and "model" not in mesh.axis_names:
+        mesh = None
+    n_ranks = mesh.shape[mesh.axis_names.index("model")] if mesh is not None else 1
+    if c.n_experts % n_ranks:
+        reason = (f"n_experts={c.n_experts} not divisible by model ranks="
+                  f"{n_ranks}: dense_ref fallback, O(E*T*d*f) per token")
+        warnings.warn(f"moe_apply: {reason}", stacklevel=2)
+        out, aux = dense_ref(params, x, c)
+        return out, aux, _static_stats("dense", c, fallback=reason)
+
     B, S, d = x.shape
-    T = B * S
-    out, aux, drops, peak = _gather_local(
-        x.reshape(T, d), *(params[n].to(x.dtype) for n in ("router", "gate", "up", "down")),
-        c)
-    stats = _static_stats("gather", c, capacity=dispatch_capacity(T, c), tokens_per_src=T,
-                          drops=drops, peak=peak)
+    batch_axes = tuple(a for a in ("pod", "data") if mesh is not None and a in mesh.axis_names)
+    n_batch = math.prod(mesh.shape[mesh.axis_names.index(a)] for a in batch_axes)
+    if B % n_batch:
+        batch_axes, n_batch = (), 1          # tiny-batch decode: replicate over data axes
+    impl, fallback = c.impl, None
+    if impl == "noc" and (S < n_ranks or S % n_ranks):
+        fallback = (f"impl='noc' needs seq len {S} divisible by model ranks="
+                    f"{n_ranks} (decode-shaped input): using 'gather'")
+        warnings.warn(f"moe_apply: {fallback}", stacklevel=2)
+        impl = "gather"
+    if n_ranks * n_batch > 1 and torch.is_grad_enabled() and (
+            x.requires_grad or any(params[k].requires_grad for k in params)):
+        raise NotImplementedError(
+            "a gradient through the multi-rank MoE engines is ROADMAP item 8(e) part 2 "
+            "(train --model-parallel); run the forward under torch.no_grad(), or train "
+            "without a mesh")
+
+    maxis = mesh.axis("model") if n_ranks > 1 else None
+    baxis = mesh.axis(batch_axes) if n_batch > 1 else None
+    ball = mesh.axis(batch_axes + ("model",)) if mesh is not None else None
+    epr = c.n_experts // n_ranks
+    for k in ("gate", "up", "down"):
+        if params[k].shape[0] != epr:
+            raise ValueError(f"moe_apply: the {k!r} leaf holds {params[k].shape[0]} experts; on "
+                             f"{n_ranks} model ranks it holds the rank's {epr} (shard_experts)")
+    wr, wg, wu, wd = (params[k].to(x.dtype) for k in ("router", "gate", "up", "down"))
+    B_loc = B // n_batch
+    b0 = baxis.coord * B_loc if baxis is not None else 0
+    xb = x[b0:b0 + B_loc]
+
+    def aux_of(aux, mece, axis):
+        if axis is None or axis.size == 1:
+            return aux
+        me, ce = (coll.pmean(t, axis) for t in mece)
+        return c.n_experts * (me * ce).sum()
+
+    if impl == "gather":
+        T = B_loc * S
+        # source blocks == the noc engine's sequence shards when S divides,
+        # so both engines enforce the same per-(source, expert) capacity
+        n_blocks = n_ranks if S % n_ranks == 0 else 1
+        blk_of = (torch.arange(T, device=x.device) % S) // (S // n_blocks)
+        out, aux, mece, drops, peak = _gather_local(xb.reshape(T, d), wr, wg, wu, wd, c,
+                                                    maxis, blk_of, n_blocks)
+        aux = aux_of(aux, mece, baxis)
+        if baxis is not None:    # drops replicated over 'model'; sum the replicas
+            drops, peak = coll.psum(drops, baxis), coll.pmax(peak, baxis)
+            out = coll.all_gather(out.reshape(B_loc, S, d), baxis)
+        stats = _static_stats("gather", c, fallback=fallback,
+                              capacity=dispatch_capacity(T // n_blocks, c),
+                              tokens_per_src=T // n_blocks, drops=drops, peak=peak)
+        return out.reshape(B, S, d), aux, stats
+
+    # impl == "noc": the topology's route program over the model ranks
+    prog = compile_routes(make_topology(c.noc_topology, n_ranks))
+    ncfg = c.noc or NoCConfig()
+    S_loc = S // n_ranks
+    T_loc = B_loc * S_loc
+    cap = dispatch_capacity(T_loc, c)
+    msg_nbytes = epr * cap * d * x.element_size()              # one (src, dst) token cube
+    sstats = route_program_stats(prog, n_ranks * n_ranks * msg_nbytes)
+    s0 = maxis.coord * S_loc if maxis is not None else 0
+    xl = xb[:, s0:s0 + S_loc]                                   # row-major (b, s) tokens
+    out, aux, mece, drops, peak = _noc_local(xl.reshape(T_loc, d), wr, wg, wu, wd, c, maxis,
+                                             prog, cap)
+    aux = aux_of(aux, mece, ball)
+    if ball is not None and ball.size > 1:
+        drops, peak = coll.psum(drops, ball), coll.pmax(peak, ball)
+        # (n_batch * n_ranks, B_loc, S_loc, d) in (batch block, sequence block) order
+        out = coll.all_gather(out.reshape(B_loc, S_loc, d), ball)
+        out = out.reshape(n_batch, n_ranks, B_loc, S_loc, d).transpose(1, 2)
+    stats = _static_stats(
+        "noc", c, fallback=fallback, topology=c.noc_topology, capacity=cap,
+        tokens_per_src=T_loc,
+        # out + back trips of the same program; flits frame all n^2 buffers
+        flits=2 * n_ranks * n_ranks * ncfg.flits_for(msg_nbytes),
+        rounds=2 * sstats.rounds, link_bytes=2 * sstats.link_bytes, drops=drops, peak=peak)
     return out.reshape(B, S, d), aux, stats

@@ -256,17 +256,38 @@ def test_init_params_follow_reference_rules(params):
             assert abs(a.std() / b.std() - 1) < 0.1
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(pattern=(("attn", "moe"),), n_experts=4, top_k=2, d_ff_expert=8, moe_impl="noc"),
-     "mesh half of the LM stack"),
+@pytest.mark.parametrize("change", [
+    dict(pattern=(("attn", "moe"),), n_experts=4, top_k=2, d_ff_expert=8, moe_impl="noc"),
+    dict(pattern=(("attn", "moe"),), n_experts=4, top_k=2, d_ff_expert=8, moe_impl="noc",
+         moe_topology="ring", moe_flit_buffer_depth=1),
 ])
-def test_unported_paths_raise(change, match):
+def test_unported_paths_raise(change):
+    """The path that raised until the mesh half of the LM stack came, a MoE
+    ffn on the noc engine, now runs with no mesh: the one-rank noc engine,
+    whose forward logits equal the reference's under a one-device Auto-axis
+    ``("data", "model")`` mesh within 2e-3 × max(|logits|, 1), its drops and
+    peak exactly."""
+    from jax.sharding import Mesh
+
+    from repro.launch.mesh import set_mesh
+
     cfg = torch_config(ARCH, smoke=True).replace(**change)
-    with pytest.raises(NotImplementedError, match=match):
-        p = tlayers.init_params(TT.abstract_params(cfg), torch.Generator().manual_seed(0))
-        toks = torch.zeros((1, 3), dtype=torch.long)
-        TT.forward(p, {"tokens": toks, "frames": torch.zeros((1, cfg.enc_seq, cfg.d_frontend))},
-                   cfg)
+    jcfg = jax_config(ARCH, smoke=True).replace(**change)
+    p = tlayers.init_params(TT.abstract_params(cfg), torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (1, 4)).astype(np.int32)
+    frames = rng.normal(size=(1, cfg.enc_seq, cfg.d_frontend)).astype(np.float32)
+    with torch.no_grad():
+        logits, _, _, st = TT.forward(p, {"tokens": torch.as_tensor(toks).long(),
+                                          "frames": torch.as_tensor(frames)}, cfg)
+    jp = jax.tree.map(jnp.asarray, convert.model_params_to_numpy(p))
+    with set_mesh(Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))):
+        jlogits, _, _, jst = jax.jit(lambda p, b: JT.forward(p, b, jcfg))(
+            jp, {"tokens": jnp.asarray(toks), "frames": jnp.asarray(frames)})
+    jlogits = np.asarray(jlogits)
+    assert np.abs(logits.numpy() - jlogits).max() <= 2e-3 * max(1.0, np.abs(jlogits).max())
+    for k in ("moe_drops", "moe_peak_occupancy"):
+        assert int(st[k]) == int(jst[k])
 
 
 def test_unknown_mixer_raises():

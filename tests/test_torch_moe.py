@@ -14,7 +14,9 @@ package, on the CPU.
   equal, the dropped packets and the tokens left with no expert equal, the
   outputs within 1e-5 × max(|out|, 1), the gradients of x and of every
   weight within 1e-5 of their scale; ``impl="dense"`` against ``dense_ref``
-  within 1e-5; ``impl="noc"`` raises.
+  within 1e-5; ``impl="noc"`` with no mesh (the one-rank noc engine) against
+  the reference's noc under the same mesh, on the four topologies.  The
+  engines on meshes of many ranks are in tests/test_torch_moe_mesh.py.
 * The models: forward, prefill + 4 decode logits and serve tokens under
   naive/blocked/flash at SMOKE (``moe_impl="dense"``), and the gather engine
   through the whole stack under the Auto-axis mesh, within 2e-3 ×
@@ -135,6 +137,26 @@ def test_dispatch_slots_match_reference(n_blocks, cap):
         assert (int(td), int(tp)) == (int(jd), int(jp))
 
 
+@pytest.mark.parametrize("n_ranks", [2, 4])
+@pytest.mark.parametrize("cap", [1, 3, 8])
+def test_dispatch_slots_of_a_ranks_experts_match_reference(n_ranks, cap):
+    """The multi-rank gather engine's dispatch: rank r's experts ``r·epr +
+    arange(epr)`` over two source blocks, the reference's slots exactly."""
+    rng = np.random.default_rng(10 * n_ranks + cap)
+    E, P = 8, 64
+    dst = rng.integers(0, E, P).astype(np.int32)
+    blk = rng.integers(0, 2, P).astype(np.int32)
+    epr = E // n_ranks
+    for r in range(n_ranks):
+        ids = r * epr + np.arange(epr)
+        js, jv = JM._dispatch_slots(jnp.asarray(dst), jnp.asarray(blk), jnp.asarray(ids), 2, cap)
+        ts, tv = TM._dispatch_slots(torch.as_tensor(dst).long(), torch.as_tensor(blk).long(),
+                                    torch.as_tensor(ids), 2, cap)
+        js, jv = np.asarray(js), np.asarray(jv)
+        assert tv.shape == (epr, 2, cap) and np.array_equal(tv.numpy(), jv)
+        assert np.array_equal(ts.numpy()[jv], js[jv])
+
+
 # -- the layer ------------------------------------------------------------------------
 
 T_B, T_S = 2, 16
@@ -164,9 +186,9 @@ def _close(a, b, tol=1e-5):
     assert err <= tol * max(1.0, float(np.abs(b).max())), err
 
 
-def _jax_gather(layer, jc):
-    """The reference's gather engine under the Auto-axis mesh: out, aux,
-    stats, and the gradients of <out, r> + aux."""
+def _jax_engine(layer, jc):
+    """The reference's engine (``jc.impl``) under the Auto-axis mesh: out,
+    aux, stats, and the gradients of <out, r> + aux."""
     w = {k: jnp.asarray(v) for k, v in _weights(layer).items()}
     x, r = jnp.asarray(layer["x"]), jnp.asarray(layer["r"])
 
@@ -194,7 +216,7 @@ def _torch_apply(layer, tc):
 @pytest.mark.parametrize("depth", [1, 2, 0])
 def test_gather_matches_reference_engine(layer, depth):
     jc, tc = _mcfgs(depth=depth, impl="gather")
-    jout, jaux, jst, jdrops, jpeak, (jgw, jgx) = _jax_gather(layer, jc)
+    jout, jaux, jst, jdrops, jpeak, (jgw, jgx) = _jax_engine(layer, jc)
     out, aux, st, (gw, gx) = _torch_apply(layer, tc)
     T = T_B * T_S
     cap = TM.dispatch_capacity(T, tc)
@@ -260,10 +282,23 @@ def test_router_keeps_the_activation_dtype(layer):
     assert x.grad.dtype == torch.bfloat16
 
 
-def test_noc_engine_waits_for_the_mesh(layer):
-    _, tc = _mcfgs(impl="noc")
-    with pytest.raises(NotImplementedError, match=r"item 7 .* item 8\(e\)"):
-        _torch_apply(layer, tc)
+@pytest.mark.parametrize("topo", ["fattree", "ring", "mesh2d", "torus2d"])
+def test_noc_engine_waits_for_the_mesh(layer, topo):
+    """With no mesh, ``impl="noc"`` runs the one-rank noc engine (the cube
+    stays local): the reference's noc under the one-device Auto-axis mesh,
+    stats, drops, peak, outputs and gradients (depth 2, so packets drop).
+    An unknown impl raises."""
+    jc, tc = _mcfgs(depth=2, impl="noc", noc_topology=topo)
+    jout, jaux, jst, jdrops, jpeak, (jgw, jgx) = _jax_engine(layer, jc)
+    out, aux, st, (gw, gx) = _torch_apply(layer, tc)
+    assert st.engine == jst.engine == "noc" and st.topology == topo
+    assert dict(st.as_dict(), drops=None, peak_occupancy=None) == jst.as_dict()
+    assert (int(st.drops), int(st.peak_occupancy)) == (jdrops, jpeak) and jdrops > 0
+    _close(out, jout)
+    assert abs(float(aux) - float(jaux)) <= 1e-6 * max(1.0, abs(float(jaux)))
+    _close(gx, jgx)
+    for k in gw:
+        _close(gw[k], jgw[k])
     with pytest.raises(ValueError):
         _torch_apply(layer, _mcfgs(impl="ring")[1])
 

@@ -371,5 +371,12 @@ def fail(rank, world, device, how):
     return core.ring_all_to_all_unidir(torch.zeros(world, 2), mesh.axis("noc")).numpy()
 
 
+def moe_mesh(rank, world, device, in_path):
+    """The MoE layer's mesh cases (`tests/torch_moe_mesh_cases.py`)."""
+    from tests.torch_moe_mesh_cases import port_results
+
+    return port_results(rank, world, device, in_path)
+
+
 # the scenarios a world starts with (main runs the first four in turn)
-SCENARIOS = {f.__name__: f for f in (main, iterate_spmd, noc_diamond, fail)}
+SCENARIOS = {f.__name__: f for f in (main, iterate_spmd, noc_diamond, fail, moe_mesh)}
