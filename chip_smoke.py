@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, then runs fourteen phases and raises on any failure:
+with ``nvcc``, then runs fifteen phases and raises on any failure:
 
 1. environment — the card, its power limit, torch/CUDA versions, build time,
                  ptxas's registers, spills and shared memory of each kernel;
@@ -123,7 +123,19 @@ with ``nvcc``, then runs fourteen phases and raises on any failure:
    traffic through ``serve_batch(mesh=)`` on ``noc`` and on ``gather``, every
    rank's tokens equal, the prefill on noc and each decode step demoted to
    gather with its warning; then 8 ranks on a (2, 4) mesh, the SMOKE layer
-   against ``dense_ref``.  No kernel runs on this path.
+   against ``dense_ref``.  No kernel runs on this path;
+15. tensor and data parallelism — 4 ranks spawned as phase 12's: llama3.2-1b
+   FULL served from bf16 on a (1, 4) ``("data", "model")`` mesh (each rank a
+   quarter of the heads, kv heads, MLP and vocab) on phase 9's traffic, every
+   rank's tokens equal, each of the 16 decoder blocks in float32 held to the
+   same block on one rank at 1e-4 x max |out|, SMOKE tokens on the mesh equal
+   to the one-rank tokens; llama3.2-1b FULL trained 3 steps on a (2, 2) mesh
+   at batch 8 x seq 128 (remat, flash on each rank's head block, every flash
+   call of step 1 held to its plain version), step 1's loss and grad norm
+   held to phase 9's one-rank step at rtol 1e-2; qwen3-moe's layer at full
+   width through the backward on the (1, 4) mesh, ``gather`` and ``noc``, the
+   gradients of x, the router and each rank's experts held to the one-rank
+   engine's at 1e-5 x scale.
 
 Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
@@ -588,7 +600,10 @@ def main():
     # internvl2-1b 14:2 (7) at D = 64 over its 256 patches + 128 tokens
     for arch, (B_, H_, Hk_, S_, D_) in (("phi3.5-moe", (8, 32, 8, 128, 128)),
                                         ("qwen3-moe", (8, 64, 4, 128, 128)),
-                                        ("internvl2-1b", (8, 14, 2, 384, 64))):
+                                        ("internvl2-1b", (8, 14, 2, 384, 64)),
+                                        # phase 15's mesh training: a rank's
+                                        # batch and head block on (2, 2)
+                                        ("llama3.2-1b, (2, 2) mesh", (4, 16, 4, 128, 64))):
         qt, kt, vt = qkv(B_, H_, Hk_, S_, S_, D_, torch.bfloat16)
         row = measure(f"flash_attention {(B_, H_, Hk_, S_, S_, D_)} bf16 causal ({arch}, GQA "
                       f"{H_ // Hk_})", flash_err(qt, kt, vt, True), 3e-2,
@@ -732,6 +747,9 @@ def main():
 
     # -- phase 14: the MoE layer on a device mesh, 4 and 8 ranks on the card --------
     moe_mesh_phase(torch, dev, smi)
+
+    # -- phase 15: tensor and data parallelism of the LM, 4 ranks on the card ------
+    tp = tp_phase(torch, dev, smi, dense)
     phase3_path = {"gf2_bmvm": "iterate_kernel", "minsum_check": "decode_minsum",
                    "particle_histogram": "track"}
     for kern in kernels:
@@ -747,12 +765,15 @@ def main():
             kern["launches_by_path"] = {"whisper_serve": serve_stats["launches"],
                                         "llama_serve": dense["serve_launches"],
                                         "llama_train": dense["train_launches"],
-                                        **families["launches"], **recurrent["launches"]}
+                                        **families["launches"], **recurrent["launches"],
+                                        "llama_serve_mesh": tp["serve_launches"],
+                                        "llama_train_mesh": tp["train_launches"]}
             kern["launches"] = sum(kern["launches_by_path"].values())
             kern["combine"]["launches_by_path"] = {
                 "whisper_serve": serve_stats["combine_launches"], "llama_serve": 0,
                 "llama_train": dense["train_combine_launches"],
-                **families["combine_launches"], **recurrent["combine_launches"]}
+                **families["combine_launches"], **recurrent["combine_launches"],
+                "llama_serve_mesh": 0, "llama_train_mesh": tp["train_combine_launches"]}
             kern["combine"]["launches"] = sum(kern["combine"]["launches_by_path"].values())
 
     print(json.dumps({"kernels": kernels}))
@@ -1590,7 +1611,8 @@ def dense_phase(torch, dev, smi):
     print(f"dense phase {time.perf_counter() - t_phase:.2f} s")
     return dict(serve_launches=serve_counts["flash_attention"],
                 train_launches=train_counts["flash_attention"],
-                train_combine_launches=train_combines)
+                train_combine_launches=train_combines, step1=(losses[0], gnorms[0]),
+                step_ms=med * 1e3, serve_tokens=tokens)
 
 
 METRIC_KEYS = ("loss", "grad_norm", "aux", "moe_drops", "moe_peak_occupancy")
@@ -2203,7 +2225,7 @@ def _spmd_rank(rank, world, tmp, part):
     try:
         dev = join_process_group("gloo", "cuda")
         out = {"mesh8": _spmd_mesh8, "ldpc16": _spmd_ldpc16, "moe4": _moe_mesh4,
-               "moe8": _moe_mesh8}[part](torch, dev, rank)
+               "moe8": _moe_mesh8, "tp4": _tp_mesh4}[part](torch, dev, rank)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"{part}-{rank}.pkl"), "wb") as f:
@@ -2490,14 +2512,14 @@ def _moe_mesh4(torch, dev, rank):
     drops = []
     apply = M.moe_apply
 
-    def recorded(p, h, c):
-        o, aux, st = apply(p, h, c)
+    def recorded(p, h, c, **kw):
+        o, aux, st = apply(p, h, c, **kw)
         record[("prefill" if h.shape[1] > 1 else "decode", st.engine)] += 1
         if h.shape[1] > 1:
             drops.append(st.drops)
         return o, aux, st
 
-    params = draw_mesh_serving_params(torch, cfg.replace(n_layers=4), dev, coord, 4)
+    params = draw_mesh_serving_params(torch, cfg.replace(n_layers=4), dev, mesh)
     n_params = sum(t.numel() for t in leaves(params))
     for impl in ("noc", "gather"):
         scfg = cfg.replace(n_layers=4, attn_impl="flash", moe_impl=impl)
@@ -2537,19 +2559,25 @@ def _moe_mesh4(torch, dev, rank):
     return out
 
 
-def draw_mesh_serving_params(torch, cfg, dev, coord, n_model, seed=MOE_SEED):
-    """``cfg``'s params in their serving dtypes for model rank ``coord`` of
-    ``n_model``: every leaf but the experts from one seeded generator (the
-    same on every rank), the MoE gate/up/down leaves only the rank's block of
+def draw_mesh_serving_params(torch, cfg, dev, mesh, seed=MOE_SEED):
+    """``cfg``'s params in their serving dtypes, this rank's block of each
+    leaf on ``mesh`` (`models.layers.param_pspecs`): every leaf but the
+    experts from one seeded generator (the same on every rank), a layer at a
+    time, then cut; the MoE gate/up/down leaves only the rank's block of
     experts, each expert from its own seed (`expert_seed`)."""
     import dataclasses
 
+    from repro_torch.core.partition import DEFAULT_RULES, block, logical_to_spec, mesh_shape
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import init_param, is_spec
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    coord = mesh.axis("model").coord
+    n_model = mesh.axis("model").size
 
     def draw(sp, path):
+        spec = logical_to_spec(sp.axes, DEFAULT_RULES, mesh.axis_names, sp.shape,
+                               mesh_shape(mesh))
         sp = dataclasses.replace(sp, dtype=T.serving_dtype(path, cfg.cdtype))
         if path[-2:-1] == ("moe",) and path[-1] in ("gate", "up", "down"):
             L, E = sp.shape[:2]
@@ -2561,12 +2589,11 @@ def draw_mesh_serving_params(torch, cfg, dev, coord, n_model, seed=MOE_SEED):
                                                 path[-1])
             return out
         if len(sp.shape) < 3:
-            return init_param(gen, sp, dev)
+            return block(init_param(gen, sp, dev), spec, mesh).clone()
         one = dataclasses.replace(sp, shape=sp.shape[1:], axes=sp.axes[1:])
-        out = torch.empty(sp.shape, dtype=sp.dtype, device=dev)
-        for layer in out:
-            layer.copy_(init_param(gen, one, dev))
-        return out
+        layers = [block(init_param(gen, one, dev), spec[1:], mesh).clone()
+                  for _ in range(sp.shape[0])]
+        return torch.stack(layers)
 
     def walk(tree, path):
         if is_spec(tree):
@@ -2580,8 +2607,10 @@ def _moe_mesh8(torch, dev, rank):
     """Phase 14 (c) in one of 8 ranks on a (2, 4) mesh: the qwen3-moe SMOKE
     layer, float32, the engines against dense_ref."""
     from repro_torch.configs import get_config
+    from repro_torch.core.partition import DEFAULT_RULES, mesh_shape
     from repro_torch.launch.mesh import make_host_mesh, set_mesh
     from repro_torch.models import moe as M
+    from repro_torch.models.layers import param_pspecs, shard_params
 
     mesh = make_host_mesh(model=4)
     cfg = get_config("qwen3-moe-235b-a22b", smoke=True)
@@ -2593,7 +2622,9 @@ def _moe_mesh8(torch, dev, rank):
     with torch.no_grad():
         ref, _ = M.dense_ref(w, x, M.MoEConfig(d, E, k, f, impl="dense"))
         with set_mesh(mesh):
-            wl = M.shard_experts({"moe": w})["moe"]
+            specs = param_pspecs(M.moe_specs(M.MoEConfig(d, E, k, f)), DEFAULT_RULES,
+                                 mesh.axis_names, mesh_shape(mesh))
+            wl = shard_params(w, specs, mesh)
             for impl, topo in [("gather", "fattree")] + [("noc", t) for t in MOE_TOPOLOGIES]:
                 tag = impl if impl == "gather" else f"noc-{topo}"
                 o, _, st = M.moe_apply(wl, x, M.MoEConfig(d, E, k, f, capacity_factor=8.0,
@@ -2601,6 +2632,387 @@ def _moe_mesh8(torch, dev, rank):
                 out["digest"][tag] = _digest(o)
                 out["errs"][tag] = float((o - ref).abs().max())
                 out["drops"][tag] = int(st.drops)
+    return out
+
+
+TP_X_SHAPE = (4, 32, 2048)                  # batch 4 x prompt 32 at llama3.2-1b's d_model
+TP_SEED = 15
+
+
+def tp_phase(torch, dev, smi, dense):
+    """Phase 15: tensor and data parallelism of the LM over a ``("data",
+    "model")`` mesh of 4 gloo ranks on the card, spawned as phase 12's ranks
+    are (one world, a 400 s deadline):
+
+    (a) llama3.2-1b FULL (the weights of phase 9, seed 0) on a (1, 4) mesh:
+        each of the 16 decoder blocks in float32 on a seeded (4, 32, 2048)
+        input against the same block on one rank in this process, within
+        1e-4 x max |out|; served from bf16 on phase 9's traffic (16 requests
+        at batch 4, prompt 32, 16 tokens), every rank's tokens equal; the
+        SMOKE model's tokens on the mesh equal to one rank's here;
+    (b) llama3.2-1b FULL trained 3 steps on a (2, 2) mesh at batch 8 x seq
+        128 (phase 9's weights and batches, remat, flash on each rank's
+        batch and head block): flash launched 3 x 16 x 2 times a rank, every
+        flash call of step 1 within 1e-2 x max |out| of its plain version,
+        step 1's loss within rtol 1e-2 of phase 9's one-rank step 1, and
+        step 1's loss and grad norm with float32 compute on the weights with
+        the attention rescaled (`conditioned`) within rtol 1e-2 of one
+        rank's (a bf16 grad norm at full depth moves by tens of percent with
+        the order of its sums: it is printed beside one rank's through the
+        plain attention path);
+    (c) qwen3-moe's layer at full width (phase 14's weights and input,
+        capacity_factor 8) through the backward of sum(out · r) + aux on the
+        (1, 4) mesh, ``gather`` and ``noc`` (fattree): the gradients of x,
+        the router and each rank's 32 experts within 1e-5 x max(1, max |g|)
+        of the one-rank engine's, which rank 0 computes with all 128 experts
+        and hands each rank its block of."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b").replace(attn_impl="flash")
+    masters = init_params(T.abstract_params(cfg), torch.Generator(device=dev).manual_seed(0))
+    x = torch.randn(TP_X_SHAPE, generator=torch.Generator(device=dev).manual_seed(TP_SEED),
+                    device=dev)
+    with torch.no_grad():
+        one_blocks = [run_block(torch, masters, cfg, layer, x, None).cpu().numpy()
+                      for layer in range(cfg.n_layers)]
+    del masters
+    torch.cuda.empty_cache()
+    small = get_config("llama3.2-1b", smoke=True)
+    sp = init_params(T.abstract_params(small), torch.Generator().manual_seed(0), dev)
+    one_small = serve.serve_batch(sp, small, tp_smoke_prompts(small), 8, device=dev)
+    del sp
+    # (b)'s one-rank step 1 in float32 compute, and in bf16 through the plain
+    # attention path (how far the bf16 grad norm moves with its sums' order)
+    from repro_torch.data.pipeline import DataConfig, _synthesize
+    from repro_torch.launch import steps, train
+
+    masters = init_params(T.abstract_params(cfg), torch.Generator(device=dev).manual_seed(0))
+    batch0 = train.device_batch(_synthesize(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                                       global_batch=8, seed=0), 0), cfg, dev)
+    one_f32 = step1_in_float32(torch, masters, batch0, cfg, None)
+    loss_p, _, g = steps.loss_and_grads(masters, batch0, cfg.replace(attn_impl="naive"))
+    one_plain = (float(loss_p), float(steps.global_norm(g)))
+    del masters, batch0, g
+    torch.cuda.empty_cache()
+
+    ranks = run_ranks(torch, "tp4", 4)
+    r0 = ranks[0]
+    print(f"phase 15: llama3.2-1b FULL and qwen3-moe's layer on ('data', 'model') meshes of 4 "
+          f"ranks, backend {r0['backend']} (FileStore), every rank on {r0['device']}; CUDA "
+          f"tensors staged through the host at every transfer ({smi})")
+
+    # (a) the blocks, the served tokens, SMOKE
+    errs = []
+    for layer, want in enumerate(one_blocks):
+        got = r0["blocks"][layer]
+        errs.append(float(np.abs(got - want).max() / np.abs(want).max()))
+    check(max(errs) <= 1e-4 and all(r["block_digests"] == r0["block_digests"] for r in ranks),
+          f"phase 15 (a): decoder blocks on the mesh against one rank: {errs}")
+    a = [r["serve"] for r in ranks]
+    check(all(np.array_equal(s["tokens"], a[0]["tokens"]) for s in a)
+          and a[0]["tokens"].shape == (16, 16) and a[0]["flash"] == 0,
+          f"phase 15 (a): the ranks' tokens differ, or {a[0]['tokens'].shape}, flash "
+          f"{a[0]['flash']}")
+    check(all(np.array_equal(r["smoke_tokens"], one_small) for r in ranks),
+          "phase 15 (a): SMOKE tokens on the (1, 4) mesh differ from one rank's")
+    same9 = int((a[0]["tokens"] == dense["serve_tokens"]).sum())
+    print(f"  (a) the 16 decoder blocks (float32, x {TP_X_SHAPE}, the rank's 8 of 32 heads, 2 "
+          f"of 8 kv heads, 2048 of 8192 MLP columns): max |diff| / max |out| against one rank "
+          f"{max(errs):.3e} (limit 1e-4; per block {', '.join(f'{e:.1e}' for e in errs)})")
+    s0 = a[0]
+    peaks = ", ".join(f"{r['serve']['peak'] / 2**30:.2f}" for r in ranks)
+    print(f"  (a) llama3.2-1b FULL served from bf16 on the (1, 4) mesh ({s0['params']:,} params a "
+          f"rank): 16 requests x 16 tokens at batch 4 (prompt 32) in {s0['secs']:.3f} s "
+          f"({256 / s0['secs']:.1f} tokens/s); prefill p50 {s0['prefill_ms']:.3f} ms, decode "
+          f"p50 {s0['decode_ms']:.3f} ms/token; transport {s0['transport_s']:.3f} s in "
+          f"{s0['calls']} transfers, of it staging {s0['staging_s']:.3f} s; staged "
+          f"{s0['staged'] / 2**20:.1f} MiB a rank; peak memory {peaks} GiB (ranks 0-3); "
+          f"flash 0 (a cached prefill); every rank's tokens equal; {same9} of 256 equal to "
+          f"phase 9's one-rank tokens (bf16 sums in another order); SMOKE tokens equal to one "
+          f"rank's ({smi})")
+
+    # (b) the training steps
+    b = [r["train"] for r in ranks]
+    loss1, gn1 = dense["step1"]
+    got_loss, got_gn = b[0]["losses"][0], b[0]["gnorms"][0]
+    launches = sum(t["flash"] for t in b)
+    check(all(t["flash"] == 3 * cfg.n_layers * 2 for t in b)
+          and all(t["losses"] == b[0]["losses"] for t in b),
+          f"phase 15 (b): flash launches {[t['flash'] for t in b]}, or the ranks' losses differ")
+    worst = max(max(t["per_call"]) for t in b)
+    check(worst <= 1e-2 and all(len(t["per_call"]) == 2 * cfg.n_layers for t in b),
+          f"phase 15 (b): flash calls of step 1 against the plain version: {worst}")
+    check(abs(got_loss - loss1) <= 1e-2 * abs(loss1) and np.isfinite(b[0]["losses"]).all()
+          and np.isfinite(b[0]["gnorms"]).all(),
+          f"phase 15 (b): step 1 loss {got_loss} against one rank's {loss1}")
+    f32 = r0["f32_step1"]
+    check(all(r["f32_step1"] == f32 for r in ranks)
+          and abs(f32[0] - one_f32[0]) <= 1e-2 * abs(one_f32[0])
+          and abs(f32[1] - one_f32[1]) <= 1e-2 * abs(one_f32[1]),
+          f"phase 15 (b): step 1 in float32 compute, loss / grad norm {f32} on the mesh "
+          f"against {one_f32} on one rank")
+    med = [statistics.median(t["step_ms"][1:]) for t in b]
+    share = [statistics.median(t["transport_ms"][1:]) / m for t, m in zip(b, med)]
+    peaks = ", ".join(f"{t['peak'] / 2**30:.2f}" for t in b)
+    print(f"  (b) llama3.2-1b FULL trained 3 steps on the (2, 2) mesh at batch 8 x seq 128 "
+          f"(each rank 4 rows, 16 of 32 heads): losses {np.round(b[0]['losses'], 4).tolist()}, "
+          f"grad_norm {np.round(b[0]['gnorms'], 3).tolist()}; step 1 against phase 9's one "
+          f"rank: loss {got_loss:.5f} vs {loss1:.5f}, grad norm {got_gn:.4g} vs {gn1:.4g} "
+          f"(rtol 1e-2); step {min(med):.1f}-{max(med):.1f} ms (median of steps 2-3 over "
+          f"ranks; one rank's phase 9 step {dense['step_ms']:.1f} ms), transport "
+          f"{min(share) * 100:.1f}-{max(share) * 100:.1f} % of it, staged "
+          f"{b[0]['staged_per_step'] / 2**30:.2f} GiB a step a rank; peak memory {peaks} GiB; "
+          f"one rank's bf16 step 1 through the plain attention path: loss {one_plain[0]:.5f}, "
+          f"grad norm {one_plain[1]:.4g}; step 1 in float32 compute, attention rescaled: loss "
+          f"{f32[0]:.6f} vs "
+          f"{one_f32[0]:.6f}, grad norm {f32[1]:.6g} vs {one_f32[1]:.6g} (rel "
+          f"{abs(f32[1] - one_f32[1]) / one_f32[1]:.2e}, limit 1e-2); flash {launches} launches "
+          f"(3 steps x 16 layers x 2 under remat x 4 ranks) at {b[0]['flash_shape']}, every "
+          f"call of step 1 within {worst:.3e} of the plain version (limit 1e-2) ({smi})")
+
+    # (c) the MoE layer's gradients on the mesh
+    for impl in ("gather", "noc"):
+        errs_c = {k: max(r["moe_grad"][impl]["errs"][k] for r in ranks)
+                  for k in r0["moe_grad"][impl]["errs"]}
+        check(max(errs_c.values()) <= 1e-5
+              and all(r["moe_grad"][impl]["drops"] == 0 for r in ranks),
+              f"phase 15 (c) {impl}: gradients against the one-rank engine {errs_c}")
+        walls = [r["moe_grad"][impl]["wall_ms"] for r in ranks]
+        print(f"  (c) qwen3-moe layer (d 4096, 128 experts top-8, x (4, 32, 4096) f32) through "
+              f"the backward on {impl}{' (fattree)' if impl == 'noc' else ''}: max |diff| / "
+              f"max(1, max |g|) against the one-rank engine "
+              f"{', '.join(f'{k} {v:.2e}' for k, v in errs_c.items())} (limit 1e-5), drop "
+              f"free; forward + backward {min(walls):.1f}-{max(walls):.1f} ms over ranks (warm) "
+              f"(one-rank engine {r0['moe_grad']['one_rank_ms']:.1f} ms) ({smi})")
+    print(f"tp phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(serve_launches=0, train_launches=launches, train_combine_launches=sum(
+        t["combines"] for t in b))
+
+
+def conditioned(params, cfg):
+    """``params`` with the attention projections rescaled to the fan-in of
+    their whole input (wq, wk, wv by sqrt(H / d); wo by sqrt(1 / H)): the
+    reference's init takes the fan-in of a rank-3 weight as its middle dim
+    (ROADMAP Queue 3), which puts llama3.2-1b FULL's attention scores near a
+    std of 128, where the softmax turns float32 rounding into percent-level
+    changes of the grad norm.  The other leaves are shared, not copied."""
+    scale = {"wq": (cfg.n_heads / cfg.d_model) ** 0.5, "wk": (cfg.n_heads / cfg.d_model) ** 0.5,
+             "wv": (cfg.n_heads / cfg.d_model) ** 0.5, "wo": cfg.n_heads ** -0.5}
+    blocks = dict(params["blocks"])
+    blocks["0"] = dict(blocks["0"], attn={k: v * scale.get(k, 1.0)
+                                          for k, v in blocks["0"]["attn"].items()})
+    return dict(params, blocks=blocks)
+
+
+def step1_in_float32(torch, params, batch, cfg, mesh):
+    """(loss, grad norm) of one step's gradients with float32 compute (the
+    masters' own dtype) on ``mesh`` (None: one device), no update, on the
+    `conditioned` params: a bf16 gradient's norm at full depth moves by tens
+    of percent with the order of its sums, and on the reference's init a
+    float32 one by about one percent (PERF.md §6)."""
+    from repro_torch._tree import leaves, unflatten
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    c32 = cfg.replace(dtype="float32")
+    with coll.use_mesh(mesh):
+        loss, _, g = steps.loss_and_grads(conditioned(params, cfg), batch, c32)
+        bax = T.batch_axis(mesh, batch["tokens"].shape[0])
+        if bax is not None:
+            g = unflatten(g, [coll.pmean(t, bax) for t in leaves(g)])
+        specs = steps.shardings_for_params(cfg, mesh) if mesh is not None else None
+        norm = steps.global_norm(g, specs, mesh)
+    return float(loss), float(norm)
+
+
+def tp_smoke_prompts(cfg):
+    return np.random.default_rng(TP_SEED).integers(0, cfg.vocab, (4, 16)).astype(np.int64)
+
+
+def _layer_of(tree, layer):
+    return ({k: _layer_of(v, layer) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree[layer])
+
+
+def run_block(torch, params, cfg, layer, x, mesh):
+    """Decoder block ``layer`` of ``params`` (the rank's blocks on ``mesh``,
+    or whole with None) on x, causal from position 0."""
+    from repro_torch.models import transformer as T
+
+    B, S, _ = x.shape
+    lay = T.layout(cfg, B, mesh) if mesh is not None else T.Layout()
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    out, *_ = T._apply_sublayer(_layer_of(params["blocks"]["0"], layer), x, cfg, "attn", "mlp",
+                                positions=positions, cache=None, enc_out=None, causal=True,
+                                lay=lay)
+    return out
+
+
+def _tp_mesh4(torch, dev, rank):
+    """Phase 15 (a), (b) and (c) in one of 4 ranks."""
+    import torch.distributed as dist
+
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, _synthesize
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.telemetry import MetricsRegistry
+
+    m14, m22 = make_host_mesh(model=4), make_host_mesh(model=2)
+    out = dict(device=str(dev), backend=str(dist.get_backend()))
+    cfg = get_config("llama3.2-1b").replace(attn_impl="flash")
+
+    # (a) phase 9's weights, seed 0: each leaf drawn whole, the rank's block kept
+    gen = torch.Generator(device=dev).manual_seed(0)
+    masters = init_params(T.abstract_params(cfg), gen, dev, mesh=m14)
+    x = torch.randn(TP_X_SHAPE, generator=torch.Generator(device=dev).manual_seed(TP_SEED),
+                    device=dev)
+    with torch.no_grad(), set_mesh(m14):
+        blocks = [run_block(torch, masters, cfg, layer, x, m14) for layer in range(cfg.n_layers)]
+    out["block_digests"] = [_digest(t) for t in blocks]
+    if rank == 0:
+        out["blocks"] = [t.cpu().numpy() for t in blocks]
+    params = T.cast_params(masters, cfg.cdtype)
+    del masters, blocks
+    prompts = torch.randint(0, cfg.vocab, (16, 32), generator=gen, device=dev).cpu().numpy()
+    serve.serve_batch(params, cfg, prompts[:4], 2, device=dev, mesh=m14)      # warm-up
+    reg = MetricsRegistry()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m14.stats.reset()
+    ops.reset_launch_counts()
+    ts = time.perf_counter()
+    tokens = np.concatenate([serve.serve_batch(params, cfg, prompts[i:i + 4], 16, device=dev,
+                                               reg=reg, mesh=m14) for i in range(0, 16, 4)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - ts
+    pre, dec = reg.histogram("serve.prefill.seconds"), reg.histogram("serve.decode.seconds")
+    out["serve"] = dict(tokens=tokens, secs=secs, prefill_ms=pre.p50 * 1e3,
+                        decode_ms=dec.p50 * 1e3, transport_s=m14.stats.seconds,
+                        staging_s=m14.stats.staging_seconds, calls=m14.stats.calls,
+                        staged=m14.stats.staged_bytes, peak=torch.cuda.max_memory_allocated(),
+                        flash=ops.launch_counts()["flash_attention"],
+                        params=sum(t.numel() for t in leaves(params)))
+    del params
+    small = get_config("llama3.2-1b", smoke=True)
+    sp = init_params(T.abstract_params(small), torch.Generator().manual_seed(0), dev, mesh=m14)
+    out["smoke_tokens"] = serve.serve_batch(sp, small, tp_smoke_prompts(small), 8, device=dev,
+                                            mesh=m14)
+    del sp
+    torch.cuda.empty_cache()
+
+    # (b) phase 9's training: the same weights and batches, on the (2, 2) mesh
+    masters = init_params(T.abstract_params(cfg), torch.Generator(device=dev).manual_seed(0),
+                          dev, mesh=m22)
+    state = {"params": masters, "opt": adamw_init(masters)}
+    del masters
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4), mesh=m22, total_steps=6, warmup=5)
+    data = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8, seed=0)
+    batches = [train.device_batch(_synthesize(data, s), cfg, dev) for s in range(3)]
+    out["f32_step1"] = step1_in_float32(torch, state["params"], batches[0], cfg, m22)
+    per_call, shapes, real = [], set(), ops.flash_attention
+
+    def held(q, k, v, causal=True, use_kernel=False):
+        o = real(q, k, v, causal, use_kernel)
+        with torch.no_grad():
+            plain = flash_attention.flash_attention_plain(q, k, v, causal).float()
+            per_call.append(((o.float() - plain).abs().max() / plain.abs().max()).item())
+        shapes.add((tuple(q.shape), tuple(k.shape)))
+        return o
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    combines0 = flash_attention.flash_attention.combine_launches
+    losses, gnorms, step_ms, transport_ms, staged = [], [], [], [], 0
+    for i, bt in enumerate(batches):
+        m22.stats.reset()
+        ops.flash_attention = held if i == 0 else real
+        try:
+            (state, mets), secs = wall(torch, lambda: step(state, bt))
+        finally:
+            ops.flash_attention = real
+        losses.append(float(mets["loss"]))
+        gnorms.append(float(mets["grad_norm"]))
+        step_ms.append(secs * 1e3)
+        transport_ms.append(m22.stats.seconds * 1e3)
+        staged = m22.stats.staged_bytes
+    (q_shape, k_shape), = shapes
+    out["train"] = dict(losses=losses, gnorms=gnorms, step_ms=step_ms, transport_ms=transport_ms,
+                        staged_per_step=staged, per_call=per_call,
+                        flash=ops.launch_counts()["flash_attention"],
+                        combines=flash_attention.flash_attention.combine_launches - combines0,
+                        peak=torch.cuda.max_memory_allocated(),
+                        flash_shape=f"q {q_shape} k {k_shape}")
+    del state, batches
+    torch.cuda.empty_cache()
+
+    # (c) the MoE layer's gradients: rank 0 computes the one-rank engine with
+    # all 128 experts and sends each rank its block of the expert gradients
+    qcfg = get_config("qwen3-moe-235b-a22b")
+    E, d, k, f = qcfg.n_experts, qcfg.d_model, qcfg.top_k, qcfg.d_ff_expert
+    coord, epr = m14.axis("model").coord, qcfg.n_experts // 4
+    x = moe_input(torch, dev)
+    r = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(MOE_SEED + 2),
+                    device=dev)
+
+    def grads_of(w, mesh, impl):
+        """The gradients of the second of two runs (the first warms up), and
+        that run's synced wall."""
+        c = M.MoEConfig(d, E, k, f, capacity_factor=8.0, impl=impl, noc_topology="fattree")
+        for _ in range(2):
+            w = {key: t.detach().requires_grad_() for key, t in w.items()}
+            xx = x.clone().requires_grad_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with set_mesh(mesh):
+                o, aux, st = M.moe_apply(w, xx, c)
+            ((o * r).sum() + aux).backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        g = {key: t.grad for key, t in w.items()}
+        return dict(g, x=xx.grad), int(st.drops), ms
+
+    ref, moe = {}, {}
+    if rank == 0:
+        ref, _, moe["one_rank_ms"] = grads_of(moe_layer_weights(torch, qcfg, dev, range(E)),
+                                              None, "gather")
+    for key in ("x", "router"):
+        t = ref[key].cpu() if rank == 0 else torch.empty(
+            x.shape if key == "x" else (d, E), dtype=torch.float32)
+        dist.broadcast(t, src=0)
+        ref[key] = t.to(dev)
+    for leaf in ("gate", "up", "down"):
+        if rank == 0:
+            for dst in (1, 2, 3):
+                dist.send(ref[leaf][dst * epr:(dst + 1) * epr].cpu(), dst=dst)
+            ref[leaf] = ref[leaf][:epr].clone()
+        else:
+            buf = torch.empty((epr,) + ((d, f) if leaf != "down" else (f, d)))
+            dist.recv(buf, src=0)
+            ref[leaf] = buf.to(dev)
+    torch.cuda.empty_cache()
+    for impl in ("gather", "noc"):
+        w = moe_layer_weights(torch, qcfg, dev, range(coord * epr, (coord + 1) * epr))
+        g, drops, ms = grads_of(w, m14, impl)
+        errs = {key: float((g[key] - ref[key]).abs().max()
+                           / max(1.0, float(ref[key].abs().max()))) for key in g}
+        moe[impl] = dict(errs=errs, drops=drops, wall_ms=ms)
+        del w, g
+    out["moe_grad"] = moe
     return out
 
 

@@ -22,8 +22,13 @@ Crash-safety contract:
   update cannot reach the saved values), the serialization and disk IO on a
   background thread; `wait()` joins before the next save or on exit;
 * restore(target) refuses a checkpoint whose tree differs from ``target``'s
-  and puts each leaf on the device of ``target``'s leaf.  Resharding onto a
-  device mesh waits for the mesh slice.
+  and puts each leaf on the device of ``target``'s leaf.
+
+On a device mesh (``mesh`` and the tree's ``specs``, `launch.steps.
+state_shardings`) every rank calls save and restore at the same step: save
+gathers the global tree from the ranks' blocks and rank 0 writes it, the same
+files as a one-device run; restore reads the global leaves and keeps each
+rank's block, so a run restarts on any mesh, or on one device.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from .._tree import flatten, unflatten
+from ..core.partition import block, spec_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +66,11 @@ def _to_host(x) -> np.ndarray:
 
 
 class CheckpointManager:
-    def __init__(self, cfg: CheckpointConfig):
+    def __init__(self, cfg: CheckpointConfig, mesh=None, specs=None):
+        """``mesh`` and ``specs`` (the spec of each leaf of the trees saved
+        and restored): the trees hold the rank's blocks on that mesh."""
         self.cfg = cfg
+        self.mesh, self.specs = mesh, specs
         os.makedirs(cfg.dir, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -69,6 +78,12 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree, extra: Optional[dict] = None):
         self.wait()
+        if self.mesh is not None:
+            from ..models.layers import gather_params
+
+            tree = gather_params(tree, self.specs, self.mesh)
+            if self.mesh.node != 0:
+                return
         flat = flatten(tree)
         host_leaves = [_to_host(x) for _, x in flat]
         meta = {
@@ -154,15 +169,19 @@ class CheckpointManager:
         if proto_paths != meta["paths"]:
             raise ValueError("checkpoint tree structure mismatch: "
                              f"{set(meta['paths']) ^ set(proto_paths)}")
+        protos = [x for _, x in flatten(target)]
+        specs = (spec_leaves(self.specs) if self.mesh is not None
+                 else [None] * len(protos))
         vols: dict[int, Any] = {}
-        host = []
+        leaves = []
         for i, vol_id in enumerate(meta["volume_of"]):
             if vol_id not in vols:
                 vols[vol_id] = np.load(os.path.join(d, f"arrays_{vol_id:02d}.npz"))
-            host.append(vols[vol_id][f"a{i}"])
+            t = torch.as_tensor(vols[vol_id][f"a{i}"])
+            if specs[i] is not None:
+                t = block(t, specs[i], self.mesh)      # the rank's block of the leaf
+            p = protos[i]
+            leaves.append(t.to(p.device if isinstance(p, torch.Tensor) else "cpu", copy=True))
         for vol in vols.values():
             vol.close()
-        protos = [x for _, x in flatten(target)]
-        leaves = [torch.as_tensor(a).to(p.device if isinstance(p, torch.Tensor) else "cpu")
-                  for a, p in zip(host, protos)]
         return unflatten(target, leaves), step, meta.get("extra", {})

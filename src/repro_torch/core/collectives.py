@@ -39,11 +39,23 @@ Transport semantics
 * :func:`all_gather`, :func:`psum`, :func:`pmean`, :func:`pmax`: one
   ``dist.all_gather`` over the axis's group, then, for the reductions, a sum
   (or max) in axis order on the tensor's device, so every rank of the row
-  gets the same bits whatever the backend's reduction order.  An axis of
+  gets the same bits whatever the backend's reduction order (a bf16/fp16
+  sum in float32, rounded once).  An axis of
   one rank moves nothing.
 * :meth:`NoCMesh.gather_nodes` (a ``shard_map`` output assembled):
   ``dist.all_gather`` over the default group, so every rank, a node of the
   mesh or not, returns the same rows.
+* :func:`copy_to`, :func:`reduce_from`, :func:`gather_from`,
+  :func:`scatter_to` and :func:`mean_from` are the collectives that autograd
+  goes through (the Megatron pairs; the raw ones above move bytes and cut the
+  graph).  A tensor replicated over an axis carries one cotangent, held
+  replicated: ``copy_to`` is the identity forward and a psum backward (a
+  replicated tensor entering a computation each rank does a part of),
+  ``reduce_from`` a psum forward and the identity backward, ``gather_from``
+  an all-gather forward and the rank's own block backward, ``scatter_to`` the
+  reverse.  ``mean_from`` is a pmean whose backward scales by a factor the
+  caller states: ``1 / n`` over an axis the loss is replicated on, 1 over the
+  data axes, whose gradients the train step averages afterwards.
 * Every transfer moves the tensor's bytes (a uint8 view), so any dtype goes.
   gloo reads host memory: under gloo a CUDA tensor is staged through the host
   with explicit ``.cpu()`` / ``.to(device)`` around each transfer, and the
@@ -358,14 +370,18 @@ def all_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
 
 
 def psum(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
-    """``lax.psum(x, axis)``: the row's tensors added in axis order."""
+    """``lax.psum(x, axis)``: the row's tensors added in axis order; a
+    bf16/fp16 sum accumulates in float32 and rounds once."""
     if axis.size == 1:
         return x
     parts = all_gather(x, axis)
+    wide = parts.is_floating_point() and parts.element_size() < 4
+    if wide:
+        parts = parts.float()
     out = parts[0]
     for p in parts[1:]:
         out = out + p
-    return out
+    return out.to(x.dtype) if wide else out
 
 
 def pmean(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
@@ -376,6 +392,108 @@ def pmean(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
 def pmax(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """``lax.pmax(x, axis)``: the row's elementwise maximum."""
     return x if axis.size == 1 else all_gather(x, axis).amax(0)
+
+
+# -- autograd through the axis collectives ------------------------------------------
+
+def gather_blocks(x: torch.Tensor, axis: MeshAxis, dim: int) -> torch.Tensor:
+    """The row's blocks ``x`` concatenated along ``dim`` in axis order (one
+    :func:`all_gather`; moves bytes, no gradient)."""
+    return torch.cat(all_gather(x.contiguous(), axis).unbind(0), dim)
+
+
+def own_block(x: torch.Tensor, axis: MeshAxis, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` on ``axis`` (a view)."""
+    n = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.coord * n, n)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous(), ctx.axis), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return psum(x.contiguous(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return gather_blocks(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return own_block(g, ctx.axis, ctx.dim), None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return own_block(x, axis, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_blocks(g, ctx.axis, ctx.dim), None, None
+
+
+class _MeanFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, grad_scale):
+        ctx.grad_scale = grad_scale
+        return pmean(x.contiguous(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.grad_scale, None, None
+
+
+def _trivial(axis: Optional[MeshAxis]) -> bool:
+    return axis is None or axis.size == 1
+
+
+def copy_to(x: torch.Tensor, axis: Optional[MeshAxis]) -> torch.Tensor:
+    """Identity forward, psum over ``axis`` backward: a replicated tensor
+    entering a computation each rank of the axis does a part of."""
+    return x if _trivial(axis) else _CopyTo.apply(x, axis)
+
+
+def reduce_from(x: torch.Tensor, axis: Optional[MeshAxis]) -> torch.Tensor:
+    """psum over ``axis`` forward (:func:`psum`), identity backward: the
+    ranks' parts added into a replicated tensor."""
+    return x if _trivial(axis) else _ReduceFrom.apply(x, axis)
+
+
+def gather_from(x: torch.Tensor, axis: Optional[MeshAxis], dim: int) -> torch.Tensor:
+    """The ranks' blocks concatenated along ``dim`` in axis order forward,
+    this rank's block of the cotangent backward."""
+    return x if _trivial(axis) else _GatherFrom.apply(x, axis, dim)
+
+
+def scatter_to(x: torch.Tensor, axis: Optional[MeshAxis], dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` forward, the blocks' cotangents
+    all-gathered backward."""
+    return x if _trivial(axis) else _ScatterTo.apply(x, axis, dim)
+
+
+def mean_from(x: torch.Tensor, axis: Optional[MeshAxis], grad_scale: float) -> torch.Tensor:
+    """pmean over ``axis`` forward, the cotangent times ``grad_scale``
+    backward (see the module docstring)."""
+    return x if _trivial(axis) else _MeanFrom.apply(x, axis, grad_scale)
 
 
 # -- the ambient mesh -------------------------------------------------------------

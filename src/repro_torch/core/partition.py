@@ -16,20 +16,27 @@ layers of ``repro.core.partition``).
 2. **Cutting** — given a node→pod assignment, classify every channel as
    intra-pod or cross-pod (:func:`cut` → :class:`PartitionPlan`), and
    co-optimize the cut with the serdes settings (:func:`optimize_pod_cut`).
-
-The mesh sharding rules of the reference's third layer belong to the LM
-stack's mesh slice (ROADMAP Queue 1 item 8(e)).
+3. **LM sharding rules** — the logical-axis vocabulary of the models
+   (:data:`DEFAULT_RULES`, :func:`rules_override`, :data:`NO_TP`) and
+   :func:`logical_to_spec`, which turns a leaf's logical axes into the spec
+   of the block each rank holds; :func:`block` and :func:`unblock` cut a
+   tensor to a rank's block and gather it back.  The reference's
+   ``constrain`` has no counterpart: it hints a layout to XLA, where the
+   port's layout is explicit, so each of its call sites is where a model
+   function of the port moves data (or says why none moves).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Mapping, Optional, Sequence
+from typing import Any, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 from . import serdes as qserdes
-from .collectives import NoCMesh, make_mesh, world_size
+from .collectives import NoCMesh, gather_blocks, make_mesh, own_block, world_size
 from .graph import Channel, TaskGraph
 from .topology import Mesh2D, Topology
 
@@ -407,3 +414,144 @@ def optimize_pod_cut(graph: TaskGraph, topo: Topology, n_pods: int = 2,
                 best = (c, pl, pods, scfg)
     cost, pl, pods, scfg = best
     return cut(graph, pl, pods, scfg), cost
+
+
+# ---------------------------------------------------------------------------
+# LM sharding rules (the reference's third layer, core/partition.py:460-556)
+# ---------------------------------------------------------------------------
+
+# Logical axis vocabulary used by every model in models/.
+DEFAULT_RULES: dict[str, Optional[str | tuple[str, ...]]] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "seq_kv_shard": "data",      # long-context KV/state sequence sharding
+    "head_dim_shard": "data",    # long-context KV head_dim sharding
+    "embed": None,               # d_model stays replicated-per-shard (activations)
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",
+    "expert_mlp": None,
+    "conv": None,
+    "ssm_inner": "model",
+    "ssm_state": None,
+    "layers": None,              # stacked-layers leading axis
+}
+
+
+@contextlib.contextmanager
+def rules_override(**kv):
+    """Temporarily rewrite DEFAULT_RULES entries (e.g. ``**NO_TP``: model
+    axes off)."""
+    saved = {k: DEFAULT_RULES.get(k) for k in kv}
+    DEFAULT_RULES.update(kv)
+    try:
+        yield
+    finally:
+        DEFAULT_RULES.update(saved)
+
+
+NO_TP = dict(vocab=None, heads=None, kv_heads=None, mlp=None, experts=None,
+             ssm_inner=None, batch=("pod", "data", "model"))
+
+# A spec is a tuple with one entry per dim: None (replicated), a mesh axis
+# name, or a tuple of names (linearized row-major): the reference's
+# ``PartitionSpec`` with the same entries.
+Spec = tuple
+
+
+def logical_to_spec(axes: Sequence[Optional[str]], rules: Mapping[str, Any] = DEFAULT_RULES,
+                    mesh_axes: Optional[Sequence[str]] = None,
+                    dims: Optional[Sequence[int]] = None,
+                    mesh_shape: Optional[Mapping[str, int]] = None) -> Spec:
+    """('batch', 'seq', 'embed') -> (('pod', 'data'), None, None) by ``rules``.
+
+    Drops mesh axes absent from ``mesh_axes`` (one pod drops 'pod'), and,
+    when ``dims``/``mesh_shape`` are given, axes whose product does not
+    divide the dim (8 KV heads on a model axis of 16 stay replicated)."""
+    parts = []
+    for i, a in enumerate(axes):
+        m = rules.get(a) if a is not None else None
+        if m is None:
+            parts.append(None)
+            continue
+        ms = (m,) if isinstance(m, str) else tuple(m)
+        if mesh_axes is not None:
+            ms = tuple(x for x in ms if x in mesh_axes)
+        if dims is not None and mesh_shape is not None and ms:
+            keep, prod = [], 1
+            for x in ms:
+                nx = mesh_shape.get(x, 1)
+                if dims[i] % (prod * nx) == 0:
+                    keep.append(x)
+                    prod *= nx
+            ms = tuple(keep)
+        parts.append(ms[0] if len(ms) == 1 else (ms if ms else None))
+    return tuple(parts)
+
+
+def mesh_shape(mesh: NoCMesh) -> dict[str, int]:
+    """``{axis name: size}``, the reference's ``dict(mesh.shape)``."""
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+class NamedSharding(NamedTuple):
+    """The counterpart of ``jax.sharding.NamedSharding``: a spec on a mesh."""
+
+    mesh: NoCMesh
+    spec: Spec
+
+
+def named_sharding(mesh: NoCMesh, axes: Sequence[Optional[str]],
+                   rules: Mapping[str, Any] = DEFAULT_RULES) -> NamedSharding:
+    return NamedSharding(mesh, logical_to_spec(axes, rules, mesh.axis_names))
+
+
+def split_axis(mesh: Optional[NoCMesh], logical: str, dim: int,
+               rules: Mapping[str, Any] = DEFAULT_RULES):
+    """The mesh axis (a `MeshAxis`) a dim of size ``dim`` with logical axis
+    ``logical`` is split over on ``mesh``, or None when it is replicated (no
+    mesh, the rule maps it to no axis of the mesh, the axes hold one rank,
+    or they do not divide ``dim``)."""
+    if mesh is None:
+        return None
+    (entry,) = logical_to_spec((logical,), rules, mesh.axis_names, (dim,), mesh_shape(mesh))
+    if entry is None:
+        return None
+    ax = mesh.axis(entry)
+    return ax if ax.size > 1 else None
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh: NoCMesh) -> tuple[int, ...]:
+    """The shape of a rank's block of a ``shape`` tensor under ``spec``."""
+    return tuple(n // math.prod(mesh_shape(mesh)[a] for a in
+                                ((e,) if isinstance(e, str) else e)) if e else n
+                 for n, e in zip(shape, spec))
+
+
+def block(t: torch.Tensor, spec: Spec, mesh: NoCMesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``spec`` (a view)."""
+    for dim, entry in enumerate(spec):
+        if entry:
+            t = own_block(t, mesh.axis(entry), dim)
+    return t
+
+
+def unblock(t: torch.Tensor, spec: Spec, mesh: NoCMesh) -> torch.Tensor:
+    """The whole tensor from every rank's block ``t`` under ``spec``: an
+    all-gather over each sharded dim's axes (collective: every rank of the
+    mesh calls it)."""
+    for dim, entry in enumerate(spec):
+        if entry and mesh.axis(entry).size > 1:
+            t = gather_blocks(t, mesh.axis(entry), dim)
+    return t
+
+
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree (nested dicts with spec tuples at the
+    leaves) in the order `_tree.leaves` visits a param tree: sorted keys."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    return [specs]

@@ -9,7 +9,8 @@ with a backend named by the caller; `core.partition.mesh_for_topology` then
 lays the NoC's nodes over its first ranks, and :func:`make_host_mesh` /
 :func:`make_production_mesh` lay the LM's mesh over them, entered with
 :func:`set_mesh`.  Making a mesh is collective: every rank calls it at the
-same point.
+same point.  :func:`add_mesh_args` and :func:`mesh_from_args` give the serve
+and train CLIs ``--model-parallel`` and ``--dist-backend``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from ..core.collectives import NoCMesh, make_mesh, use_mesh, world_size
 
 def set_mesh(mesh: NoCMesh):
     """Enter ``mesh`` as the ambient mesh: ``with set_mesh(mesh): ...``
-    (what `models.moe.moe_apply` reads)."""
+    (what the models and `models.moe.moe_apply` read)."""
     return use_mesh(mesh)
 
 
@@ -90,3 +91,28 @@ def join_process_group(backend: str, device="cuda", timeout_s: float = 120.0) ->
         dev = torch.device("cuda", local % count)
         torch.cuda.set_device(dev)
     return resolve_device(dev)
+
+
+def mesh_from_args(args, ap):
+    """-> (device, mesh or None, whether this call joined the group).  More
+    than one rank (torchrun's ``WORLD_SIZE``, or a group the caller joined)
+    or ``--model-parallel`` above 1 needs ``--dist-backend`` and gives the
+    ``(W // N, N)`` mesh of every rank; else the one device of ``--device``."""
+    ready = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if ready else int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1 and args.model_parallel == 1:
+        return resolve_device(args.device), None, False
+    if world == 1:
+        ap.error(f"--model-parallel {args.model_parallel} needs {args.model_parallel} ranks or "
+                 "a multiple: start it with torchrun --nproc-per-node")
+    if args.dist_backend is None:
+        ap.error("more than one rank needs --dist-backend (gloo or nccl)")
+    dev = join_process_group(args.dist_backend, args.device)
+    return dev, make_host_mesh(model=args.model_parallel), not ready
+
+
+def add_mesh_args(ap) -> None:
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks on the mesh's model axis (the rest split the batch)")
+    ap.add_argument("--dist-backend", choices=["gloo", "nccl"], default=None,
+                    help="the process group's backend; required with more than one rank")

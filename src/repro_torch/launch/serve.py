@@ -6,9 +6,20 @@
 
 Requests are grouped into fixed-size batches; each batch is prefilled once,
 then decoded token by token against a shared cache (greedy sampling).  Eager
-PyTorch.  ``serve_batch(mesh=)`` serves under a mesh; the CLI's
-``--model-parallel`` waits for ROADMAP item 8(e) part 2.  ``--arch`` takes
-the archs the port registers (default llama3.2-1b, as in the reference).
+PyTorch.  ``--arch`` takes the archs the port registers (default
+llama3.2-1b, as in the reference).
+
+``--model-parallel N`` serves on a ``("data", "model")`` mesh of every rank
+(`launch.mesh.make_host_mesh(model=N)`), started by torchrun:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+        --model-parallel 2 --dist-backend gloo --device cpu --smoke
+
+Each rank joins the group over ``--dist-backend`` (required with more than
+one rank: the transport never picks one), draws each leaf on the CPU
+generator and keeps only its block (`models.layers.init_params(mesh=)`), and
+serves every batch with the others; rank 0 prints.  ``--model-parallel 1``
+without torchrun is the one-device path.
 
 ``--metrics PATH`` turns on the telemetry metrics registry: prefill and
 per-token decode wall clock land in the ``serve.prefill.seconds`` /
@@ -30,9 +41,11 @@ import torch
 from .._device import resolve_device, synchronize
 from ..configs import ALL_ARCHS, get_config
 from ..core.collectives import use_mesh
+from ..core.partition import mesh_shape
 from ..models import transformer as T
 from ..models.layers import init_params
 from ..telemetry.metrics import disable_metrics, enable_metrics
+from .mesh import add_mesh_args, mesh_from_args
 
 
 def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
@@ -54,13 +67,13 @@ def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
 
     ``mesh``: a `launch.mesh` mesh entered for the batch, as the reference's
     ``serve_batch`` enters its mesh (every rank of it calls ``serve_batch``
-    on the same prompts; a MoE model's expert leaves hold the rank's block,
-    `models.moe.shard_experts`); None keeps the caller's ambient mesh."""
+    on the same prompts, with the params cut to the rank's blocks,
+    `models.layers.shard_params`; the cache holds the rank's block); None
+    keeps the caller's ambient mesh.  Every rank returns the same tokens."""
     dev = resolve_device(device)
     params = T.cast_params(params, cfg.cdtype)
     B, S = prompts.shape
     n_pre = cfg.n_patches if cfg.family == "vlm" else 0
-    cache = T.init_cache(cfg, B, n_pre + S + gen, device=dev)
     batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev)}
     if n_pre:
         batch["patches"] = torch.zeros((B, n_pre, cfg.d_frontend), dtype=cfg.cdtype,
@@ -72,6 +85,7 @@ def serve_batch(params, cfg, prompts, gen: int, *, frames=None,
         if tuple(batch["frames"].shape) != shape:
             raise ValueError(f"frames must be {shape}, got {tuple(batch['frames'].shape)}")
     with torch.inference_mode(), (use_mesh(mesh) if mesh is not None else nullcontext()):
+        cache = T.init_cache(cfg, B, n_pre + S + gen, device=dev)
         if reg is not None:
             synchronize(dev)
         ts = time.perf_counter()
@@ -105,14 +119,28 @@ def run(argv=None):
     ap.add_argument("--metrics", default=None, metavar="PATH",
                     help="enable the telemetry metrics registry; write the "
                          "JSON snapshot here ('-' prints to stdout)")
+    add_mesh_args(ap)
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    dev, mesh, joined = mesh_from_args(args, ap)
+    try:
+        return _serve(args, dev, mesh)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve(args, dev, mesh):
+    say = print if mesh is None or mesh.node == 0 else (lambda *a, **k: None)
     reg = enable_metrics() if args.metrics else None
     cfg = get_config(args.arch, smoke=args.smoke)
     gen = torch.Generator().manual_seed(args.seed)   # the same model on every device
-    params = T.cast_params(init_params(T.abstract_params(cfg), gen, dev), cfg.cdtype)
+    params = T.cast_params(init_params(T.abstract_params(cfg), gen, dev, mesh=mesh),
+                           cfg.cdtype)
     rng = np.random.default_rng(args.seed)
+    where = f"{dev}" if mesh is None else f"{dev}, mesh={mesh_shape(mesh)}"
 
     t0 = time.monotonic()
     done = 0
@@ -120,29 +148,29 @@ def run(argv=None):
     while done < args.requests:
         n = min(args.batch, args.requests - done)
         prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int64)
-        out = serve_batch(params, cfg, prompts, args.gen, device=dev, reg=reg)
+        out = serve_batch(params, cfg, prompts, args.gen, device=dev, reg=reg, mesh=mesh)
         all_out.append(out[:n])
         done += n
-        print(f"served {done}/{args.requests} requests "
-              f"(batch decode tok/s so far: {done * args.gen / (time.monotonic() - t0):,.1f})")
+        say(f"served {done}/{args.requests} requests "
+            f"(batch decode tok/s so far: {done * args.gen / (time.monotonic() - t0):,.1f})")
     dt = time.monotonic() - t0
-    print(f"done: {args.requests} requests × {args.gen} tokens in {dt:.1f}s on {dev}")
+    say(f"done: {args.requests} requests × {args.gen} tokens in {dt:.1f}s on {where}")
     if reg is not None:
         d = reg.histogram("serve.decode.seconds")
-        print(f"decode/token: p50 {d.p50 * 1e3:.1f}ms  "
-              f"p99 {d.p99 * 1e3:.1f}ms  p99.9 {d.p999 * 1e3:.1f}ms")
+        say(f"decode/token: p50 {d.p50 * 1e3:.1f}ms  "
+            f"p99 {d.p99 * 1e3:.1f}ms  p99.9 {d.p999 * 1e3:.1f}ms")
         # any NoC engine profiled in-process publishes noc.latency.*;
         # surface it next to the serve latencies (logical-clock ticks)
         for key, h in reg.histograms("noc.latency.").items():
-            print(f"{key}: n={h.count} p50 {h.p50:.0f}  p99 {h.p99:.0f}  "
-                  f"p99.9 {h.p999:.0f} ticks")
+            say(f"{key}: n={h.count} p50 {h.p50:.0f}  p99 {h.p99:.0f}  "
+                f"p99.9 {h.p999:.0f} ticks")
         snap = json.dumps(reg.snapshot(), indent=1, sort_keys=True)
         if args.metrics == "-":
-            print(snap)
-        else:
+            say(snap)
+        elif mesh is None or mesh.node == 0:
             with open(args.metrics, "w") as fh:
                 fh.write(snap + "\n")
-            print(f"metrics snapshot -> {args.metrics}")
+            say(f"metrics snapshot -> {args.metrics}")
         disable_metrics()
     return np.concatenate(all_out)
 

@@ -6,8 +6,21 @@
 Runs on one device (``--device``, default ``cuda``; it raises without a GPU
 unless ``--device cpu`` is given) with the substrate engaged: the sharded
 deterministic data pipeline, AdamW under the cosine schedule, remat, and
-checkpoint/restart through the resilient runner.  ``--model-parallel`` and
-``--pod-sync serdes`` wait for device-mesh execution.
+checkpoint/restart through the resilient runner.
+
+``--model-parallel N`` trains on a ``("data", "model")`` mesh of every rank
+(`launch.mesh.make_host_mesh(model=N)`), started by torchrun:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --model-parallel 2 --dist-backend gloo --device cpu --smoke --steps 6
+
+Each rank joins over ``--dist-backend`` (required with more than one rank),
+keeps its blocks of the params and of AdamW's state, and runs the step on
+the whole batch (`launch.steps.make_train_step(mesh=)`: the batch split over
+``data``, the weights over ``model``); rank 0 prints and writes the
+checkpoint, the gathered global tree in the one-device files, and a restore
+cuts it for any mesh.  ``--pod-sync serdes`` waits for ROADMAP item 8(e)
+part 3.
 
 ``--metrics PATH`` turns on the telemetry metrics registry: each step's wall
 clock lands in the ``train.step.seconds`` histogram (p50/p99/p99.9 printed at
@@ -29,21 +42,25 @@ import torch
 from .._device import resolve_device, synchronize
 from ..checkpoint import CheckpointConfig, CheckpointManager
 from ..configs import ALL_ARCHS, get_config
+from ..core.partition import mesh_shape
 from ..data import DataConfig, ShardedTokenPipeline
 from ..models import transformer as T
 from ..models.layers import init_params
 from ..optim import AdamWConfig, adamw_init
 from ..runtime import FTConfig, ResilientRunner
 from ..telemetry.metrics import disable_metrics, enable_metrics
-from .steps import make_train_step
+from .mesh import add_mesh_args, mesh_from_args
+from .steps import make_train_step, state_shardings
 
 
-def build_state(cfg, seed: int = 0, device="cuda") -> dict:
+def build_state(cfg, seed: int = 0, device="cuda", mesh=None) -> dict:
     """Params drawn from ``seed`` and a fresh AdamW state on ``device``.  The
     draws come from a CPU generator, so a seed gives the same model on every
-    device (as the reference's ``jax.random.key`` does)."""
+    device (as the reference's ``jax.random.key`` does); on a ``mesh`` each
+    rank keeps its blocks."""
     dev = resolve_device(device)
-    params = init_params(T.abstract_params(cfg), torch.Generator().manual_seed(seed), dev)
+    params = init_params(T.abstract_params(cfg), torch.Generator().manual_seed(seed), dev,
+                         mesh=mesh)
     return {"params": params, "opt": adamw_init(params)}
 
 
@@ -78,16 +95,29 @@ def run(argv=None):
     ap.add_argument("--metrics", default=None, metavar="PATH",
                     help="enable the telemetry metrics registry; write the "
                          "JSON snapshot here ('-' prints to stdout)")
+    add_mesh_args(ap)
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    dev, mesh, joined = mesh_from_args(args, ap)
+    try:
+        return _train(args, dev, mesh)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(args, dev, mesh):
+    say = print if mesh is None or mesh.node == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch, smoke=args.smoke)
     opt_cfg = AdamWConfig(lr=args.lr)
-    step_fn = make_train_step(cfg, opt_cfg, total_steps=args.steps,
+    step_fn = make_train_step(cfg, opt_cfg, mesh=mesh, total_steps=args.steps,
                               warmup=max(args.steps // 20, 5))
-    state = build_state(cfg, args.seed, dev)
-    print(f"arch={cfg.name} params={cfg.param_count():,} device={dev} "
-          f"tokens/step={args.batch * args.seq}")
+    state = build_state(cfg, args.seed, dev, mesh=mesh)
+    where = f"device={dev}" if mesh is None else f"mesh={mesh_shape(mesh)} device={dev}"
+    say(f"arch={cfg.name} params={cfg.param_count():,} {where} "
+        f"tokens/step={args.batch * args.seq}")
 
     reg = enable_metrics() if args.metrics else None
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
@@ -109,19 +139,20 @@ def run(argv=None):
         losses.append(loss)
         n = len(losses)
         if n % args.log_every == 0 or n == 1:
-            print(f"step {n:5d}  loss {losses[-1]:.4f}  "
-                  f"gnorm {float(mets['grad_norm']):.3f}")
+            say(f"step {n:5d}  loss {losses[-1]:.4f}  "
+                f"gnorm {float(mets['grad_norm']):.3f}")
         return state
 
     try:
         start = 0
         if args.ckpt:
-            cm = CheckpointManager(CheckpointConfig(args.ckpt, keep_last=2))
+            cm = CheckpointManager(CheckpointConfig(args.ckpt, keep_last=2), mesh=mesh,
+                                   specs=state_shardings(cfg, mesh) if mesh else None)
             runner = ResilientRunner(wrapped, cm, FTConfig(checkpoint_every=args.ckpt_every))
             start = cm.latest_step() or 0
             if start:
                 state, start, _ = cm.restore(state)
-                print(f"restored from step {start}")
+                say(f"restored from step {start}")
             t0 = time.monotonic()
             state, _ = runner.run(state, pipeline, args.steps, start)
         else:
@@ -133,24 +164,24 @@ def run(argv=None):
         pipeline.close()
     tok_s = (args.steps - start) * args.batch * args.seq / max(dt, 1e-9)
     summary = f"loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else "no steps left"
-    print(f"done: {args.steps - start} steps in {dt:.1f}s ({tok_s:,.0f} tok/s) on {dev}; "
-          f"{summary}")
+    say(f"done: {args.steps - start} steps in {dt:.1f}s ({tok_s:,.0f} tok/s) on {dev}; "
+        f"{summary}")
     if reg is not None:
         h = reg.histogram("train.step.seconds")
-        print(f"step time: p50 {h.p50 * 1e3:.1f}ms  p99 {h.p99 * 1e3:.1f}ms  "
-              f"p99.9 {h.p999 * 1e3:.1f}ms")
+        say(f"step time: p50 {h.p50 * 1e3:.1f}ms  p99 {h.p99 * 1e3:.1f}ms  "
+            f"p99.9 {h.p999 * 1e3:.1f}ms")
         # any NoC engine profiled in-process publishes noc.latency.*;
         # surface it next to the step times (logical-clock ticks)
         for key, hh in reg.histograms("noc.latency.").items():
-            print(f"{key}: n={hh.count} p50 {hh.p50:.0f}  p99 {hh.p99:.0f}  "
-                  f"p99.9 {hh.p999:.0f} ticks")
+            say(f"{key}: n={hh.count} p50 {hh.p50:.0f}  p99 {hh.p99:.0f}  "
+                f"p99.9 {hh.p999:.0f} ticks")
         snap = json.dumps(reg.snapshot(), indent=1, sort_keys=True)
         if args.metrics == "-":
-            print(snap)
-        else:
+            say(snap)
+        elif mesh is None or mesh.node == 0:
             with open(args.metrics, "w") as fh:
                 fh.write(snap + "\n")
-            print(f"metrics snapshot -> {args.metrics}")
+            say(f"metrics snapshot -> {args.metrics}")
         disable_metrics()
     return losses
 

@@ -8,9 +8,14 @@
 
 Cross-attention (whisper) = ``kv_override`` + causal=False.  Decode = S==1
 against a preallocated cache written at ``cache["idx"]``, in place: the port
-updates the cache tensors where the reference returns updated copies.  On one
-card the reference's sharding constraints (``constrain``, ``cache_axes``) are
-nothing.
+updates the cache tensors where the reference returns updated copies.
+
+On a mesh (`launch.mesh`) each rank computes its block of heads: ``wq`` and
+``wo`` hold the rank's ``heads``, ``wk`` and ``wv`` its ``kv_heads`` when the
+model axis divides them, else all of them, from which the rank reads the kv
+heads its query heads use.  The rank's outputs are added over the model axis
+after ``wo``.  The cache holds the rank's batch block and kv heads (the
+reference's ``cache_axes`` without ``seq_shard``, which no config sets).
 
 ``compute_dtype="bf16"`` (the reference's bf16 operands with float32
 accumulation) keeps the reference's roundings: q·kᵀ of the operands as they
@@ -27,6 +32,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.collectives import copy_to, reduce_from
 from ..kernels import ops as kops
 from .layers import ParamSpec, rms_norm, rope
 
@@ -67,6 +73,9 @@ def attn_specs(c: AttnConfig, dtype=torch.float32) -> dict:
 
 def init_cache(c: AttnConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> dict:
+    """K/V of ``batch`` rows and ``c.n_kv_heads`` heads (on a mesh the caller
+    passes the rank's block of both: the reference's ``constrain`` of the
+    cache by ``cache_axes`` is this allocation)."""
     shape = (batch, c.n_kv_heads, max_len, c.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device), "idx": 0}
@@ -77,11 +86,14 @@ def _project(x, w):
     return torch.einsum("bsd,dhk->bhsk", x, w.to(x.dtype))
 
 
-def _qkv(params, x, c: AttnConfig, positions):
-    q, k, v = (_project(x, params[w]) for w in ("wq", "wk", "wv"))
+def _qkv(params, xq, xkv, c: AttnConfig, positions, heads_axis, kv_axis):
+    """q from ``xq``, k and v from ``xkv``; a norm weight applied to the
+    rank's part of the heads enters through ``copy_to``."""
+    q = _project(xq, params["wq"])
+    k, v = (_project(xkv, params[w]) for w in ("wk", "wv"))
     if c.qk_norm:
-        q = rms_norm(q, params["q_norm"].to(x.dtype))
-        k = rms_norm(k, params["k_norm"].to(x.dtype))
+        q = rms_norm(q, copy_to(params["q_norm"], heads_axis).to(xq.dtype))
+        k = rms_norm(k, copy_to(params["k_norm"], kv_axis).to(xq.dtype))
     if c.use_rope:
         # rope expects (..., S, D); bring seq before head_dim
         q = rope(q.transpose(1, 2), positions, c.rope_theta).transpose(1, 2)
@@ -173,29 +185,55 @@ def _blocked(q, k, v, causal: bool, kv_len, bkv: int, softcap: float, q_offset=N
     return o.reshape(B, Hq, S, Dv).to(q.dtype)
 
 
+def _kv_for_heads(k: torch.Tensor, c: AttnConfig, heads_axis) -> torch.Tensor:
+    """From all ``c.n_kv_heads`` kv heads (replicated over the model axis),
+    the ones the rank's query heads read: a whole number of GQA groups, one
+    group's kv head, or, when the rank's heads straddle groups unevenly, one
+    kv head per query head.  The kv heads enter through ``copy_to``: each
+    rank reads a part of them."""
+    Hl = c.n_heads // heads_axis.size
+    g = c.n_heads // c.n_kv_heads
+    q0 = heads_axis.coord * Hl
+    k = copy_to(k, heads_axis)
+    if Hl % g == 0:
+        return k[:, q0 // g:(q0 + Hl) // g]
+    if g % Hl == 0:
+        return k[:, q0 // g:q0 // g + 1]
+    return k[:, torch.arange(q0, q0 + Hl, device=k.device) // g]
+
+
 def attention(params: dict, x: torch.Tensor, c: AttnConfig, *,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[dict] = None,
               kv_override: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
-              causal: bool = True) -> tuple[torch.Tensor, Optional[dict]]:
+              causal: bool = True, heads_axis=None,
+              kv_axis=None) -> tuple[torch.Tensor, Optional[dict]]:
     """x: (B, S, d).  Returns (out (B, S, d), updated cache or None).
     ``positions`` (B, S) feed RoPE; by default they count on from the cache's
-    write index (from 0 without a cache)."""
+    write index (from 0 without a cache).
+
+    ``heads_axis`` / ``kv_axis``: the mesh axes ``heads`` / ``kv_heads`` are
+    split over (`core.partition.split_axis`; None: whole).  x is
+    replicated; ``kv_override`` then holds the rank's kv heads when
+    ``kv_axis`` is set, else all of them."""
     B, S, d = x.shape
     if positions is None:
         base = cache["idx"] if cache is not None else 0
         positions = (base + torch.arange(S, device=x.device))[None, :].expand(B, S)
+    # x feeds the rank's query heads (and its kv heads when they are split)
+    xq = copy_to(x, heads_axis)
     if kv_override is not None:
-        q = _project(x, params["wq"])
+        q = _project(xq, params["wq"])
         if c.qk_norm:
-            q = rms_norm(q, params["q_norm"].to(x.dtype))
+            q = rms_norm(q, copy_to(params["q_norm"], heads_axis).to(x.dtype))
         k, v = kv_override
         kv_len = None
         caus = False
         q_off = None
         new_cache = cache
     else:
-        q, k, v = _qkv(params, x, c, positions)
+        q, k, v = _qkv(params, xq, xq if kv_axis is not None else x, c, positions,
+                       heads_axis, kv_axis)
         kv_len = None
         caus = causal
         q_off = None
@@ -203,6 +241,8 @@ def attention(params: dict, x: torch.Tensor, c: AttnConfig, *,
         if cache is not None:
             idx = cache["idx"]
             ck, cv = cache["k"], cache["v"]
+            # the reference's constrain(ck, cache_axes): the cache already
+            # holds this rank's batch rows and kv heads; nothing moves
             ck[:, :, idx:idx + S] = k.to(ck.dtype)
             cv[:, :, idx:idx + S] = v.to(cv.dtype)
             new_cache = {"k": ck, "v": cv, "idx": idx + S}
@@ -210,6 +250,10 @@ def attention(params: dict, x: torch.Tensor, c: AttnConfig, *,
             kv_len = idx + S
             q_off = idx  # queries sit at absolute positions idx..idx+S-1
 
+    if heads_axis is not None and kv_axis is None:
+        k, v = _kv_for_heads(k, c, heads_axis), _kv_for_heads(v, c, heads_axis)
+    # the reference's constrain(q / o, ("batch", "heads", "seq", "head_dim")):
+    # q and o hold the rank's heads already; nothing moves
     # the reference's dispatch (attention.py:224-231): the kernel only without
     # a cache and for more than one query; flash with a cache takes _naive
     if c.impl == "flash" and S > 1 and kv_len is None:
@@ -221,4 +265,4 @@ def attention(params: dict, x: torch.Tensor, c: AttnConfig, *,
         o = _naive(q, k, v, caus, kv_len, c.logit_softcap, q_off,
                    compute_dtype=c.compute_dtype)
     out = torch.einsum("bhsk,hkd->bsd", o, params["wo"].to(x.dtype))
-    return out, new_cache
+    return reduce_from(out, heads_axis), new_cache

@@ -7,6 +7,11 @@ shapes.  The abstract spec tree (`ParamSpec` leaves) built by each model's
 ``abstract_params`` is the one source of shapes, dtypes and init rules.
 Each op keeps the reference's casts: norms, RoPE angles and the
 cross-entropy's log-sum-exp are computed in float32.
+
+On a mesh (`launch.mesh`), each rank holds the block of every leaf that
+:func:`param_pspecs` gives it (:func:`shard_params` cuts a whole tree,
+:func:`gather_params` puts it back together), and :func:`mlp_apply` runs
+on the rank's ``mlp`` columns.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from .._tree import leaves
+from ..core.collectives import copy_to, reduce_from
+from ..core.partition import DEFAULT_RULES, block, logical_to_spec, mesh_shape, unblock
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,14 +71,57 @@ def init_param(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
     return (normal * std).to(spec.dtype)
 
 
-def init_params(spec_tree, gen: torch.Generator, device=None):
+def init_params(spec_tree, gen: torch.Generator, device=None, mesh=None):
     """Materialize a spec tree, drawing every leaf from ``gen`` in sorted-key
     order on the generator's device and placing it on ``device`` (default:
-    the generator's)."""
+    the generator's).  With a ``mesh`` each leaf is drawn whole and only the
+    rank's block (:func:`param_pspecs`) is kept and placed, so the same seed
+    gives every mesh the same model."""
     device = gen.device if device is None else device
     if is_spec(spec_tree):
-        return init_param(gen, spec_tree, device)
-    return {k: init_params(spec_tree[k], gen, device) for k in sorted(spec_tree)}
+        if mesh is None:
+            return init_param(gen, spec_tree, device)
+        whole = init_param(gen, spec_tree, gen.device)
+        return block(whole, _pspec(spec_tree, DEFAULT_RULES, mesh.axis_names,
+                                   mesh_shape(mesh)), mesh).to(device, copy=True)
+    return {k: init_params(spec_tree[k], gen, device, mesh) for k in sorted(spec_tree)}
+
+
+def _pspec(s: ParamSpec, rules, mesh_axes, shape_of_mesh):
+    return logical_to_spec(s.axes, rules, mesh_axes, dims=s.shape, mesh_shape=shape_of_mesh)
+
+
+def param_pspecs(spec_tree, rules=DEFAULT_RULES, mesh_axes=None, mesh_shape=None):
+    """The spec (`core.partition.logical_to_spec`) of every leaf: the block a
+    rank of a mesh with ``mesh_axes`` of ``mesh_shape`` holds."""
+    return spec_tree_map(lambda s: _pspec(s, rules, mesh_axes, mesh_shape), spec_tree)
+
+
+def param_shapes(spec_tree):
+    """Every leaf as a tensor on the ``meta`` device (shape and dtype, no
+    storage): the counterpart of ``jax.ShapeDtypeStruct``."""
+    return spec_tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+                         spec_tree)
+
+
+def _zip_map(fn, params, specs):
+    if isinstance(params, dict):
+        return {k: _zip_map(fn, params[k], specs[k]) for k in params}
+    return fn(params, specs)
+
+
+def shard_params(params, spec_tree, mesh):
+    """Each whole leaf of ``params`` cut to this rank's block of ``mesh``
+    under the matching spec of ``spec_tree`` (a `param_pspecs` tree), copied
+    so the whole leaves can be freed.  The expert leaves' ``experts`` rule
+    cuts the rank's block of experts that `models.moe` reads."""
+    return _zip_map(lambda t, sp: block(t, sp, mesh).clone(), params, spec_tree)
+
+
+def gather_params(params, spec_tree, mesh):
+    """The inverse of :func:`shard_params`: every leaf whole, on every rank
+    (collective: every rank of the mesh calls it)."""
+    return _zip_map(lambda t, sp: unblock(t, sp, mesh), params, spec_tree)
 
 
 def count_params(spec_tree) -> int:
@@ -143,13 +193,20 @@ def mlp_specs(d: int, ff: int, dtype, gated: bool = True) -> dict:
     return sp
 
 
-def mlp_apply(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, act: str = "silu", axis=None) -> torch.Tensor:
     """The gated MLP when the params have a ``gate``, else the plain
-    two-layer one."""
+    two-layer one.  ``axis``: the mesh axis the ``mlp`` dim is split over
+    (None: whole): the leaves hold the rank's up/gate columns and down rows,
+    x is replicated, and the rank's partial outputs are added over the axis.
+    The reference's ``constrain(h, ("batch", "seq", "mlp"))`` needs nothing
+    here: h already holds the rank's columns."""
+    x = copy_to(x, axis)
     if "gate" in params:
-        return swiglu(x, params["gate"].to(x.dtype), params["up"].to(x.dtype),
-                      params["down"].to(x.dtype), act=act)
-    return _act(x @ params["up"].to(x.dtype), act) @ params["down"].to(x.dtype)
+        out = swiglu(x, params["gate"].to(x.dtype), params["up"].to(x.dtype),
+                     params["down"].to(x.dtype), act=act)
+    else:
+        out = _act(x @ params["up"].to(x.dtype), act) @ params["down"].to(x.dtype)
+    return reduce_from(out, axis)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -21,7 +21,9 @@ Engines, by ``MoEConfig.impl``:
 The mesh is the ambient one (`core.collectives.current_mesh`, entered with
 `launch.mesh.set_mesh`); the port is SPMD, so every rank runs the layer on
 the same activations and `moe_apply` cuts the rank's block on the way in and
-all-gathers on the way out (see its docstring).  With no mesh both engines
+all-gathers on the way out (see its docstring), or, inside the LM's
+data-parallel forward, runs on the rank's batch rows.  Gradients go through
+every engine.  With no mesh both engines
 run on one rank with every expert local and no transfer: what the reference
 computes under a one-device ``("data", "model")`` mesh.  The port does not
 take the reference's no-mesh fallback to `dense_ref` (a decided divergence);
@@ -208,16 +210,28 @@ def _router(x_flat, wr, c: MoEConfig):
 
 def dense_ref(params, x, c: MoEConfig):
     """Every token through every expert, gate-combined: O(E·T·d·f)."""
+    out, aux, _ = _dense(params, x, c, None)
+    return out, aux
+
+
+def _dense(params, x, c: MoEConfig, axis):
+    """`dense_ref` -> (out, aux, (me, ce)); with the model ``axis`` (None:
+    one rank) the expert leaves hold the rank's block of experts, which
+    every token passes through, and the ranks' parts are added."""
     B, S, d = x.shape
     xf = x.reshape(-1, d)
-    w, idx, aux, _ = _router(xf, params["router"], c)
+    w, idx, aux, mece = _router(xf, params["router"], c)
     gate_full = torch.zeros((xf.shape[0], c.n_experts), dtype=x.dtype,
                             device=x.device).scatter(1, idx, w)
+    if axis is not None:
+        epr = c.n_experts // axis.size
+        gate_full = coll.copy_to(gate_full, axis)[:, axis.coord * epr:(axis.coord + 1) * epr]
+        xf = coll.copy_to(xf, axis)
     h = torch.einsum("td,edf->tef", xf, params["gate"].to(x.dtype))
     u = torch.einsum("td,edf->tef", xf, params["up"].to(x.dtype))
     y = torch.einsum("tef,efd->ted", _act(h, c.act) * u, params["down"].to(x.dtype))
-    out = torch.einsum("ted,te->td", y, gate_full)
-    return out.reshape(B, S, d), aux
+    out = coll.reduce_from(torch.einsum("ted,te->td", y, gate_full), axis)
+    return out.reshape(B, S, d), aux, mece
 
 
 def _expert_ffn(xe, wg, wu, wd, act):
@@ -268,12 +282,12 @@ def _gather_local(x_flat, wr, wg, wu, wd, c: MoEConfig, axis, blk_of, n_blocks: 
     slots, valid = _dispatch_slots(flat_dst, blk_of_pkt, local_e, n_blocks, cap)
     slots, valid = slots.reshape(epr, -1), valid.reshape(epr, -1)   # (epr, n_blocks*cap)
     toks = tok_of[slots]
-    xe = x_flat[toks] * valid[..., None].to(x_flat.dtype)
+    # x and the gate weights feed the rank's experts only: copy_to
+    xe = coll.copy_to(x_flat, axis)[toks] * valid[..., None].to(x_flat.dtype)
     ye = _expert_ffn(xe, wg, wu, wd, c.act)
-    comb = (flat_w[slots] * valid.to(flat_w.dtype))[..., None]
+    comb = (coll.copy_to(flat_w, axis)[slots] * valid.to(flat_w.dtype))[..., None]
     out = _combine(ye * comb, slots, valid, idx)
-    if n_ranks > 1:
-        out = coll.psum(out, axis)                              # combine expert ranks
+    out = coll.reduce_from(out, axis)                           # combine expert ranks
     counts = _dispatch_counts(flat_dst, blk_of_pkt, E, n_blocks)
     drops, peak = _drops_and_peak(counts, cap, n_ranks)
     return out, aux, mece, drops, peak
@@ -303,7 +317,7 @@ def _noc_local(x_flat, wr, wg, wu, wd, c: MoEConfig, axis, prog, cap: int):
     def route(cube):
         if n_ranks == 1:
             return cube
-        return run_route_program(cube, prog, axis.mesh, axis_name=axis.names)
+        return _Route.apply(cube, prog, axis)
 
     # outbound: row e = (destination rank e // epr, local expert e % epr), so
     # the (n_ranks, epr*cap, d) cube is destination-indexed
@@ -319,6 +333,22 @@ def _noc_local(x_flat, wr, wg, wu, wd, c: MoEConfig, axis, prog, cap: int):
     return out, aux, mece, drops, peak
 
 
+class _Route(torch.autograd.Function):
+    """The route program over the model axis, linearized: a transpose of the
+    destination-indexed cube, its own adjoint, so the backward routes the
+    cotangent cube the same way."""
+
+    @staticmethod
+    def forward(ctx, cube, prog, axis):
+        ctx.prog, ctx.axis = prog, axis
+        return run_route_program(cube, prog, axis.mesh, axis_name=axis.names)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (run_route_program(g.contiguous(), ctx.prog, ctx.axis.mesh,
+                                  axis_name=ctx.axis.names), None, None)
+
+
 def _static_stats(engine: str, c: MoEConfig, *, fallback=None, topology=None, capacity=0,
                   tokens_per_src=0, flits=0, rounds=0, link_bytes=0, drops=0,
                   peak=0) -> MoEDispatchStats:
@@ -330,106 +360,91 @@ def _static_stats(engine: str, c: MoEConfig, *, fallback=None, topology=None, ca
                             peak_occupancy=peak)
 
 
-def shard_experts(params, mesh=None):
-    """``params`` with every ``moe`` gate/up/down leaf cut to this rank's
-    block of experts on ``mesh``'s model axis (default: the ambient mesh),
-    the block ``P("model", None, None)`` gives a device; stacked leaves are
-    ``(L, E, ...)``.  Leaves are copied, so the full ones can be freed.
-    Without a model axis of more than one rank, or when it does not divide
-    E, the tree comes back as it is."""
-    mesh = coll.current_mesh() if mesh is None else mesh
-    if mesh is None or "model" not in mesh.axis_names or mesh.shape[
-            mesh.axis_names.index("model")] == 1:
-        return params
-    axis = mesh.axis("model")
-
-    def cut(tree):
-        if not isinstance(tree, dict):
-            return tree
-        out = {k: cut(v) for k, v in tree.items()}
-        moe = tree.get("moe")
-        if isinstance(moe, dict) and "gate" in moe:
-            dim = moe["gate"].dim() - 3                         # the expert axis
-            E = moe["gate"].shape[dim]
-            if E % axis.size == 0:
-                epr = E // axis.size
-                out["moe"] = dict(out["moe"], **{
-                    k: moe[k].narrow(dim, axis.coord * epr, epr).clone()
-                    for k in ("gate", "up", "down")})
-        return out
-    return cut(params)
-
-
-def moe_apply(params: dict, x: torch.Tensor, c: MoEConfig):
+def moe_apply(params: dict, x: torch.Tensor, c: MoEConfig, *, batch_local: bool = False):
     """x: (B, S, d) -> (out, aux_loss, MoEDispatchStats), engine per ``c.impl``.
 
     Under an ambient mesh with a ``model`` axis (`launch.mesh.set_mesh`)
-    every rank calls it on the same x and the same non-expert weights; the
-    expert leaves hold the rank's ``E / n_model`` experts (`shard_experts`).
-    The rank takes its block of x (the batch over the data axes when they
-    divide B, and for ``noc`` the sequence over ``model``), runs the engine,
-    and all-gathers the blocks, so every rank returns the whole (B, S, d).
-    Without a mesh (or a model axis) the engines run on one rank with every
-    expert, as the reference does under a one-device mesh.
+    every rank calls it with the same non-expert weights; the expert leaves
+    hold the rank's ``E / n_model`` experts (`models.layers.shard_params`
+    by the ``experts`` rule), or all E.  x is the same on every rank, and
+    the rank takes its block (the batch over the data axes when they divide
+    B, and for ``noc`` the sequence over ``model``), runs the engine and
+    all-gathers the blocks, so every rank returns the whole (B, S, d).  With
+    ``batch_local`` (the LM's data-parallel forward) x is the rank's block
+    of the batch already and the output is the rank's block; aux, drops and
+    peak cover the whole batch either way.  ``dense`` runs every token on
+    every rank, with the experts split over ``model`` when the leaves hold a
+    block of them.  Without a mesh (or
+    a model axis) the engines run on one rank with every expert, as the
+    reference does under a one-device mesh.
+
+    Gradients go through every engine on a mesh: the transfers are the
+    autograd-aware collectives of `core.collectives` and the route program
+    is its own adjoint.  The loss is taken as replicated over the model
+    axis, and over the data axes unless ``batch_local``, whose gradients the
+    train step averages.
 
     Fallbacks, each recorded in ``stats.fallback`` with a ``UserWarning``:
     E not divisible by the model ranks runs `dense_ref` (the expert leaves
     then hold all E); ``noc`` on a sequence the model ranks do not divide
-    (decode) runs ``gather``.  A multi-rank call with grad enabled on an
-    input or weight that requires grad raises: the transfers move bytes,
-    which would cut the graph."""
-    if c.impl == "dense":
-        out, aux = dense_ref(params, x, c)
-        return out, aux, _static_stats("dense", c)
-    if c.impl not in ("gather", "noc"):
+    (decode) runs ``gather``."""
+    if c.impl not in ("gather", "noc", "dense"):
         raise ValueError(f"moe impl must be 'gather', 'dense' or 'noc', got {c.impl!r}")
     mesh = coll.current_mesh()
-    if mesh is not None and "model" not in mesh.axis_names:
-        mesh = None
-    n_ranks = mesh.shape[mesh.axis_names.index("model")] if mesh is not None else 1
+    has_model = mesh is not None and "model" in mesh.axis_names
+    n_ranks = mesh.shape[mesh.axis_names.index("model")] if has_model else 1
+    B, S, d = x.shape
+    batch_axes = tuple(a for a in ("pod", "data") if mesh is not None and a in mesh.axis_names)
+    n_batch = math.prod(mesh.shape[mesh.axis_names.index(a)] for a in batch_axes)
+    if not batch_local and B % n_batch:
+        batch_axes, n_batch = (), 1          # tiny-batch decode: replicate over data axes
+    baxis = mesh.axis(batch_axes) if n_batch > 1 else None
+    # the gradient scale of a mean over the data axes (see the docstring)
+    bscale = 1.0 if batch_local else 1.0 / n_batch
+
+    def aux_of(aux, mece, axis, scale):
+        if axis is None or axis.size == 1:
+            return aux
+        me, ce = (coll.mean_from(t, axis, scale) for t in mece)
+        return c.n_experts * (me * ce).sum()
+
+    def dense(reason=None):
+        # every token of x on every rank; the experts split over the model
+        # axis when the leaves hold a block of them
+        maxis = (mesh.axis("model") if has_model and params["gate"].shape[0] != c.n_experts
+                 else None)
+        out, aux, mece = _dense(params, x, c, maxis)
+        aux = aux_of(aux, mece, baxis, 1.0) if batch_local else aux
+        return out, aux, _static_stats("dense", c, fallback=reason)
+
+    if c.impl == "dense":
+        return dense()
     if c.n_experts % n_ranks:
         reason = (f"n_experts={c.n_experts} not divisible by model ranks="
                   f"{n_ranks}: dense_ref fallback, O(E*T*d*f) per token")
         warnings.warn(f"moe_apply: {reason}", stacklevel=2)
-        out, aux = dense_ref(params, x, c)
-        return out, aux, _static_stats("dense", c, fallback=reason)
+        return dense(reason)
 
-    B, S, d = x.shape
-    batch_axes = tuple(a for a in ("pod", "data") if mesh is not None and a in mesh.axis_names)
-    n_batch = math.prod(mesh.shape[mesh.axis_names.index(a)] for a in batch_axes)
-    if B % n_batch:
-        batch_axes, n_batch = (), 1          # tiny-batch decode: replicate over data axes
     impl, fallback = c.impl, None
     if impl == "noc" and (S < n_ranks or S % n_ranks):
         fallback = (f"impl='noc' needs seq len {S} divisible by model ranks="
                     f"{n_ranks} (decode-shaped input): using 'gather'")
         warnings.warn(f"moe_apply: {fallback}", stacklevel=2)
         impl = "gather"
-    if n_ranks * n_batch > 1 and torch.is_grad_enabled() and (
-            x.requires_grad or any(params[k].requires_grad for k in params)):
-        raise NotImplementedError(
-            "a gradient through the multi-rank MoE engines is ROADMAP item 8(e) part 2 "
-            "(train --model-parallel); run the forward under torch.no_grad(), or train "
-            "without a mesh")
 
     maxis = mesh.axis("model") if n_ranks > 1 else None
-    baxis = mesh.axis(batch_axes) if n_batch > 1 else None
-    ball = mesh.axis(batch_axes + ("model",)) if mesh is not None else None
     epr = c.n_experts // n_ranks
     for k in ("gate", "up", "down"):
         if params[k].shape[0] != epr:
             raise ValueError(f"moe_apply: the {k!r} leaf holds {params[k].shape[0]} experts; on "
-                             f"{n_ranks} model ranks it holds the rank's {epr} (shard_experts)")
-    wr, wg, wu, wd = (params[k].to(x.dtype) for k in ("router", "gate", "up", "down"))
-    B_loc = B // n_batch
-    b0 = baxis.coord * B_loc if baxis is not None else 0
-    xb = x[b0:b0 + B_loc]
-
-    def aux_of(aux, mece, axis):
-        if axis is None or axis.size == 1:
-            return aux
-        me, ce = (coll.pmean(t, axis) for t in mece)
-        return c.n_experts * (me * ce).sum()
+                             f"{n_ranks} model ranks it holds the rank's {epr} "
+                             "(models.layers.shard_params)")
+    # the weights read rank-local tokens: over the data axes, unless the
+    # train step averages their gradients there
+    wr, wg, wu, wd = (coll.copy_to(params[k], None if batch_local else baxis).to(x.dtype)
+                      for k in ("router", "gate", "up", "down"))
+    xb = x if batch_local else coll.scatter_to(x, baxis, 0)
+    B_loc = xb.shape[0]
 
     if impl == "gather":
         T = B_loc * S
@@ -439,14 +454,16 @@ def moe_apply(params: dict, x: torch.Tensor, c: MoEConfig):
         blk_of = (torch.arange(T, device=x.device) % S) // (S // n_blocks)
         out, aux, mece, drops, peak = _gather_local(xb.reshape(T, d), wr, wg, wu, wd, c,
                                                     maxis, blk_of, n_blocks)
-        aux = aux_of(aux, mece, baxis)
+        aux = aux_of(aux, mece, baxis, bscale)
         if baxis is not None:    # drops replicated over 'model'; sum the replicas
             drops, peak = coll.psum(drops, baxis), coll.pmax(peak, baxis)
-            out = coll.all_gather(out.reshape(B_loc, S, d), baxis)
+        out = out.reshape(B_loc, S, d)
+        if not batch_local:
+            out = coll.gather_from(out, baxis, 0)
         stats = _static_stats("gather", c, fallback=fallback,
                               capacity=dispatch_capacity(T // n_blocks, c),
                               tokens_per_src=T // n_blocks, drops=drops, peak=peak)
-        return out.reshape(B, S, d), aux, stats
+        return out, aux, stats
 
     # impl == "noc": the topology's route program over the model ranks
     prog = compile_routes(make_topology(c.noc_topology, n_ranks))
@@ -456,20 +473,21 @@ def moe_apply(params: dict, x: torch.Tensor, c: MoEConfig):
     cap = dispatch_capacity(T_loc, c)
     msg_nbytes = epr * cap * d * x.element_size()              # one (src, dst) token cube
     sstats = route_program_stats(prog, n_ranks * n_ranks * msg_nbytes)
-    s0 = maxis.coord * S_loc if maxis is not None else 0
-    xl = xb[:, s0:s0 + S_loc]                                   # row-major (b, s) tokens
-    out, aux, mece, drops, peak = _noc_local(xl.reshape(T_loc, d), wr, wg, wu, wd, c, maxis,
-                                             prog, cap)
-    aux = aux_of(aux, mece, ball)
+    # the router reads the rank's sequence block: its gradient adds over model
+    xl = coll.scatter_to(xb, maxis, 1)                          # row-major (b, s) tokens
+    out, aux, mece, drops, peak = _noc_local(xl.reshape(T_loc, d), coll.copy_to(wr, maxis),
+                                             wg, wu, wd, c, maxis, prog, cap)
+    ball = mesh.axis(batch_axes + ("model",)) if mesh is not None and has_model else None
+    aux = aux_of(aux, mece, ball, bscale / n_ranks)
     if ball is not None and ball.size > 1:
         drops, peak = coll.psum(drops, ball), coll.pmax(peak, ball)
-        # (n_batch * n_ranks, B_loc, S_loc, d) in (batch block, sequence block) order
-        out = coll.all_gather(out.reshape(B_loc, S_loc, d), ball)
-        out = out.reshape(n_batch, n_ranks, B_loc, S_loc, d).transpose(1, 2)
+    out = coll.gather_from(out.reshape(B_loc, S_loc, d), maxis, 1)
+    if not batch_local:
+        out = coll.gather_from(out, baxis, 0)
     stats = _static_stats(
         "noc", c, fallback=fallback, topology=c.noc_topology, capacity=cap,
         tokens_per_src=T_loc,
         # out + back trips of the same program; flits frame all n^2 buffers
         flits=2 * n_ranks * n_ranks * ncfg.flits_for(msg_nbytes),
         rounds=2 * sstats.rounds, link_bytes=2 * sstats.link_bytes, drops=drops, peak=peak)
-    return out.reshape(B, S, d), aux, stats
+    return out, aux, stats

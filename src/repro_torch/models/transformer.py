@@ -19,6 +19,20 @@ returns its new float32 state, which the stack copies into its period's slice.
 MoE dispatch stats follow the reference's scan carry: ``aux`` and
 ``moe_drops`` sum over the stack, ``moe_peak_occupancy`` is the max.
 
+On a mesh (the ambient one, `launch.mesh.set_mesh`) every rank of it calls
+the same function on the same batch, with the params cut to the rank's
+blocks (`models.layers.shard_params`).  The :class:`Layout` of the call says
+where tensors live: the batch is split over the data axes when they divide
+it (``launch.steps.batch_shardings``'s rule), else replicated; the model
+axis splits ``heads``, ``kv_heads``, ``mlp``, ``vocab`` and ``experts`` where
+it divides them (`core.partition.split_axis`).  Activations between
+sub-layers are replicated over the model axis.  The embedding looks up the
+rank's rows and adds over the model axis; the logits are the rank's vocab
+block, all-gathered; ``forward`` all-gathers the batch blocks, so every rank
+returns the whole result, and ``loss`` reduces over the data axes.  A model
+with an ``mla``, ``mamba``, ``mlstm`` or ``slstm`` sub-layer runs on a
+model axis of one rank only (ROADMAP item 8(e) part 2b).
+
 API:
   abstract_params(cfg)                  -> ParamSpec tree
   forward(params, batch, cfg, cache)    -> (logits, aux, new_cache, moe_stats)
@@ -28,6 +42,7 @@ API:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -35,7 +50,9 @@ import torch.utils.checkpoint
 
 from .._tree import flatten, unflatten
 from ..configs.base import ModelConfig
+from ..core import collectives as coll
 from ..core.noc import NoCConfig
+from ..core.partition import DEFAULT_RULES, logical_to_spec, split_axis
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -92,6 +109,89 @@ def _moe_cfg(cfg: ModelConfig) -> moe_mod.MoEConfig:
     return moe_mod.MoEConfig(cfg.d_model, cfg.n_experts, cfg.top_k, cfg.d_ff_expert,
                              capacity_factor=cfg.capacity_factor, impl=cfg.moe_impl,
                              noc_topology=cfg.moe_topology, act=cfg.act, noc=noc)
+
+
+# ---------------------------------------------------------------------------
+# where a call's tensors live on the ambient mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """The mesh axes one call splits over (each a `MeshAxis`, None: the
+    dim is whole on every rank): ``batch`` the data axes over the batch;
+    ``heads``, ``kv_heads``, ``mlp``, ``vocab`` the model axis over those
+    dims of the weights.  With no mesh every field is None."""
+
+    mesh: Optional[coll.NoCMesh] = None
+    batch: Optional[coll.MeshAxis] = None
+    heads: Optional[coll.MeshAxis] = None
+    kv_heads: Optional[coll.MeshAxis] = None
+    mlp: Optional[coll.MeshAxis] = None
+    vocab: Optional[coll.MeshAxis] = None
+
+    def local_batch(self, B: int) -> int:
+        return B // self.batch.size if self.batch is not None else B
+
+    def take_batch(self, t):
+        """This rank's rows of a whole-batch tensor (None passes)."""
+        if t is None or self.batch is None:
+            return t
+        n = t.shape[0] // self.batch.size
+        return t[self.batch.coord * n:(self.batch.coord + 1) * n]
+
+
+PART_2B_MIXERS = ("mla", "mamba", "mlstm", "slstm")
+
+
+def batch_axis(mesh, B: int):
+    """The data axes the batch of ``B`` rows is split over on ``mesh``, or
+    None: the rule's axes (``batch``) that the mesh has, all of them or none,
+    as ``launch.steps.batch_shardings`` splits a batch."""
+    if mesh is None:
+        return None
+    (entry,) = logical_to_spec(("batch",), DEFAULT_RULES, mesh.axis_names)
+    if entry is None:
+        return None
+    ax = mesh.axis(entry)
+    return ax if ax.size > 1 and B % ax.size == 0 else None
+
+
+def layout(cfg: ModelConfig, B: int, mesh=None) -> Layout:
+    """The :class:`Layout` of a call on a batch of ``B`` rows under ``mesh``
+    (default: the ambient mesh)."""
+    mesh = coll.current_mesh() if mesh is None else mesh
+    if mesh is None:
+        return Layout()
+    if "model" in mesh.axis_names and mesh.axis("model").size > 1:
+        bad = sorted({m for m, _ in cfg.pattern} & set(PART_2B_MIXERS))
+        if bad:
+            raise NotImplementedError(
+                f"{cfg.name}: the {'/'.join(bad)} mixer on a model axis of more than one "
+                "rank is ROADMAP item 8(e) part 2b; run it with --model-parallel 1 (data "
+                "parallelism over every rank)")
+    return Layout(mesh=mesh, batch=batch_axis(mesh, B),
+                  heads=split_axis(mesh, "heads", cfg.n_heads),
+                  kv_heads=split_axis(mesh, "kv_heads", cfg.n_kv_heads),
+                  mlp=split_axis(mesh, "mlp", cfg.d_ff) if cfg.d_ff else None,
+                  vocab=split_axis(mesh, "vocab", cfg.vocab_padded))
+
+
+def _check_blocks(params, cfg: ModelConfig, lay: Layout) -> None:
+    """The params hold the rank's blocks of the layout (a whole tree on a
+    mesh would compute wrong sums): the embedding's rows and the first
+    attention's query heads."""
+    if lay.mesh is None:
+        return
+    want = cfg.vocab_padded // (lay.vocab.size if lay.vocab else 1)
+    got = params["embed"].shape[0]
+    attn = params["blocks"]["0"].get("attn")
+    if attn is not None:
+        want = (want, cfg.n_heads // (lay.heads.size if lay.heads else 1))
+        got = (got, attn["wq"].shape[-2])
+    if got != want:
+        raise ValueError(f"the params hold {got} (embedding rows, query heads) where this "
+                         f"rank's blocks hold {want}: cut them with "
+                         "models.layers.shard_params(params, param_pspecs(...), mesh)")
 
 
 # ---------------------------------------------------------------------------
@@ -176,14 +276,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     kv_lora) and RoPE key (P, B, max_len, rope) are in ``cfg.cdtype``, with
     the shared write index; the recurrent states (Mamba conv and ssm; mLSTM
     conv, C, n, m; sLSTM c, n, m, h) are float32 whatever ``cfg.cdtype`` is,
-    as in the reference, with no index."""
+    as in the reference, with no index.  Under a mesh a rank's cache holds
+    its block of the batch and of the kv heads (the call's `Layout`)."""
     P = cfg.n_periods
     f32 = torch.float32
+    lay = layout(cfg, batch)
+    batch = lay.local_batch(batch)
+    ac = _attn_cfg(cfg)
+    if lay.kv_heads is not None:
+        ac = dataclasses.replace(ac, n_kv_heads=cfg.n_kv_heads // lay.kv_heads.size)
     blocks = {}
     for i, (mixer, _) in enumerate(cfg.pattern):
         # one allocation for all periods: P·batch rows, viewed as (P, batch)
         if mixer == "attn":
-            c = attn_init_cache(_attn_cfg(cfg), P * batch, max_len, cfg.cdtype, device)
+            c = attn_init_cache(ac, P * batch, max_len, cfg.cdtype, device)
         elif mixer == "mla":
             c = mla_mod.init_mla_cache(_mla_cfg(cfg), P * batch, max_len, cfg.cdtype, device)
         elif mixer == "mamba":
@@ -208,14 +314,15 @@ def _norm(x, gamma, cfg: ModelConfig):
 
 
 def _apply_sublayer(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
-                    positions, cache, enc_out, causal):
+                    positions, cache, enc_out, causal, lay: Layout):
     """-> (x, new cache, aux, (drops, peak)); the last two are None without
     a MoE ffn."""
     aux = moe = None
     h = _norm(x, p["norm1"], cfg)
     if mixer == "attn":
         o, new_cache = attention(p["attn"], h, _attn_cfg(cfg), positions=positions,
-                                 cache=cache, causal=causal)
+                                 cache=cache, causal=causal, heads_axis=lay.heads,
+                                 kv_axis=lay.kv_heads)
     elif mixer == "mla":
         o, new_cache = mla_mod.mla_apply(p["mla"], h, _mla_cfg(cfg), positions=positions,
                                          cache=cache)
@@ -230,17 +337,22 @@ def _apply_sublayer(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
     x = x + o
     if enc_out is not None and "cross" in p:
         hx = _norm(x, p["norm_x"], cfg)
-        kv_k = torch.einsum("btd,dhk->bhtk", enc_out, p["cross"]["wk"].to(x.dtype))
-        kv_v = torch.einsum("btd,dhk->bhtk", enc_out, p["cross"]["wv"].to(x.dtype))
+        # the rank's cross kv heads when they are split, else all of them
+        e = coll.copy_to(enc_out, lay.kv_heads)
+        kv_k = torch.einsum("btd,dhk->bhtk", e, p["cross"]["wk"].to(x.dtype))
+        kv_v = torch.einsum("btd,dhk->bhtk", e, p["cross"]["wv"].to(x.dtype))
         o, _ = attention(p["cross"], hx, _attn_cfg(cfg), positions=positions,
-                         kv_override=(kv_k, kv_v), causal=False)
+                         kv_override=(kv_k, kv_v), causal=False, heads_axis=lay.heads,
+                         kv_axis=lay.kv_heads)
         x = x + o
     if ffn == "mlp":
         h = _norm(x, p["norm2"], cfg)
-        x = x + mlp_apply(p["mlp"], h, act="silu" if cfg.act == "silu" else "gelu")
+        x = x + mlp_apply(p["mlp"], h, act="silu" if cfg.act == "silu" else "gelu",
+                          axis=lay.mlp)
     elif ffn == "moe":
         h = _norm(x, p["norm2"], cfg)
-        o, aux, st = moe_mod.moe_apply(p["moe"], h, _moe_cfg(cfg))
+        o, aux, st = moe_mod.moe_apply(p["moe"], h, _moe_cfg(cfg),
+                                       batch_local=lay.batch is not None)
         moe = tuple(torch.as_tensor(v, dtype=torch.int32, device=x.device)
                     for v in (st.drops, st.peak_occupancy))
         x = x + o
@@ -259,7 +371,7 @@ def _unstack(tree, n: int) -> list:
 
 
 def _run_stack(blocks, x, cfg: ModelConfig, *, pattern, positions, cache_blocks,
-               enc_out, causal):
+               enc_out, causal, lay: Layout):
     """Loop over periods; each sub-layer's cache is its period's slice of the
     stacked cache tensors, written in place (by attention and MLA themselves,
     here for the recurrent mixers' new states).  Returns (x, aux, new cache
@@ -282,7 +394,7 @@ def _run_stack(blocks, x, cfg: ModelConfig, *, pattern, positions, cache_blocks,
                              for k, v in cache_blocks[str(i)].items()}
             x, nc, aux, moe = _apply_sublayer(pp[str(i)], x, cfg, mixer, ffn,
                                               positions=positions, cache=sub_cache,
-                                              enc_out=enc_out, causal=causal)
+                                              enc_out=enc_out, causal=causal, lay=lay)
             if nc is not None and "idx" in nc:
                 new_idx[str(i)] = nc["idx"]
             elif nc is not None:
@@ -290,6 +402,8 @@ def _run_stack(blocks, x, cfg: ModelConfig, *, pattern, positions, cache_blocks,
                     sub_cache[k].copy_(v)
             if moe is not None:
                 moe_stats.append((aux, *moe))
+        # the reference's constrain(x, ("batch", "seq", "embed")): x is the
+        # rank's batch rows, replicated over the model axis; nothing moves
         return x, moe_stats
 
     remat = cfg.remat and cache_blocks is None and torch.is_grad_enabled()
@@ -315,8 +429,19 @@ def _run_stack(blocks, x, cfg: ModelConfig, *, pattern, positions, cache_blocks,
     return x, aux, new_blocks, moe_stats
 
 
-def _embed_tokens(params, tokens, cfg: ModelConfig):
-    e = params["embed"].to(cfg.cdtype)[tokens]
+def _embed_tokens(params, tokens, cfg: ModelConfig, vocab_axis=None):
+    """The embedding rows of ``tokens``.  With the vocab split over
+    ``vocab_axis`` each rank looks up the tokens in its rows (zeros for the
+    others) and the ranks' rows are added: one rank holds each token."""
+    emb = params["embed"].to(cfg.cdtype)
+    if vocab_axis is None:
+        e = emb[tokens]
+    else:
+        rows = emb.shape[0]
+        local = tokens - vocab_axis.coord * rows
+        mine = (local >= 0) & (local < rows)
+        e = emb[local.clamp(0, rows - 1)] * mine[..., None].to(emb.dtype)
+        e = coll.reduce_from(e, vocab_axis)
     return e * torch.tensor(cfg.embed_scale, dtype=cfg.cdtype, device=e.device)
 
 
@@ -328,15 +453,17 @@ def _sinusoidal(positions, d, dtype):
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 
-def encode(params, frames, cfg: ModelConfig):
+def encode(params, frames, cfg: ModelConfig, lay: Optional[Layout] = None):
     """Audio encoder: precomputed frame embeddings (stubbed conv frontend)
-    -> frontend proj -> sinusoidal pos -> bidirectional stack."""
+    -> frontend proj -> sinusoidal pos -> bidirectional stack.  Under a
+    mesh ``frames`` are the rank's batch rows (``lay``: the call's)."""
+    lay = layout(cfg, frames.shape[0]) if lay is None else lay
     x = frames.to(cfg.cdtype) @ params["frontend"].to(cfg.cdtype)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     x = x + _sinusoidal(pos, cfg.d_model, x.dtype)
     x, *_ = _run_stack(params["enc_blocks"], x, cfg, pattern=(("attn", "mlp"),),
                        positions=pos.expand(x.shape[:2]), cache_blocks=None,
-                       enc_out=None, causal=False)
+                       enc_out=None, causal=False, lay=lay)
     return _norm(x, params["enc_norm"], cfg)
 
 
@@ -348,13 +475,24 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
     capacity-dropped packets summed over the MoE sub-layers and the hottest
     dispatch buffer (zeros without one).  A vlm batch's ``patches`` (B,
     n_patches, d_frontend) are projected by ``frontend`` and run before the
-    tokens; the logits cover the tokens only."""
-    tokens = batch["tokens"]
+    tokens; the logits cover the tokens only.  Under a mesh the batch is the
+    whole one on every rank, the cache the rank's (`init_cache` under the
+    same mesh), and every rank returns the whole logits."""
+    lay = layout(cfg, batch["tokens"].shape[0])
+    logits, aux, new_cache, moe_stats = _forward(params, batch, cfg, cache, lay)
+    return coll.gather_from(logits, lay.batch, 0), aux, new_cache, moe_stats
+
+
+def _forward(params: dict, batch: dict, cfg: ModelConfig, cache: Optional[dict],
+             lay: Layout):
+    """`forward` on the rank's batch rows: its logits are the rank's rows."""
+    _check_blocks(params, cfg, lay)
+    tokens = lay.take_batch(batch["tokens"])
     B, S = tokens.shape
     pos0 = cache["pos"] if cache is not None else 0
     positions = pos0 + torch.arange(S, device=tokens.device)[None, :].expand(B, S)
 
-    x = _embed_tokens(params, tokens, cfg)
+    x = _embed_tokens(params, tokens, cfg, lay.vocab)
     if cfg.pos_embed == "sinusoidal":
         x = x + _sinusoidal(positions, cfg.d_model, x.dtype)
 
@@ -362,25 +500,30 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
     if cfg.family == "encdec":
         enc_out = cache.get("enc_out") if cache is not None else None
         if enc_out is None:
-            enc_out = encode(params, batch["frames"], cfg)
+            enc_out = encode(params, lay.take_batch(batch["frames"]), cfg, lay)
     prefix = cfg.family == "vlm" and "patches" in batch
     if prefix:
-        pre = batch["patches"].to(cfg.cdtype) @ params["frontend"].to(cfg.cdtype)
+        pre = (lay.take_batch(batch["patches"]).to(cfg.cdtype)
+               @ params["frontend"].to(cfg.cdtype))
         x = torch.cat([pre, x], dim=1)
         positions = pos0 + torch.arange(x.shape[1], device=x.device)[None, :].expand(
             B, x.shape[1])
     S_all = x.shape[1]
+    # the reference's constrain(x, ("batch", "seq", "embed")): x holds the
+    # rank's batch rows, replicated over the model axis; nothing moves
 
     cache_blocks = cache["blocks"] if cache is not None else None
     x, aux, new_blocks, moe_stats = _run_stack(
         params["blocks"], x, cfg, pattern=cfg.pattern, positions=positions,
-        cache_blocks=cache_blocks, enc_out=enc_out, causal=True)
+        cache_blocks=cache_blocks, enc_out=enc_out, causal=True, lay=lay)
     x = _norm(x, params["final_norm"], cfg)
     if prefix:
         x = x[:, -S:]       # logits only for the text positions
     head = (params["embed"].to(x.dtype).T if cfg.tie_embeddings
             else params["lm_head"].to(x.dtype))
-    logits = x @ head
+    # the reference's constrain(logits, ("batch", "seq", "vocab")): each rank
+    # computes its vocab block, then the blocks are all-gathered
+    logits = coll.gather_from(coll.copy_to(x, lay.vocab) @ head, lay.vocab, -1)
     if cfg.vocab_padded != cfg.vocab:
         logits[..., cfg.vocab:] = MASK_LOGIT
     new_cache = None
@@ -393,10 +536,20 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
 
 def loss(params: dict, batch: dict, cfg: ModelConfig):
     """-> (nll + aux_weight · aux, {"nll", "aux", "moe_drops",
-    "moe_peak_occupancy"}), the MoE counters in float32 as in the reference."""
-    logits, aux, _, moe_stats = forward(params, batch, cfg)
-    nll = cross_entropy(logits, batch["labels"])
+    "moe_peak_occupancy"}), the MoE counters in float32 as in the reference.
+
+    Under a mesh that splits the batch, each rank computes the loss of its
+    rows and the loss and nll are averaged over the data axes (the
+    reference's global step); their backward is the identity, since the
+    train step averages the ranks' gradients over those axes.  The MoE
+    counters are the whole batch's already (summed, and maxed, in
+    `moe.moe_apply`), and aux is replicated."""
+    lay = layout(cfg, batch["tokens"].shape[0])
+    logits, aux, _, moe_stats = _forward(params, batch, cfg, None, lay)
+    nll = cross_entropy(logits, lay.take_batch(batch["labels"]))
     total = nll + cfg.aux_weight * aux
+    if lay.batch is not None:
+        total, nll = coll.mean_from(torch.stack([total, nll]), lay.batch, 1.0).unbind(0)
     mets = {k: v.float() for k, v in moe_stats.items()}
     return total, {"nll": nll, "aux": aux, **mets}
 

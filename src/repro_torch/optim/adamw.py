@@ -56,10 +56,12 @@ def clip_by_global_norm(grads, max_norm: float):
 
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
-                 lr: Optional[torch.Tensor] = None):
+                 lr: Optional[torch.Tensor] = None, gnorm: Optional[torch.Tensor] = None):
     """-> (params, new_state, {"grad_norm"}); params, ``m`` and ``v`` are
-    updated in place."""
-    gnorm = _global_norm(grads)
+    updated in place.  ``gnorm``: the gradients' global norm when the caller
+    computed it (on a mesh the grads are blocks, `launch.steps.global_norm`);
+    default: the norm of ``grads``."""
+    gnorm = _global_norm(grads) if gnorm is None else gnorm
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state["step"] + 1
     lr_t = cfg.lr if lr is None else lr

@@ -16,7 +16,8 @@ seeded weights and inputs.  Every rank must return the same result.
 * With no mesh, the one-rank engines (``noc`` too) against the reference
   under a (1, 1) mesh with Auto axes.
 * qwen3-moe SMOKE through ``loss`` and ``serve_batch(mesh=)`` on a (1, 4)
-  mesh; ``shard_experts``; the grad-enabled mesh call raises; the
+  mesh; the expert leaves cut by ``shard_params``; gradients through the
+  engines on (1, 4) and (2, 4) meshes equal the one-rank engine's; the
   collectives over each axis set; the mesh factories' errors.
 """
 import os
@@ -184,7 +185,7 @@ def test_one_rank_engines_equal_the_reference_on_one_device(runs, tag):
         assert (st["engine"], st["rounds"], st["link_bytes"], st["flits"]) == ("noc", 0, 0, 8192)
 
 
-# -- tests/test_moe_noc.py:227, serve_batch, the grad raise --------------------------------
+# -- tests/test_moe_noc.py:227, serve_batch, gradients on a mesh --------------------------
 
 def test_moe_stats_thread_through_transformer(runs):
     """qwen3-moe SMOKE on noc/mesh2d at depth 1 on a (1, 4) mesh: the loss
@@ -208,10 +209,18 @@ def test_serve_batch_under_a_mesh(runs):
     assert msgs == rmsgs and len(msgs) == 1 and "decode-shaped" in msgs[0]
 
 
-def test_grad_through_a_mesh_raises(runs):
-    _, port, _, _ = runs
-    msg = port["grad-raise"]
-    assert msg.startswith("NotImplementedError") and "item 8(e) part 2" in msg
+@pytest.mark.parametrize("impl", ["gather", "noc"])
+@pytest.mark.parametrize("shape", C.GRAD_MESHES)
+def test_grad_through_a_mesh_equals_the_one_rank_engine(runs, shape, impl):
+    """Through the backward on a mesh, in the same world: the output and the
+    gradients of x, the router and the rank's experts equal the one-rank
+    engine's within 1e-5 x scale on every rank, drop free on both."""
+    _, _, mine, _ = runs
+    for rank, res in enumerate(mine):
+        errs, drops, drops1 = res[("grad", shape, impl)]
+        assert drops == drops1 == 0
+        assert set(errs) == {"out", "x", "router", "gate", "up", "down"}
+        assert max(errs.values()) < 1e-5, (rank, errs)
 
 
 def test_shard_experts_cuts_each_ranks_block(runs):

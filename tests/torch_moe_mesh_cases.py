@@ -109,6 +109,7 @@ def write_inputs(path) -> None:
     cfg = get_config(LM_ARCH, smoke=True).replace(**LM_KW)
     lm = init_params(TT.abstract_params(cfg), torch.Generator().manual_seed(0))
     data["lm"] = (convert.model_params_to_numpy(lm), lm_inputs(cfg.vocab))
+    data["grad"] = (_layer(*GRAD_LAYER), _x(GRAD_X, 7))
     with open(path, "wb") as fh:
         pickle.dump(data, fh)
 
@@ -211,10 +212,13 @@ def port_results(rank, world, device, in_path):
     from repro_torch.configs import get_config
     from repro_torch.core import collectives as coll
     from repro_torch.core.noc import NoCConfig
+    from repro_torch.core.partition import DEFAULT_RULES, mesh_shape
     from repro_torch.launch import serve as tserve
     from repro_torch.launch.mesh import make_host_mesh, make_production_mesh, set_mesh
+    from repro_torch.launch.steps import shardings_for_params
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as TT
+    from repro_torch.models.layers import param_pspecs, shard_params
 
     with open(in_path, "rb") as fh:
         data = pickle.load(fh)
@@ -231,33 +235,39 @@ def port_results(rank, world, device, in_path):
         with set_mesh(meshes[shape]):
             # the rank's block of experts, as a serving caller hands it over
             # (dense_ref reads every expert)
-            wl = M.shard_experts({"moe": _torch(w)})["moe"]
+            mesh = meshes[shape]
+            specs = param_pspecs(M.moe_specs(M.MoEConfig(d, E, 2, f)), DEFAULT_RULES,
+                                 mesh.axis_names, mesh_shape(mesh))
+            wl = shard_params(_torch(w), specs, mesh)
             for tag, kw in cfgs:
                 res[(name, tag)] = port_apply(M, _torch(w) if tag == "dense" else wl, x,
                                               moe_cfg(M, NoCConfig, E, d, f, kw))
             res[(name, "expert-rows")] = int(wl["gate"].shape[0])
 
-    # the LM on a (1, 4) mesh: loss (no grad), serve_batch(mesh=), the grad raise
+    # the LM on a (1, 4) mesh: loss (no grad), serve_batch(mesh=)
     params, batch = data["lm"]
     cfg = get_config(LM_ARCH, smoke=True).replace(**LM_KW)
     full = convert.model_params_to_torch(params, device)
-    with set_mesh(meshes[(1, 4)]):
-        tparams = M.shard_experts(full)
+    mesh = meshes[(1, 4)]
+    with set_mesh(mesh):
+        tparams = shard_params(full, shardings_for_params(cfg, mesh), mesh)
         tb = {k: torch.as_tensor(batch[k]).long() for k in ("tokens", "labels")}
         with torch.no_grad():
             loss, mets = TT.loss(tparams, tb, cfg)
         res["lm-loss"] = (float(loss), {k: float(v) for k, v in mets.items()})
         for k in ("gate", "up", "down"):
             mine[("lm-cut", k)] = tparams["blocks"]["0"]["moe"][k].numpy()
-        grad_params = {k: v.clone().requires_grad_() for k, v in
-                       tparams["blocks"]["0"]["moe"].items()}
-        h = torch.as_tensor(_x((2, 16, cfg.d_model), 6))
-        res["grad-raise"] = _raises(lambda: M.moe_apply(grad_params, h, TT._moe_cfg(cfg)))
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         toks = tserve.serve_batch(tparams, cfg, batch["prompts"], 4, device=device,
                                   mesh=meshes[(1, 4)])
     res["lm-serve"] = (np.asarray(toks), sorted(set(_moe_messages(caught))))
+
+    # gradients through the engines on a mesh against the one-rank engine
+    w, x = data["grad"]
+    for shape in GRAD_MESHES:
+        for impl in ("gather", "noc"):
+            mine[("grad", shape, impl)] = grad_errors(M, _torch(w), x, impl, meshes[shape])
 
     # the collectives over each axis set of the (2, 4) mesh, on rank-valued rows
     mesh = meshes[(2, 4)]
@@ -275,6 +285,47 @@ def port_results(rank, world, device, in_path):
                           _raises(make_production_mesh),
                           _raises(lambda: make_production_mesh(multi_pod=True)))
     return {"same": res, "rank": mine}
+
+
+# the gradient cases: one layer (E, d, f, seed) on x (4, 16, d), drop free
+GRAD_LAYER = (8, 32, 48, 2)
+GRAD_X = (4, 16, 32)
+GRAD_MESHES = ((1, 4), (2, 4))
+
+
+def grad_errors(M, w, x, impl, mesh):
+    """``moe_apply`` with ``impl`` on ``mesh`` (the rank's experts) and the
+    one-rank engine with every expert, through the backward of ``sum(out · r)
+    + aux`` (r seeded): max |diff| of the output and of the gradients of x,
+    the router and the rank's experts, each over max(1, max |one-rank|)."""
+    import torch
+
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.partition import DEFAULT_RULES, block, mesh_shape
+    from repro_torch.models.layers import param_pspecs
+
+    E, d, f, _ = GRAD_LAYER
+    c = M.MoEConfig(d, E, 2, f, capacity_factor=16.0, impl=impl, noc_topology="mesh2d")
+    r = torch.as_tensor(_x(x.shape, 8))
+    specs = param_pspecs(M.moe_specs(c), DEFAULT_RULES, mesh.axis_names, mesh_shape(mesh))
+
+    def run(weights, m):
+        xs = torch.as_tensor(x).requires_grad_()
+        ws = {k: v.clone().requires_grad_() for k, v in weights.items()}
+        with coll.use_mesh(m):
+            out, aux, st = M.moe_apply(ws, xs, c)
+        ((out * r).sum() + aux).backward()
+        grads = {k: v.grad for k, v in ws.items()}
+        return out.detach(), dict(grads, x=xs.grad), int(st.drops)
+
+    mine = {k: block(v, specs[k], mesh).clone() for k, v in w.items()}
+    out, g, drops = run(mine, mesh)
+    out1, g1, drops1 = run(w, None)
+    errs = {"out": float((out - out1).abs().max() / max(1.0, float(out1.abs().max())))}
+    for k in g:
+        want = g1[k] if k == "x" else block(g1[k], specs[k], mesh)
+        errs[k] = float((g[k] - want).abs().max() / max(1.0, float(want.abs().max())))
+    return errs, drops, drops1
 
 
 def _torch(w):

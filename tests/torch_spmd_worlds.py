@@ -378,5 +378,27 @@ def moe_mesh(rank, world, device, in_path):
     return port_results(rank, world, device, in_path)
 
 
+def tp_models(rank, world, device, in_path):
+    """The LM's forward, loss, decode and serve on meshes (`tests/torch_tp_cases.py`)."""
+    from tests.torch_tp_cases import model_results
+
+    return model_results(rank, world, device, in_path)
+
+
+def tp_train(rank, world, device, in_path):
+    """The LM's train step on meshes (`tests/torch_tp_cases.py`)."""
+    from tests.torch_tp_cases import train_results
+
+    return train_results(rank, world, device, in_path)
+
+
+def tp_cli(rank, world, device, ckpt):
+    """The serve and train CLIs with --model-parallel (`tests/torch_tp_cases.py`)."""
+    from tests.torch_tp_cases import cli_results
+
+    return cli_results(rank, world, device, ckpt)
+
+
 # the scenarios a world starts with (main runs the first four in turn)
-SCENARIOS = {f.__name__: f for f in (main, iterate_spmd, noc_diamond, fail, moe_mesh)}
+SCENARIOS = {f.__name__: f for f in (main, iterate_spmd, noc_diamond, fail, moe_mesh, tp_models,
+                                     tp_train, tp_cli)}

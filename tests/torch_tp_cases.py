@@ -1,0 +1,315 @@
+"""Tensor and data parallelism on a ``("data", "model")`` mesh: the cases of
+tests/test_torch_tp_models.py, test_torch_tp_train.py and
+test_torch_tp_cli.py (not collected itself).
+
+Each file runs one gloo world of 4 single-threaded ranks
+(`tests/torch_spmd_worlds.py`) on the meshes of :func:`meshes`: (1, 4) and
+(2, 2) over all four ranks, and (1, 2) over ranks 0–1 and 2–3 side by side,
+so every rank returns results of every mesh.  The rank-side functions here
+import neither jax nor the reference; the reference-side ones run in the
+test process (``ref_*``).
+"""
+from __future__ import annotations
+
+import pickle
+
+import numpy as np
+
+MESHES = ((1, 2), (1, 4), (2, 2))
+# (case, arch, config overrides): the part-2a archs at SMOKE, and llama3.2-1b
+# with a vocab no model axis divides (the replicated-vocab branch)
+MODEL_CASES = (
+    ("llama3.2-1b", "llama3.2-1b", {}),
+    ("gemma-7b", "gemma-7b", {}),
+    ("whisper-large-v3", "whisper-large-v3", {}),
+    ("internvl2-1b", "internvl2-1b", {}),
+    ("phi3.5-moe-42b-a6.6b", "phi3.5-moe-42b-a6.6b", {}),
+    ("qwen3-moe-235b-a22b", "qwen3-moe-235b-a22b", {}),
+    ("llama-vocab255", "llama3.2-1b", {"vocab": 255}),
+)
+TRAIN_ARCHS = ("llama3.2-1b", "qwen3-moe-235b-a22b")
+TRAIN_MESHES = ((2, 2), (1, 4))
+PART_2B = ("minicpm3-4b", "jamba-v0.1-52b", "xlstm-350m")
+B, S, PRE, GEN = 2, 12, 8, 4        # batch, sequence, prefill length, served tokens
+LR, TOTAL, WARMUP, STEPS = 2e-3, 10, 5, 3
+
+
+def meshes(rank):
+    """Every mesh of :data:`MESHES` this rank is on (collective: every rank
+    makes them all, in the same order)."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch.mesh import make_host_mesh
+
+    halves = [coll.make_mesh((("data", 1), ("model", 2)), range(h, h + 2), axis_groups=True)
+              for h in (0, 2)]
+    return {(1, 2): halves[rank // 2], (1, 4): make_host_mesh(model=4),
+            (2, 2): make_host_mesh(model=2)}
+
+
+def inputs(cfg, seed=0):
+    """Seeded tokens and labels (B, S), prompts (B, PRE), and frames or
+    patches where the family reads them."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+           "prompts": rng.integers(0, cfg.vocab, (B, PRE)).astype(np.int32)}
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(size=(B, cfg.enc_seq, cfg.d_frontend)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.normal(size=(B, cfg.n_patches, cfg.d_frontend)).astype(np.float32)
+    return out
+
+
+def _prefix(cfg):
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+# ---------------------------------------------------------------------------
+# the reference, in the test process
+# ---------------------------------------------------------------------------
+
+def ref_model(params, jcfg, inp):
+    """The reference's unsharded results: forward logits, loss and metrics,
+    prefill + teacher-forced decode logits (B, 1 + S - PRE, V), and greedy
+    tokens (B, GEN) of the prompts with zero frames/patches (as both
+    packages' serve_batch feed), each driven by hand, each entry point
+    under ``jax.jit``."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import transformer as JT
+
+    p = jax.tree.map(jnp.asarray, params)
+    b = {k: jnp.asarray(v) for k, v in inp.items() if k != "prompts"}
+    # jitted: the same values as op-by-op dispatch, compiled once a shape
+    forward = jax.jit(lambda p, b: JT.forward(p, b, jcfg)[0])
+    loss_fn = jax.jit(lambda p, b: JT.loss(p, b, jcfg))
+    prefill = jax.jit(lambda p, b, c: JT.prefill(p, b, jcfg, c))
+    decode = jax.jit(lambda p, b, c: JT.decode_step(p, b, jcfg, c))
+    full = forward(p, b)
+    loss, mets = loss_fn(p, b)
+    cache = JT.init_cache(jcfg, B, _prefix(jcfg) + S)
+    lg, cache = prefill(p, dict(b, tokens=b["tokens"][:, :PRE]), cache)
+    steps = [np.asarray(lg[:, 0])]
+    for t in range(PRE, S):
+        lg, cache = decode(p, {"tokens": b["tokens"][:, t:t + 1]}, cache)
+        steps.append(np.asarray(lg))
+    g = {"tokens": jnp.asarray(inp["prompts"])}
+    if jcfg.family == "encdec":
+        g["frames"] = jnp.zeros((B, jcfg.enc_seq, jcfg.d_frontend), jcfg.cdtype)
+    if jcfg.family == "vlm":
+        g["patches"] = jnp.zeros((B, jcfg.n_patches, jcfg.d_frontend), jcfg.cdtype)
+    cache = JT.init_cache(jcfg, B, _prefix(jcfg) + PRE + GEN)
+    lg, cache = prefill(p, g, cache)
+    tok = jnp.argmax(lg[:, -1], -1)
+    toks = [np.asarray(tok)]
+    for _ in range(GEN - 1):
+        lg, cache = decode(p, {"tokens": tok[:, None]}, cache)
+        tok = jnp.argmax(lg, -1)
+        toks.append(np.asarray(tok))
+    return {"forward": np.asarray(full), "loss": float(loss),
+            "mets": {k: float(v) for k, v in mets.items()},
+            "serve_logits": np.stack(steps, 1), "tokens": np.stack(toks, 1)}
+
+
+def write_model_inputs(path) -> dict:
+    """Each case's reference params (numpy, the reference's init) and inputs,
+    pickled for the ranks; returns them."""
+    import jax
+
+    from repro.configs import get_config
+    from repro.models import transformer as JT
+    from repro.models.layers import init_params
+
+    data = {}
+    for case, arch, kw in MODEL_CASES:
+        cfg = get_config(arch, smoke=True).replace(**kw)
+        specs = JT.abstract_params(cfg)
+        params = jax.tree.map(np.asarray, jax.jit(lambda k: init_params(specs, k))(
+            jax.random.key(0)))
+        data[case] = (params, inputs(cfg))
+    with open(path, "wb") as fh:
+        pickle.dump(data, fh)
+    return data
+
+
+# ---------------------------------------------------------------------------
+# the port, in one rank of a gloo world of 4
+# ---------------------------------------------------------------------------
+
+def _torch_batch(inp, keys):
+    import torch
+
+    return {k: (torch.as_tensor(inp[k]).long() if inp[k].dtype.kind == "i"
+                else torch.as_tensor(inp[k])) for k in keys if k in inp}
+
+
+def model_results(rank, world, device, in_path):
+    """Per case and mesh: forward, loss, prefill + decode and serve_batch on
+    the rank's blocks (`shard_params`), with the rank's leaf shapes; and the
+    shard/gather round trip of every case's params."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch._tree import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.launch.steps import shardings_for_params
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import gather_params, shard_params
+
+    with open(in_path, "rb") as fh:
+        data = pickle.load(fh)
+    ms = meshes(rank)
+    same, mine = {}, {}
+    for case, arch, kw in MODEL_CASES:
+        cfg = get_config(arch, smoke=True).replace(**kw)
+        params, inp = data[case]
+        full = convert.model_params_to_torch(params, device)
+        batch = _torch_batch(inp, ("tokens", "labels", "frames", "patches"))
+        for shape, mesh in ms.items():
+            specs = shardings_for_params(cfg, mesh)
+            p = shard_params(full, specs, mesh)
+            mine[("shapes", case, shape)] = {"/".join(map(str, k)): tuple(v.shape)
+                                             for k, v in flatten(p)}
+            back = gather_params(p, specs, mesh)
+            same[("round-trip", case, shape)] = all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(flatten(back), flatten(full)))
+            with set_mesh(mesh), torch.no_grad():
+                logits, *_ = T.forward(p, batch, cfg)
+                loss, mets = T.loss(p, batch, cfg)
+                cache = T.init_cache(cfg, B, _prefix(cfg) + S, device=device)
+                mine[("cache", case, shape)] = tuple(cache["blocks"]["0"]["k"].shape)
+                pre = dict(batch, tokens=batch["tokens"][:, :PRE])
+                pre.pop("labels")
+                lg, cache = T.prefill(p, pre, cfg, cache)
+                steps = [lg[:, 0]]
+                for t in range(PRE, S):
+                    lg, cache = T.decode_step(p, {"tokens": batch["tokens"][:, t:t + 1]}, cfg,
+                                              cache)
+                    steps.append(lg)
+            toks = tserve.serve_batch(p, cfg, inp["prompts"], GEN, device=device, mesh=mesh)
+            if case == "llama3.2-1b":
+                try:
+                    with set_mesh(mesh), torch.no_grad():
+                        T.forward(full, batch, cfg)
+                    same[("whole-tree", shape)] = None
+                except ValueError as e:
+                    same[("whole-tree", shape)] = str(e)
+            same[(case, shape)] = {
+                "forward": logits.numpy(), "loss": float(loss),
+                "mets": {k: float(v) for k, v in mets.items()},
+                "serve_logits": torch.stack(steps, 1).numpy(), "tokens": np.asarray(toks)}
+    return {"same": same, "rank": mine}
+
+
+def _one_rank_grads(params, batch, cfg):
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch.steps import loss_and_grads
+
+    with coll.use_mesh(None):
+        return loss_and_grads(params, batch, cfg)
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| (0 when both are 0)."""
+    nb = float(b.float().norm())
+    return float((a - b).float().norm()) / nb if nb else float((a - b).float().norm())
+
+
+def train_results(rank, world, device, in_path):
+    """The SMOKE train steps of :data:`TRAIN_ARCHS` on :data:`TRAIN_MESHES`,
+    each started from the reference's state before the step: the metrics,
+    and per leaf the relative error of the gathered gradient against the
+    one-rank port's on the same state; then the part-2b archs: the raise on a
+    model axis of 2 and a step on a (2, 1) mesh against the one-rank step."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch import optim as toptim
+    from repro_torch._tree import flatten, leaves, unflatten
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.launch.steps import (loss_and_grads, make_train_step, shardings_for_params,
+                                          state_shardings)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import gather_params, init_params, shard_params
+
+    with open(in_path, "rb") as fh:
+        data = pickle.load(fh)
+    ms = meshes(rank)
+    same = {}
+    opt = toptim.AdamWConfig(lr=LR)
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        states, batches = data[arch]
+        for shape in TRAIN_MESHES:
+            mesh = ms[shape]
+            sspecs = state_shardings(cfg, mesh)
+            step = make_train_step(cfg, opt, mesh=mesh, total_steps=TOTAL, warmup=WARMUP)
+            mets, gerr = [], []
+            for s in range(STEPS):
+                whole = {"params": convert.model_params_to_torch(states[s]["params"], device),
+                         "opt": convert.opt_state_to_torch(states[s]["opt"], device)}
+                batch = _torch_batch(batches[s], ("tokens", "labels"))
+                _, _, g1 = _one_rank_grads(whole["params"], batch, cfg)
+                local = shard_params(whole, sspecs, mesh)
+                with set_mesh(mesh):
+                    _, _, g = loss_and_grads(local["params"], batch, cfg)
+                    bax = T.batch_axis(mesh, batch["tokens"].shape[0])
+                    if bax is not None:
+                        g = unflatten(g, [coll.pmean(x, bax) for x in leaves(g)])
+                    g = gather_params(g, sspecs["params"], mesh)
+                gerr.append({"/".join(map(str, k)): _rel(a, b) for (k, a), (_, b)
+                             in zip(flatten(g), flatten(g1))})
+                _, m = step(local, batch)
+                mets.append({k: float(v) for k, v in m.items()})
+            same[("train", arch, shape)] = (mets, gerr)
+    # (2, 1) meshes over ranks 0-1 and 2-3 (every rank makes both: a group is
+    # collective)
+    dp = [coll.make_mesh((("data", 2), ("model", 1)), range(h, h + 2), axis_groups=True)
+          for h in (0, 2)][rank // 2]
+    for arch in PART_2B:
+        cfg = get_config(arch, smoke=True)
+        full = init_params(T.abstract_params(cfg), torch.Generator().manual_seed(0))
+        batch = _torch_batch(data["part2b-batch"], ("tokens", "labels"))
+        mesh = ms[(1, 2)]
+        try:
+            with set_mesh(mesh), torch.no_grad():
+                T.loss(shard_params(full, shardings_for_params(cfg, mesh), mesh), batch, cfg)
+            raised = None
+        except NotImplementedError as e:
+            raised = str(e)
+        got = []
+        for mesh in (dp, None):
+            params = shard_params(full, shardings_for_params(cfg, dp), dp)
+            step = make_train_step(cfg, opt, mesh=mesh, total_steps=TOTAL, warmup=WARMUP)
+            _, m = step({"params": params, "opt": toptim.adamw_init(params)}, batch)
+            got.append({k: float(v) for k, v in m.items()})
+        same[("part2b", arch)] = (raised, got)
+    return {"same": same}
+
+
+def cli_results(rank, world, device, ckpt):
+    """The serve and train CLIs with ``--model-parallel 2 --dist-backend gloo
+    --device cpu`` on the world's 4 ranks (a (2, 2) mesh), the train run
+    checkpointing to ``ckpt``; and serve of a part-2b arch on that mesh."""
+    from repro_torch.launch import serve, train
+
+    toks = serve.run(SERVE_ARGS + MESH_ARGS)
+    losses = train.run(TRAIN_ARGS + MESH_ARGS + ["--ckpt", ckpt, "--ckpt-every", "2"])
+    try:
+        serve.run(["--arch", "xlstm-350m"] + SERVE_ARGS + MESH_ARGS)
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    return {"tokens": toks, "losses": losses, "part2b": raised}
+
+
+MESH_ARGS = ["--model-parallel", "2", "--dist-backend", "gloo"]
+SERVE_ARGS = ["--smoke", "--device", "cpu", "--requests", "6", "--batch", "4",
+              "--prompt-len", "8", "--gen", "4"]
+TRAIN_ARGS = ["--smoke", "--device", "cpu", "--steps", "4", "--batch", "4", "--seq", "16",
+              "--log-every", "1"]
