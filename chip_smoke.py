@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, then runs fifteen phases and raises on any failure:
+with ``nvcc``, then runs sixteen phases and raises on any failure:
 
 1. environment — the card, its power limit, torch/CUDA versions, build time,
                  ptxas's registers, spills and shared memory of each kernel;
@@ -135,7 +135,19 @@ with ``nvcc``, then runs fifteen phases and raises on any failure:
    held to phase 9's one-rank step at rtol 1e-2; qwen3-moe's layer at full
    width through the backward on the (1, 4) mesh, ``gather`` and ``noc``, the
    gradients of x, the router and each rank's experts held to the one-rank
-   engine's at 1e-5 x scale.
+   engine's at 1e-5 x scale;
+16. the mla, mamba, mlstm and slstm mixers on the model axis — 4 ranks
+   spawned as phase 12's: minicpm3-4b FULL at 16 of 62 layers, jamba-v0.1-52b
+   FULL at one period of 8 layers and xlstm-350m FULL on a (1, 4) mesh, every
+   sub-layer in float32 held to the same sub-layer on one rank at 1e-4 x max
+   |out|, one batch of 4 prompts served from bf16 with each rank drawing
+   only its blocks (every rank's tokens equal), SMOKE tokens on the mesh
+   equal to one rank's; xlstm-350m FULL and minicpm3-4b FULL at 4 layers
+   trained 2 steps on a (2, 2) mesh, step 1's loss (bf16) and loss and grad
+   norm (float32 compute) held to one rank's at rtol 1e-2; jamba's Mamba and
+   attention sub-layers at full width through the backward on (1, 4), the
+   gradients of x and of each rank's leaves held to one rank's at 1e-5
+   (relative L2), flash on the rank's head block held to its plain version.
 
 Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
@@ -750,6 +762,9 @@ def main():
 
     # -- phase 15: tensor and data parallelism of the LM, 4 ranks on the card ------
     tp = tp_phase(torch, dev, smi, dense)
+
+    # -- phase 16: the mla, mamba, mlstm and slstm mixers on the model axis, 4 ranks
+    tp2b = tp2b_phase(torch, dev, smi)
     phase3_path = {"gf2_bmvm": "iterate_kernel", "minsum_check": "decode_minsum",
                    "particle_histogram": "track"}
     for kern in kernels:
@@ -767,13 +782,15 @@ def main():
                                         "llama_train": dense["train_launches"],
                                         **families["launches"], **recurrent["launches"],
                                         "llama_serve_mesh": tp["serve_launches"],
-                                        "llama_train_mesh": tp["train_launches"]}
+                                        "llama_train_mesh": tp["train_launches"],
+                                        "jamba_attn_layer_mesh": tp2b["launches"]}
             kern["launches"] = sum(kern["launches_by_path"].values())
             kern["combine"]["launches_by_path"] = {
                 "whisper_serve": serve_stats["combine_launches"], "llama_serve": 0,
                 "llama_train": dense["train_combine_launches"],
                 **families["combine_launches"], **recurrent["combine_launches"],
-                "llama_serve_mesh": 0, "llama_train_mesh": tp["train_combine_launches"]}
+                "llama_serve_mesh": 0, "llama_train_mesh": tp["train_combine_launches"],
+                "jamba_attn_layer_mesh": tp2b["combine_launches"]}
             kern["combine"]["launches"] = sum(kern["combine"]["launches_by_path"].values())
 
     print(json.dumps({"kernels": kernels}))
@@ -2225,7 +2242,8 @@ def _spmd_rank(rank, world, tmp, part):
     try:
         dev = join_process_group("gloo", "cuda")
         out = {"mesh8": _spmd_mesh8, "ldpc16": _spmd_ldpc16, "moe4": _moe_mesh4,
-               "moe8": _moe_mesh8, "tp4": _tp_mesh4}[part](torch, dev, rank)
+               "moe8": _moe_mesh8, "tp4": _tp_mesh4, "tp2b4": _tp2b_mesh4}[part](torch, dev,
+                                                                                rank)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"{part}-{rank}.pkl"), "wb") as f:
@@ -2561,23 +2579,22 @@ def _moe_mesh4(torch, dev, rank):
 
 def draw_mesh_serving_params(torch, cfg, dev, mesh, seed=MOE_SEED):
     """``cfg``'s params in their serving dtypes, this rank's block of each
-    leaf on ``mesh`` (`models.layers.param_pspecs`): every leaf but the
+    leaf on ``mesh`` (`models.layers.leaf_pspec`): every leaf but the
     experts from one seeded generator (the same on every rank), a layer at a
     time, then cut; the MoE gate/up/down leaves only the rank's block of
     experts, each expert from its own seed (`expert_seed`)."""
     import dataclasses
 
-    from repro_torch.core.partition import DEFAULT_RULES, block, logical_to_spec, mesh_shape
+    from repro_torch.core.partition import block
     from repro_torch.models import transformer as T
-    from repro_torch.models.layers import init_param, is_spec
+    from repro_torch.models.layers import init_param, is_spec, leaf_pspec
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     coord = mesh.axis("model").coord
     n_model = mesh.axis("model").size
 
     def draw(sp, path):
-        spec = logical_to_spec(sp.axes, DEFAULT_RULES, mesh.axis_names, sp.shape,
-                               mesh_shape(mesh))
+        spec = leaf_pspec(sp, mesh)
         sp = dataclasses.replace(sp, dtype=T.serving_dtype(path, cfg.cdtype))
         if path[-2:-1] == ("moe",) and path[-1] in ("gate", "up", "down"):
             L, E = sp.shape[:2]
@@ -2796,17 +2813,33 @@ def tp_phase(torch, dev, smi, dense):
 
 def conditioned(params, cfg):
     """``params`` with the attention projections rescaled to the fan-in of
-    their whole input (wq, wk, wv by sqrt(H / d); wo by sqrt(1 / H)): the
-    reference's init takes the fan-in of a rank-3 weight as its middle dim
-    (ROADMAP Queue 3), which puts llama3.2-1b FULL's attention scores near a
-    std of 128, where the softmax turns float32 rounding into percent-level
-    changes of the grad norm.  The other leaves are shared, not copied."""
-    scale = {"wq": (cfg.n_heads / cfg.d_model) ** 0.5, "wk": (cfg.n_heads / cfg.d_model) ** 0.5,
-             "wv": (cfg.n_heads / cfg.d_model) ** 0.5, "wo": cfg.n_heads ** -0.5}
+    their whole input (wq, wk, wv by sqrt(H / d); wo by sqrt(1 / H); MLA's
+    q_b and kv_b by sqrt(H / rank), its wo by sqrt(1 / H)): the reference's
+    init takes the fan-in of a rank-3 weight as its middle dim (ROADMAP
+    Queue 3), which puts llama3.2-1b FULL's attention scores near a std of
+    128, where the softmax turns float32 rounding into percent-level changes
+    of the grad norm.  The other leaves are shared, not copied."""
     blocks = dict(params["blocks"])
-    blocks["0"] = dict(blocks["0"], attn={k: v * scale.get(k, 1.0)
-                                          for k, v in blocks["0"]["attn"].items()})
+    for i, (mixer, _) in enumerate(cfg.pattern):
+        blocks[str(i)] = conditioned_sublayer(blocks[str(i)], mixer, cfg)
     return dict(params, blocks=blocks)
+
+
+def conditioned_sublayer(p, mixer, cfg):
+    """Sub-layer ``p`` with its attention or MLA projections rescaled as
+    `conditioned` rescales them (any other mixer: ``p`` itself).  The scales
+    are per leaf, so a rank's block of a leaf scales as the whole does."""
+    from repro_torch.models import transformer as T
+
+    H = cfg.n_heads
+    mla = T._mla_cfg(cfg)
+    scales = {"attn": {"wq": (H / cfg.d_model) ** 0.5, "wk": (H / cfg.d_model) ** 0.5,
+                       "wv": (H / cfg.d_model) ** 0.5, "wo": H ** -0.5},
+              "mla": {"q_b": (H / mla.q_lora_rank) ** 0.5, "kv_b": (H / mla.kv_lora_rank) ** 0.5,
+                      "wo": H ** -0.5}}.get(mixer)
+    if scales is None:
+        return p
+    return dict(p, **{mixer: {k: v * scales.get(k, 1.0) for k, v in p[mixer].items()}})
 
 
 def step1_in_float32(torch, params, batch, cfg, mesh):
@@ -3013,6 +3046,417 @@ def _tp_mesh4(torch, dev, rank):
         moe[impl] = dict(errs=errs, drops=drops, wall_ms=ms)
         del w, g
     out["moe_grad"] = moe
+    return out
+
+
+# -- phase 16: the mla, mamba, mlstm and slstm mixers on the model axis ------------
+
+TP2B_SEED = 16
+# arch -> its cut at full width for phase 16 (a): minicpm3-4b at 16 of 62
+# layers, jamba-v0.1-52b at one period of 8, xlstm-350m uncut
+TP2B_CUTS = {"minicpm3-4b": 16, "jamba-v0.1-52b": 8, "xlstm-350m": 24}
+# phase 16 (b): arch -> layers trained on the (2, 2) mesh
+TP2B_TRAIN = {"xlstm-350m": 24, "minicpm3-4b": 4}
+TP2B_STEPS = 2
+
+
+def tp2b_cfg(arch, n_layers):
+    from repro_torch.configs import get_config
+
+    return get_config(arch).replace(n_layers=n_layers, attn_impl="flash")
+
+
+def tp2b_prompts(cfg):
+    """One batch of 4 prompts of 32 tokens (phase 9's serving shape)."""
+    return np.random.default_rng(TP2B_SEED).integers(0, cfg.vocab, (4, 32)).astype(np.int64)
+
+
+def tp2b_block_params(torch, cfg, layer, mixer, ffn, dev, mesh):
+    """Sub-layer ``layer`` of ``cfg`` in float32 (the norm(s), the mixer and
+    the ffn), each leaf drawn whole by the reference's init rules from its
+    own seed (the arch, the layer and the leaf's path), then cut to this
+    rank's block on ``mesh`` (None: whole)."""
+    import zlib
+
+    from repro_torch.core.partition import block
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_param, is_spec, leaf_pspec
+
+    def draw(sp, path):
+        seed = zlib.crc32(f"{TP2B_SEED}/{cfg.name}/{layer}/{'/'.join(path)}".encode())
+        t = init_param(torch.Generator(device=dev).manual_seed(seed), sp, dev)
+        return t if mesh is None else block(t, leaf_pspec(sp, mesh), mesh).clone()
+
+    def walk(tree, path):
+        if is_spec(tree):
+            return draw(tree, path)
+        return {k: walk(v, path + (k,)) for k, v in tree.items()}
+
+    return walk(T._sublayer_specs(cfg, mixer, ffn, False, torch.float32), ())
+
+
+def tp2b_blocks(torch, cfg, dev, mesh):
+    """Every sub-layer of ``cfg`` (float32 compute) on a seeded (4, 32, d)
+    input, causal from position 0: this rank's output on ``mesh`` (None:
+    one rank), each from `tp2b_block_params`.  The MoE sub-layers run at
+    capacity_factor 8, drop free (checked): on a mesh the gather engine
+    bounds each (source block, expert) FIFO, with one source block a model
+    rank, where one rank has one block, so at the config's 1.25 the two
+    drop different tokens by design (`models.moe.dispatch_capacity`)."""
+    from repro_torch.models import transformer as T
+
+    c32 = cfg.replace(dtype="float32", capacity_factor=8.0)
+    x = torch.randn((4, 32, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(TP2B_SEED))
+    lay = T.layout(c32, 4, mesh) if mesh is not None else T.Layout()
+    pos = torch.arange(32, device=dev)[None].expand(4, 32)
+    outs = []
+    with torch.no_grad():
+        for layer in range(cfg.n_layers):
+            mixer, ffn = cfg.pattern[layer % len(cfg.pattern)]
+            p = tp2b_block_params(torch, cfg, layer, mixer, ffn, dev, mesh)
+            out, _, _, moe = T._apply_sublayer(p, x, c32, mixer, ffn, positions=pos,
+                                               cache=None, enc_out=None, causal=True, lay=lay)
+            check(moe is None or int(moe[0]) == 0,
+                  f"{cfg.name} sub-layer {layer}: {moe and int(moe[0])} tokens dropped")
+            outs.append(out)
+            del p
+    return outs
+
+
+def tp2b_train_batches(cfg, dev):
+    from repro_torch.data.pipeline import DataConfig, _synthesize
+    from repro_torch.launch import train
+
+    data = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8, seed=0)
+    return [train.device_batch(_synthesize(data, s), cfg, dev) for s in range(TP2B_STEPS)]
+
+
+def tp2b_phase(torch, dev, smi):
+    """Phase 16: the mla, mamba, mlstm and slstm mixers on the model axis,
+    over ``("data", "model")`` meshes of 4 gloo ranks on the card, spawned as
+    phase 12's ranks are (one world, a 400 s deadline):
+
+    (a) on a (1, 4) mesh, minicpm3-4b FULL at 16 of 62 layers, jamba-v0.1-52b
+        FULL at one period of 8 layers (7 Mamba and 1 attention; 4 MoE and
+        4 MLP) and xlstm-350m FULL uncut: every sub-layer in float32 on a
+        seeded (4, 32, d) input against the same sub-layer on one rank in
+        this process, within 1e-4 x max |out|; served from bf16, one batch
+        of 4 prompts of 32 tokens, 16 new tokens, each rank drawing only its
+        blocks (`draw_mesh_serving_params`), every rank's tokens equal; the
+        SMOKE model's tokens on the mesh equal to one rank's here;
+    (b) on a (2, 2) mesh, xlstm-350m FULL and minicpm3-4b FULL at 4 layers
+        trained 2 steps at batch 8 x seq 128 (bf16, remat): step 1's loss
+        within rtol 1e-2 of one rank's here, and step 1's loss and grad norm
+        with float32 compute (on `conditioned` weights) within rtol 1e-2 of
+        one rank's;
+    (c) jamba's Mamba sub-layer and its attention sub-layer (flash on the
+        rank's 8 of 32 query heads and 2 of 8 kv heads) at full width on a
+        (1, 4) mesh in float32, through the backward of sum(out · r), the
+        attention's projections rescaled to the usual fan-in
+        (`conditioned_sublayer`): the gradients of x and of each rank's
+        leaves within 1e-5 (relative L2) of the one-rank sub-layer's blocks,
+        every flash call held to its plain version at 3e-5 x max |out|."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    one_blocks, one_smoke = {}, {}
+    for arch, n in TP2B_CUTS.items():
+        cfg = tp2b_cfg(arch, n)
+        one_blocks[arch] = [t.cpu().numpy() for t in tp2b_blocks(torch, cfg, dev, None)]
+        torch.cuda.empty_cache()
+        small = get_config(arch, smoke=True)
+        sp = init_params(T.abstract_params(small), torch.Generator().manual_seed(0), dev)
+        one_smoke[arch] = serve.serve_batch(sp, small, tp_smoke_prompts(small), 8, device=dev)
+    one_train = {}
+    for arch, n in TP2B_TRAIN.items():
+        cfg = tp2b_cfg(arch, n)
+        masters = init_params(T.abstract_params(cfg), torch.Generator(device=dev).manual_seed(0))
+        batch0 = tp2b_train_batches(cfg, dev)[0]
+        loss, _, g = steps.loss_and_grads(masters, batch0, cfg)
+        one_train[arch] = dict(bf16=(float(loss), float(steps.global_norm(g))),
+                               f32=step1_in_float32(torch, masters, batch0, cfg, None))
+        del masters, g
+        torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t_phase
+
+    ranks = run_ranks(torch, "tp2b4", 4)
+    r0 = ranks[0]
+    fails = []           # every gate of the phase is read before it fails
+
+    def gate(cond, what):
+        if not cond:
+            print(f"  FAILED: {what}")
+            fails.append(what)
+
+    print(f"phase 16: minicpm3-4b, jamba-v0.1-52b and xlstm-350m FULL on ('data', 'model') "
+          f"meshes of 4 ranks, backend {r0['backend']} (FileStore), every rank on "
+          f"{r0['device']}; the one-rank references here took {t_one:.2f} s ({smi})")
+
+    # (a) the blocks, the served tokens, SMOKE
+    for arch, n in TP2B_CUTS.items():
+        errs = [float(np.abs(got - want).max() / np.abs(want).max())
+                for got, want in zip(r0["blocks"][arch], one_blocks[arch])]
+        gate(len(errs) == n and max(errs) <= 1e-4
+              and all(r["block_digests"][arch] == r0["block_digests"][arch] for r in ranks),
+              f"phase 16 (a) {arch}: sub-layers on the mesh against one rank: {errs}")
+        a = [r["serve"][arch] for r in ranks]
+        s0 = a[0]
+        gate(all(np.array_equal(s["tokens"], s0["tokens"]) for s in a)
+              and s0["tokens"].shape == (4, 16) and s0["flash"] == 0
+              and 0 <= s0["tokens"].min() and s0["tokens"].max() < s0["vocab"],
+              f"phase 16 (a) {arch}: the ranks' tokens differ, or {s0['tokens'].shape}, "
+              f"flash {s0['flash']}")
+        gate(all(np.array_equal(r["smoke_tokens"][arch], one_smoke[arch]) for r in ranks),
+              f"phase 16 (a) {arch}: SMOKE tokens on the (1, 4) mesh differ from one rank's")
+        peaks = ", ".join(f"{r['serve'][arch]['peak'] / 2**30:.2f}" for r in ranks)
+        print(f"  (a) {arch} FULL at {n} layers on the (1, 4) mesh: the {n} sub-layers in "
+              f"float32 (x (4, 32, {s0['d_model']})) within {max(errs):.3e} x max |out| of one "
+              f"rank (limit 1e-4; per sub-layer {', '.join(f'{e:.1e}' for e in errs)}); served "
+              f"from bf16 ({s0['params']:,} params a rank, {s0['layout']}): 4 requests x 16 "
+              f"tokens at batch 4 (prompt 32) in {s0['secs']:.3f} s ({64 / s0['secs']:.1f} "
+              f"tokens/s); prefill {s0['prefill_ms']:.3f} ms, decode "
+              f"{s0['decode_ms'][2]:.3f} ms a token (mean of 15; "
+              f"{s0['decode_ms'][0]:.3f}-{s0['decode_ms'][1]:.3f}); transport {s0['transport_s']:.3f} s in "
+              f"{s0['calls']} transfers ({s0['transport_s'] / s0['secs'] * 100:.1f} % of the "
+              f"wall), of it staging {s0['staging_s']:.3f} s; staged "
+              f"{s0['staged'] / 2**20:.1f} MiB a rank; peak memory {peaks} GiB (ranks 0-3); "
+              f"flash 0 (a cached prefill); every rank's tokens equal; SMOKE tokens equal to "
+              f"one rank's ({smi})")
+
+    # (b) the training steps
+    for arch, n in TP2B_TRAIN.items():
+        b = [r["train"][arch] for r in ranks]
+        one = one_train[arch]
+        got_loss, got_gn = b[0]["losses"][0], b[0]["gnorms"][0]
+        f32 = b[0]["f32_step1"]
+        gate(all(t["losses"] == b[0]["losses"] and t["f32_step1"] == f32 for t in b)
+              and np.isfinite(b[0]["losses"]).all() and np.isfinite(b[0]["gnorms"]).all(),
+              f"phase 16 (b) {arch}: the ranks' losses differ or are not finite")
+        gate(abs(got_loss - one["bf16"][0]) <= 1e-2 * abs(one["bf16"][0]),
+              f"phase 16 (b) {arch}: step 1 loss {got_loss} against one rank's {one['bf16'][0]}")
+        gate(abs(f32[0] - one["f32"][0]) <= 1e-2 * abs(one["f32"][0])
+              and abs(f32[1] - one["f32"][1]) <= 1e-2 * abs(one["f32"][1]),
+              f"phase 16 (b) {arch}: step 1 in float32 compute, loss / grad norm {f32} on the "
+              f"mesh against {one['f32']} on one rank")
+        med = [statistics.median(t["step_ms"][1:]) for t in b]
+        share = [statistics.median(t["transport_ms"][1:]) / m for t, m in zip(b, med)]
+        peaks = ", ".join(f"{t['peak'] / 2**30:.2f}" for t in b)
+        print(f"  (b) {arch} FULL at {n} layers trained {TP2B_STEPS} steps on the (2, 2) mesh at "
+              f"batch 8 x seq 128: losses {np.round(b[0]['losses'], 4).tolist()}, grad_norm "
+              f"{np.round(b[0]['gnorms'], 4).tolist()}; step 1 against one rank: loss "
+              f"{got_loss:.5f} vs {one['bf16'][0]:.5f} (rtol 1e-2), bf16 grad norm {got_gn:.5g} "
+              f"vs {one['bf16'][1]:.5g}; in float32 compute loss {f32[0]:.6f} vs "
+              f"{one['f32'][0]:.6f}, grad norm {f32[1]:.6g} vs {one['f32'][1]:.6g} (rel "
+              f"{abs(f32[1] - one['f32'][1]) / one['f32'][1]:.2e}, limit 1e-2); step 2 "
+              f"{min(med):.1f}-{max(med):.1f} ms over ranks, transport "
+              f"{min(share) * 100:.1f}-{max(share) * 100:.1f} % of it, staged "
+              f"{b[0]['staged_per_step'] / 2**30:.2f} GiB a step a rank; peak memory {peaks} GiB; "
+              f"flash {sum(t['flash'] for t in b)} ({smi})")
+
+    # (c) jamba's Mamba and attention sub-layers through the backward
+    flash_launches = combines = 0
+    for sub in ("mamba", "attn"):
+        errs = {k: max(r["grads"][sub]["errs"][k] for r in ranks)
+                for k in r0["grads"][sub]["errs"]}
+        worst_call = max(max(r["grads"][sub]["per_call"], default=0.0) for r in ranks)
+        gate(max(errs.values()) <= 1e-5 and worst_call <= 3e-5,
+              f"phase 16 (c) {sub}: gradients against one rank {errs}, flash calls against "
+              f"the plain version {worst_call}")
+        n_flash = [r["grads"][sub]["flash"] for r in ranks]
+        gate(n_flash == ([1] * 4 if sub == "attn" else [0] * 4),
+              f"phase 16 (c) {sub}: flash launches {n_flash} (one a rank for attention)")
+        flash_launches += sum(n_flash)
+        combines += sum(r["grads"][sub]["combines"] for r in ranks)
+        walls = [r["grads"][sub]["wall_ms"] for r in ranks]
+        print(f"  (c) jamba's {sub} sub-layer at full width (d 4096, "
+              f"{'d_inner 8192, N 16' if sub == 'mamba' else '32:8 heads of 128, flash, '}"
+              f"{'' if sub == 'mamba' else 'projections at the usual fan-in'}), "
+              f"x (4, 32, 4096) float32, on the (1, 4) mesh through the backward: relative L2 "
+              f"against one rank {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (limit "
+              f"1e-5); forward + backward {min(walls):.1f}-{max(walls):.1f} ms over ranks (one "
+              f"rank {r0['grads'][sub]['one_rank_ms']:.1f} ms)"
+              + (f"; flash {sum(n_flash)} launches at {r0['grads'][sub]['flash_shape']}, every "
+                 f"call within {worst_call:.2e} x max |out| of the plain version (limit 3e-5, "
+                 f"phase 2's f32 gate)"
+                 if sub == "attn" else "") + f" ({smi})")
+    print(f"tp2b phase {time.perf_counter() - t_phase:.2f} s")
+    check(not fails, f"phase 16: {len(fails)} gates failed: {'; '.join(fails)}")
+    return dict(launches=flash_launches, combine_launches=combines)
+
+
+def _tp2b_mesh4(torch, dev, rank):
+    """Phase 16 (a), (b) and (c) in one of 4 ranks."""
+    import torch.distributed as dist
+
+    from repro_torch._tree import flatten, leaves, unflatten
+    from repro_torch.configs import get_config
+    from repro_torch.core.partition import block
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params, leaf_pspec
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.telemetry import MetricsRegistry
+
+    m14, m22 = make_host_mesh(model=4), make_host_mesh(model=2)
+    out = dict(device=str(dev), backend=str(dist.get_backend()), blocks={}, block_digests={},
+               serve={}, smoke_tokens={}, train={}, grads={})
+
+    # (a) the sub-layers in float32, then serving from bf16, then SMOKE
+    for arch, n in TP2B_CUTS.items():
+        cfg = tp2b_cfg(arch, n)
+        with set_mesh(m14):
+            blocks = tp2b_blocks(torch, cfg, dev, m14)
+        out["block_digests"][arch] = [_digest(t) for t in blocks]
+        if rank == 0:
+            out["blocks"][arch] = [t.cpu().numpy() for t in blocks]
+        del blocks
+        torch.cuda.empty_cache()
+        params = draw_mesh_serving_params(torch, cfg, dev, m14, seed=TP2B_SEED)
+        prompts = tp2b_prompts(cfg)
+        serve.serve_batch(params, cfg, prompts, 2, device=dev, mesh=m14)      # warm-up
+        reg = MetricsRegistry()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m14.stats.reset()
+        ops.reset_launch_counts()
+        ts = time.perf_counter()
+        tokens = serve.serve_batch(params, cfg, prompts, 16, device=dev, reg=reg, mesh=m14)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - ts
+        lay = T.layout(cfg, 4, m14)
+        split = {k: v.size for k, v in vars(lay).items()
+                 if k not in ("mesh", "batch") and v is not None}
+        out["serve"][arch] = dict(
+            tokens=tokens, secs=secs, vocab=cfg.vocab, d_model=cfg.d_model,
+            prefill_ms=reg.histogram("serve.prefill.seconds").total * 1e3,
+            decode_ms=[1e3 * getattr(reg.histogram("serve.decode.seconds"), k)
+                       for k in ("vmin", "vmax")] + [
+                1e3 * reg.histogram("serve.decode.seconds").total
+                / reg.histogram("serve.decode.seconds").count],
+            transport_s=m14.stats.seconds, staging_s=m14.stats.staging_seconds,
+            calls=m14.stats.calls, staged=m14.stats.staged_bytes,
+            peak=torch.cuda.max_memory_allocated(), flash=ops.launch_counts()["flash_attention"],
+            params=sum(t.numel() for t in leaves(params)),
+            layout="model axis of 4 over " + ", ".join(sorted(split)))
+        del params
+        torch.cuda.empty_cache()
+        small = get_config(arch, smoke=True)
+        sp = init_params(T.abstract_params(small), torch.Generator().manual_seed(0), dev, mesh=m14)
+        out["smoke_tokens"][arch] = serve.serve_batch(sp, small, tp_smoke_prompts(small), 8,
+                                                      device=dev, mesh=m14)
+        del sp
+
+    # (b) training on the (2, 2) mesh
+    for arch, n in TP2B_TRAIN.items():
+        cfg = tp2b_cfg(arch, n)
+        masters = init_params(T.abstract_params(cfg), torch.Generator(device=dev).manual_seed(0),
+                              dev, mesh=m22)
+        state = {"params": masters, "opt": adamw_init(masters)}
+        del masters
+        step = make_train_step(cfg, AdamWConfig(lr=3e-4), mesh=m22, total_steps=6, warmup=5)
+        batches = tp2b_train_batches(cfg, dev)
+        f32_step1 = step1_in_float32(torch, state["params"], batches[0], cfg, m22)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, gnorms, step_ms, transport_ms, staged = [], [], [], [], 0
+        for bt in batches:
+            m22.stats.reset()
+            (state, mets), secs = wall(torch, lambda: step(state, bt))
+            losses.append(float(mets["loss"]))
+            gnorms.append(float(mets["grad_norm"]))
+            step_ms.append(secs * 1e3)
+            transport_ms.append(m22.stats.seconds * 1e3)
+            staged = m22.stats.staged_bytes
+        out["train"][arch] = dict(losses=losses, gnorms=gnorms, step_ms=step_ms,
+                                  transport_ms=transport_ms, staged_per_step=staged,
+                                  f32_step1=f32_step1, peak=torch.cuda.max_memory_allocated(),
+                                  flash=ops.launch_counts()["flash_attention"])
+        del state, batches
+        torch.cuda.empty_cache()
+
+    # (c) jamba's Mamba and attention sub-layers at full width, float32,
+    # through the backward: each rank computes the one-rank sub-layer too
+    cfg = tp2b_cfg("jamba-v0.1-52b", 8).replace(dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(TP2B_SEED + 1)
+    x = torch.randn((4, 32, cfg.d_model), generator=gen, device=dev)
+    r = torch.randn(x.shape, generator=gen, device=dev)
+    pos = torch.arange(32, device=dev)[None].expand(4, 32)
+    real = ops.flash_attention
+
+    def fwd_bwd(p, lay):
+        """(the gradients of x and of every leaf by path, the synced wall of
+        the forward and backward)."""
+        req = [t.detach().requires_grad_() for t in leaves(p)]
+        tree = unflatten(p, req)
+        xx = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o, *_ = T._apply_sublayer(tree, xx, cfg, mixer, "none", positions=pos, cache=None,
+                                  enc_out=None, causal=True, lay=lay)
+        (o * r).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return dict({"/".join(k): t.grad for (k, _), t in zip(flatten(p), req)}, x=xx.grad), ms
+
+    for mixer in ("mamba", "attn"):
+        layer = cfg.pattern.index((mixer, "mlp"))
+        # the attention projections at the usual fan-in (`conditioned`): at
+        # the reference's init the scores' std is in the hundreds, and the
+        # softmax's backward turns the ranks' float32 roundings of q and k
+        # into 1.6e-4 of the gradients
+        whole = conditioned_sublayer(
+            tp2b_block_params(torch, cfg, layer, mixer, "none", dev, None), mixer, cfg)
+        fwd_bwd(whole, T.Layout())                                # warm-up
+        ref, one_ms = fwd_bwd(whole, T.Layout())
+        specs = {"/".join(k): leaf_pspec(sp, m14) for k, sp in
+                 flatten(T._sublayer_specs(cfg, mixer, "none", False, torch.float32))}
+        local = conditioned_sublayer(
+            tp2b_block_params(torch, cfg, layer, mixer, "none", dev, m14), mixer, cfg)
+        per_call, shapes = [], set()
+
+        def held(q, k, v, causal=True, use_kernel=False):
+            o = real(q, k, v, causal, use_kernel)
+            with torch.no_grad():
+                plain = flash_attention.flash_attention_plain(q, k, v, causal).float()
+                per_call.append(((o.float() - plain).abs().max() / plain.abs().max()).item())
+            shapes.add((tuple(q.shape), tuple(k.shape)))
+            return o
+
+        with set_mesh(m14):
+            fwd_bwd(local, T.layout(cfg, 4, m14))                  # warm-up
+            per_call.clear()
+            ops.reset_launch_counts()
+            combines0 = flash_attention.flash_attention.combine_launches
+            ops.flash_attention = held
+            try:
+                g, ms = fwd_bwd(local, T.layout(cfg, 4, m14))
+            finally:
+                ops.flash_attention = real
+            n_flash = ops.launch_counts()["flash_attention"]
+            n_comb = flash_attention.flash_attention.combine_launches - combines0
+        # a leaf's error over at least 1e-3 of the whole gradient's norm (the
+        # CPU tests' GRAD_FLOOR): Mamba's dt_w and dt_b gradients sit
+        # behind softplus(-4.6) and are tiny
+        floor = 1e-3 * float(torch.sqrt(sum(t.square().sum() for k, t in ref.items()
+                                            if k != "x")))
+        errs = {}
+        for key, t in g.items():
+            want = ref[key] if key == "x" else block(ref[key], specs[key], m14)
+            errs[key] = float((t - want).norm()) / max(float(want.norm()), floor)
+        out["grads"][mixer] = dict(errs=errs, wall_ms=ms, one_rank_ms=one_ms, flash=n_flash,
+                                   combines=n_comb, per_call=per_call,
+                                   flash_shape=", ".join(f"q {q} k {k}" for q, k in shapes))
+        del whole, local, ref, g
+        torch.cuda.empty_cache()
     return out
 
 

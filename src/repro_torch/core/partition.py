@@ -20,7 +20,8 @@ layers of ``repro.core.partition``).
    (:data:`DEFAULT_RULES`, :func:`rules_override`, :data:`NO_TP`) and
    :func:`logical_to_spec`, which turns a leaf's logical axes into the spec
    of the block each rank holds; :func:`block` and :func:`unblock` cut a
-   tensor to a rank's block and gather it back.  The reference's
+   tensor to a rank's block and gather it back (a :class:`Parts` entry cuts
+   each of a fused projection's parts alone).  The reference's
    ``constrain`` has no counterpart: it hints a layout to XLA, where the
    port's layout is explicit, so each of its call sites is where a model
    function of the port moves data (or says why none moves).
@@ -524,6 +525,28 @@ def split_axis(mesh: Optional[NoCMesh], logical: str, dim: int,
     return ax if ax.size > 1 else None
 
 
+class Parts(str):
+    """A spec entry for a dim that holds ``n`` equal tensors side by side (a
+    fused projection such as Mamba's ``[x | z]``): each part is cut over the
+    axis on its own, so a rank holds its block of every part, side by side.
+    It equals the axis name it wraps, as the reference's ``PartitionSpec``
+    entry does, where XLA reshards at the slice; the port moves no data
+    there (ROADMAP Queue 3, decided divergences)."""
+
+    n: int
+
+    def __new__(cls, name: str, n: int):
+        self = super().__new__(cls, name)
+        self.n = n
+        return self
+
+    def __reduce__(self):
+        return Parts, (str(self), self.n)
+
+    def __repr__(self):
+        return f"Parts({str(self)!r}, {self.n})"
+
+
 def local_shape(shape: Sequence[int], spec: Spec, mesh: NoCMesh) -> tuple[int, ...]:
     """The shape of a rank's block of a ``shape`` tensor under ``spec``."""
     return tuple(n // math.prod(mesh_shape(mesh)[a] for a in
@@ -531,10 +554,18 @@ def local_shape(shape: Sequence[int], spec: Spec, mesh: NoCMesh) -> tuple[int, .
                  for n, e in zip(shape, spec))
 
 
+def _axis_of(mesh: NoCMesh, entry):
+    return mesh.axis(str(entry) if isinstance(entry, Parts) else entry)
+
+
 def block(t: torch.Tensor, spec: Spec, mesh: NoCMesh) -> torch.Tensor:
-    """This rank's block of the whole tensor ``t`` under ``spec`` (a view)."""
+    """This rank's block of the whole tensor ``t`` under ``spec`` (a view,
+    but for a :class:`Parts` dim, whose blocks are copied side by side)."""
     for dim, entry in enumerate(spec):
-        if entry:
+        if isinstance(entry, Parts):
+            t = own_block(t.unflatten(dim, (entry.n, -1)), _axis_of(mesh, entry),
+                          dim + 1).flatten(dim, dim + 1)
+        elif entry:
             t = own_block(t, mesh.axis(entry), dim)
     return t
 
@@ -544,7 +575,12 @@ def unblock(t: torch.Tensor, spec: Spec, mesh: NoCMesh) -> torch.Tensor:
     all-gather over each sharded dim's axes (collective: every rank of the
     mesh calls it)."""
     for dim, entry in enumerate(spec):
-        if entry and mesh.axis(entry).size > 1:
+        if not entry or _axis_of(mesh, entry).size == 1:
+            continue
+        if isinstance(entry, Parts):
+            t = gather_blocks(t.unflatten(dim, (entry.n, -1)), _axis_of(mesh, entry),
+                              dim + 1).flatten(dim, dim + 1)
+        else:
             t = gather_blocks(t, mesh.axis(entry), dim)
     return t
 

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from .._tree import leaves
 from ..core.collectives import copy_to, reduce_from
-from ..core.partition import DEFAULT_RULES, block, logical_to_spec, mesh_shape, unblock
+from ..core.partition import (DEFAULT_RULES, Parts, block, logical_to_spec, mesh_shape,
+                              unblock)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +35,8 @@ class ParamSpec:
     dtype: Any = torch.float32
     init: str = "fan_in"        # fan_in | zeros | ones | embed | small
     scale: float = 1.0
+    parts: int = 1              # the last dim holds this many tensors side by side (a
+                                #   fused projection): a mesh cuts each part alone
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -82,18 +85,30 @@ def init_params(spec_tree, gen: torch.Generator, device=None, mesh=None):
         if mesh is None:
             return init_param(gen, spec_tree, device)
         whole = init_param(gen, spec_tree, gen.device)
-        return block(whole, _pspec(spec_tree, DEFAULT_RULES, mesh.axis_names,
-                                   mesh_shape(mesh)), mesh).to(device, copy=True)
+        return block(whole, leaf_pspec(spec_tree, mesh), mesh).to(device, copy=True)
     return {k: init_params(spec_tree[k], gen, device, mesh) for k in sorted(spec_tree)}
 
 
 def _pspec(s: ParamSpec, rules, mesh_axes, shape_of_mesh):
-    return logical_to_spec(s.axes, rules, mesh_axes, dims=s.shape, mesh_shape=shape_of_mesh)
+    spec = logical_to_spec(s.axes, rules, mesh_axes, dims=s.shape, mesh_shape=shape_of_mesh)
+    if s.parts == 1 or spec[-1] is None:
+        return spec
+    if not isinstance(spec[-1], str):
+        raise ValueError(f"a fused leaf {s.shape} is cut over one mesh axis, not {spec[-1]}")
+    if shape_of_mesh is not None and (s.shape[-1] // s.parts) % shape_of_mesh[spec[-1]]:
+        return spec[:-1] + (None,)      # the parts do not divide: replicated
+    return spec[:-1] + (Parts(spec[-1], s.parts),)
+
+
+def leaf_pspec(s: ParamSpec, mesh, rules=DEFAULT_RULES):
+    """The spec of the block of leaf ``s`` that this rank of ``mesh`` holds."""
+    return _pspec(s, rules, mesh.axis_names, mesh_shape(mesh))
 
 
 def param_pspecs(spec_tree, rules=DEFAULT_RULES, mesh_axes=None, mesh_shape=None):
     """The spec (`core.partition.logical_to_spec`) of every leaf: the block a
-    rank of a mesh with ``mesh_axes`` of ``mesh_shape`` holds."""
+    rank of a mesh with ``mesh_axes`` of ``mesh_shape`` holds.  A fused leaf
+    (``parts`` > 1) has a `core.partition.Parts` entry for its last dim."""
     return spec_tree_map(lambda s: _pspec(s, rules, mesh_axes, mesh_shape), spec_tree)
 
 
@@ -131,7 +146,7 @@ def count_params(spec_tree) -> int:
 def stack_specs(spec_tree, n: int):
     """Prepend a layers axis to every ParamSpec in the tree."""
     return spec_tree_map(
-        lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.dtype, s.init, s.scale),
+        lambda s: dataclasses.replace(s, shape=(n,) + s.shape, axes=("layers",) + s.axes),
         spec_tree)
 
 

@@ -8,6 +8,14 @@ into the output); otherwise the latent is expanded to per-head keys and
 values.  The reference's dispatch holds: ``impl="naive"`` or one query goes
 to ``_naive``, anything else to ``_blocked``, so MLA never reaches the flash
 kernel.  The cache is written in place, as the attention cache is.
+
+On a mesh (`launch.mesh`) each rank computes its block of heads: ``q_b``,
+``kv_b`` and ``wo`` hold the rank's ``heads``; ``q_a``, ``kv_a`` and their
+norms are replicated, and their outputs (the query latent, the kv latent and
+the RoPE key) enter the per-head products through ``copy_to``, so their
+gradients are summed over the model axis.  The latent cache has no head axis:
+it is replicated over the model axis, each rank writing the same values.  The
+rank's outputs are added over the model axis after ``wo``.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ..core.collectives import copy_to, reduce_from
 from .attention import _blocked, _naive
 from .layers import ParamSpec, rms_norm, rope
 
@@ -63,16 +72,19 @@ def init_mla_cache(c: MLAConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def mla_apply(params: dict, x: torch.Tensor, c: MLAConfig, *,
               positions: Optional[torch.Tensor] = None,
-              cache: Optional[dict] = None) -> tuple[torch.Tensor, Optional[dict]]:
-    """x: (B, S, d) -> (out (B, S, d), updated cache or None)."""
+              cache: Optional[dict] = None,
+              heads_axis=None) -> tuple[torch.Tensor, Optional[dict]]:
+    """x: (B, S, d) -> (out (B, S, d), updated cache or None).
+    ``heads_axis``: the mesh axis the heads are split over (None: whole);
+    x is replicated over it."""
     B, S, d = x.shape
-    H = c.n_heads
+    H = c.n_heads // (heads_axis.size if heads_axis is not None else 1)   # the rank's heads
     if positions is None:
         base = cache["idx"] if cache is not None else 0
         positions = (base + torch.arange(S, device=x.device))[None, :].expand(B, S)
 
     cq = rms_norm(x @ params["q_a"].to(x.dtype), params["q_a_norm"].to(x.dtype))
-    q = torch.einsum("bsr,rhk->bshk", cq, params["q_b"].to(x.dtype))
+    q = torch.einsum("bsr,rhk->bshk", copy_to(cq, heads_axis), params["q_b"].to(x.dtype))
     q_nope, q_rope = q[..., :c.qk_nope_dim], q[..., c.qk_nope_dim:]
     q_rope = rope(q_rope, positions, c.rope_theta)
 
@@ -92,6 +104,9 @@ def mla_apply(params: dict, x: torch.Tensor, c: MLAConfig, *,
         q_off = idx
     else:
         ckv_use, kr_use = ckv, k_rope_new
+    # the reference's constrain(qh, ("batch", "heads", "seq", "head_dim")):
+    # the replicated latents feed the rank's heads
+    ckv_use, kr_use = copy_to(ckv_use, heads_axis), copy_to(kr_use, heads_axis)
 
     T = ckv_use.shape[1]
     plain = c.impl == "naive" or S == 1
@@ -128,4 +143,4 @@ def mla_apply(params: dict, x: torch.Tensor, c: MLAConfig, *,
             o = _blocked(qh, kh, vh, True, kv_len, c.bkv, 0.0, q_off,
                          compute_dtype=c.compute_dtype)
     out = torch.einsum("bhsv,hvd->bsd", o, params["wo"].to(x.dtype))
-    return out, new_cache
+    return reduce_from(out, heads_axis), new_cache

@@ -10,7 +10,15 @@ reference's ``lax.scan`` does.  The association order differs from XLA's, so
 the two agree to float32 rounding, not bit for bit.  Decode (S == 1) is the
 O(1) recurrent update on (conv state, ssm state).
 
-The reference's sharding hint (``constrain``) is nothing on one card.
+On a mesh (`launch.mesh`) each rank computes its block of the inner
+channels (the ``ssm_inner`` rule): ``in_proj`` holds the rank's columns of
+each of its two halves ``[x | z]`` (a `core.partition.Parts` cut, so no data
+moves at the split), ``conv_w``, ``conv_b``, ``dt_w``, ``dt_b``, ``a_log``,
+``d_skip`` its channels, ``x_proj`` and ``out_proj`` its rows.  ``x_proj``'s
+output (dt's low rank, B and C) is a partial sum over the rank's channels:
+it is added over the model axis and then read by every channel, so its
+backward adds too.  The rank's outputs are added after ``out_proj``, and the
+conv and ssm states hold the rank's channels.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.collectives import copy_to, reduce_from
 from .layers import ParamSpec
 
 
@@ -44,7 +53,7 @@ class MambaConfig:
 def mamba_specs(c: MambaConfig, dtype=torch.float32) -> dict:
     d, di, N, R = c.d_model, c.d_inner, c.d_state, c.rank
     return {
-        "in_proj": ParamSpec((d, 2 * di), ("embed", "ssm_inner"), dtype),
+        "in_proj": ParamSpec((d, 2 * di), ("embed", "ssm_inner"), dtype, parts=2),
         "conv_w": ParamSpec((c.d_conv, di), (None, "ssm_inner"), dtype, init="small"),
         "conv_b": ParamSpec((di,), ("ssm_inner",), dtype, init="zeros"),
         "x_proj": ParamSpec((di, R + 2 * N), ("ssm_inner", None), dtype),
@@ -62,10 +71,14 @@ def mamba_specs(c: MambaConfig, dtype=torch.float32) -> dict:
 FLOAT32_LEAVES = frozenset({"a_log", "d_skip"})
 
 
-def init_mamba_cache(c: MambaConfig, batch: int, dtype=torch.float32, device=None) -> dict:
+def init_mamba_cache(c: MambaConfig, batch: int, dtype=torch.float32, device=None,
+                     split: int = 1) -> dict:
+    """The conv and ssm states of ``batch`` rows; ``split``: the ranks the
+    inner channels are split over (a rank's cache holds its block)."""
+    di = c.d_inner // split
     return {
-        "conv": torch.zeros((batch, c.d_conv - 1, c.d_inner), dtype=dtype, device=device),
-        "ssm": torch.zeros((batch, c.d_inner, c.d_state), dtype=dtype, device=device),
+        "conv": torch.zeros((batch, c.d_conv - 1, di), dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, di, c.d_state), dtype=dtype, device=device),
     }
 
 
@@ -82,10 +95,12 @@ def _conv_causal(x, w, b, state: Optional[torch.Tensor]):
     return out, new_state
 
 
-def _ssm_params(params, xc, c: MambaConfig):
-    """xc (B,S,di) post-conv -> dt (B,S,di), B_in (B,S,N), C_out (B,S,N), A."""
+def _ssm_params(params, xc, c: MambaConfig, axis=None):
+    """xc (B,S,di) post-conv -> dt (B,S,di), B_in (B,S,N), C_out (B,S,N), A.
+    With the channels split over ``axis`` the projection's partial sums are
+    added over it (forward and backward: reduce_from, then copy_to)."""
     R, N = c.rank, c.d_state
-    proj = xc @ params["x_proj"].to(xc.dtype)
+    proj = copy_to(reduce_from(xc @ params["x_proj"].to(xc.dtype), axis), axis)
     dt_r, b_in, c_out = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
     # bias initialized to softplus^-1(~0.01) ≈ -4.6 (dt_b spec: ones × -4.6)
     dt = F.softplus(dt_r @ params["dt_w"].to(xc.dtype) - 4.6 * params["dt_b"].to(xc.dtype))
@@ -110,19 +125,24 @@ def _chunk_recurrence(h0, decay, inc):
 
 
 def mamba_apply(params: dict, x: torch.Tensor, c: MambaConfig,
-                cache: Optional[dict] = None) -> tuple[torch.Tensor, Optional[dict]]:
+                cache: Optional[dict] = None,
+                axis=None) -> tuple[torch.Tensor, Optional[dict]]:
     """x (B,S,d) -> (out (B,S,d), cache').  The new cache is a new dict: the
-    conv state in the given cache's dtype, the ssm state in float32."""
+    conv state in the given cache's dtype, the ssm state in float32.
+    ``axis``: the mesh axis the inner channels are split over (None: whole);
+    x is replicated over it."""
     B, S, d = x.shape
-    di, N = c.d_inner, c.d_state
-    xz = x @ params["in_proj"].to(x.dtype)
+    di, N = c.d_inner // (axis.size if axis is not None else 1), c.d_state
+    # the rank's columns of x and of z: the reference's constrain(xs,
+    # ("batch", "seq", "ssm_inner")) moves nothing here
+    xz = copy_to(x, axis) @ params["in_proj"].to(x.dtype)
     xs, z = xz[..., :di], xz[..., di:]
 
     conv_state = cache["conv"] if cache is not None else None
     xc, new_conv = _conv_causal(xs, params["conv_w"].to(x.dtype),
                                 params["conv_b"].to(x.dtype), conv_state)
     xc = F.silu(xc)
-    dt, b_in, c_out, a = _ssm_params(params, xc, c)
+    dt, b_in, c_out, a = _ssm_params(params, xc, c, axis)
 
     dt32 = dt.float()
     xc32 = xc.float()
@@ -153,7 +173,7 @@ def mamba_apply(params: dict, x: torch.Tensor, c: MambaConfig,
 
     y = y + xc32[:, :S] * params["d_skip"].float()
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ params["out_proj"].to(x.dtype)
+    out = reduce_from(y @ params["out_proj"].to(x.dtype), axis)
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv.to(cache["conv"].dtype), "ssm": new_h}

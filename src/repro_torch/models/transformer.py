@@ -25,13 +25,14 @@ blocks (`models.layers.shard_params`).  The :class:`Layout` of the call says
 where tensors live: the batch is split over the data axes when they divide
 it (``launch.steps.batch_shardings``'s rule), else replicated; the model
 axis splits ``heads``, ``kv_heads``, ``mlp``, ``vocab`` and ``experts`` where
-it divides them (`core.partition.split_axis`).  Activations between
-sub-layers are replicated over the model axis.  The embedding looks up the
-rank's rows and adds over the model axis; the logits are the rank's vocab
-block, all-gathered; ``forward`` all-gathers the batch blocks, so every rank
-returns the whole result, and ``loss`` reduces over the data axes.  A model
-with an ``mla``, ``mamba``, ``mlstm`` or ``slstm`` sub-layer runs on a
-model axis of one rank only (ROADMAP item 8(e) part 2b).
+it divides them (`core.partition.split_axis`), and the recurrent mixers'
+heads and inner channels (``ssm_inner``): MLA its heads, Mamba its inner
+channels, mLSTM and sLSTM their heads (each mixer module says how).
+Activations between sub-layers are replicated over the model axis.  The
+embedding looks up the rank's rows and adds over the model axis; the logits
+are the rank's vocab block, all-gathered; ``forward`` all-gathers the batch
+blocks, so every rank returns the whole result, and ``loss`` reduces over
+the data axes.
 
 API:
   abstract_params(cfg)                  -> ParamSpec tree
@@ -120,7 +121,10 @@ class Layout:
     """The mesh axes one call splits over (each a `MeshAxis`, None: the
     dim is whole on every rank): ``batch`` the data axes over the batch;
     ``heads``, ``kv_heads``, ``mlp``, ``vocab`` the model axis over those
-    dims of the weights.  With no mesh every field is None."""
+    dims of the weights (``heads`` for attention, MLA, mLSTM and sLSTM);
+    ``ssm_inner`` over Mamba's inner channels, ``mlstm_inner`` over
+    mLSTM's, ``slstm_ff`` over the ``mlp`` dim of sLSTM's FFN.  With no mesh
+    every field is None."""
 
     mesh: Optional[coll.NoCMesh] = None
     batch: Optional[coll.MeshAxis] = None
@@ -128,6 +132,9 @@ class Layout:
     kv_heads: Optional[coll.MeshAxis] = None
     mlp: Optional[coll.MeshAxis] = None
     vocab: Optional[coll.MeshAxis] = None
+    ssm_inner: Optional[coll.MeshAxis] = None
+    mlstm_inner: Optional[coll.MeshAxis] = None
+    slstm_ff: Optional[coll.MeshAxis] = None
 
     def local_batch(self, B: int) -> int:
         return B // self.batch.size if self.batch is not None else B
@@ -138,9 +145,6 @@ class Layout:
             return t
         n = t.shape[0] // self.batch.size
         return t[self.batch.coord * n:(self.batch.coord + 1) * n]
-
-
-PART_2B_MIXERS = ("mla", "mamba", "mlstm", "slstm")
 
 
 def batch_axis(mesh, B: int):
@@ -162,35 +166,60 @@ def layout(cfg: ModelConfig, B: int, mesh=None) -> Layout:
     mesh = coll.current_mesh() if mesh is None else mesh
     if mesh is None:
         return Layout()
-    if "model" in mesh.axis_names and mesh.axis("model").size > 1:
-        bad = sorted({m for m, _ in cfg.pattern} & set(PART_2B_MIXERS))
-        if bad:
-            raise NotImplementedError(
-                f"{cfg.name}: the {'/'.join(bad)} mixer on a model axis of more than one "
-                "rank is ROADMAP item 8(e) part 2b; run it with --model-parallel 1 (data "
-                "parallelism over every rank)")
+    mixers = {m for m, _ in cfg.pattern}
+    xc = _xlstm_cfg(cfg)
     return Layout(mesh=mesh, batch=batch_axis(mesh, B),
                   heads=split_axis(mesh, "heads", cfg.n_heads),
                   kv_heads=split_axis(mesh, "kv_heads", cfg.n_kv_heads),
                   mlp=split_axis(mesh, "mlp", cfg.d_ff) if cfg.d_ff else None,
-                  vocab=split_axis(mesh, "vocab", cfg.vocab_padded))
+                  vocab=split_axis(mesh, "vocab", cfg.vocab_padded),
+                  ssm_inner=(split_axis(mesh, "ssm_inner", _mamba_cfg(cfg).d_inner)
+                             if "mamba" in mixers else None),
+                  mlstm_inner=(split_axis(mesh, "ssm_inner", xc.d_inner)
+                               if "mlstm" in mixers else None),
+                  slstm_ff=split_axis(mesh, "mlp", xc.slstm_ff) if "slstm" in mixers else None)
+
+
+def _split(axis) -> int:
+    return axis.size if axis is not None else 1
+
+
+def _cut_leaves(cfg: ModelConfig, lay: Layout, mixer: str) -> list:
+    """(leaf, dim, whole size, axis) of the mixer's leaves the layout cuts
+    (stacked leaves: ``dim`` counts from the end)."""
+    if mixer == "attn":
+        return [("wq", -2, cfg.n_heads, lay.heads)]
+    if mixer == "mla":
+        return [("q_b", -2, cfg.n_heads, lay.heads)]
+    if mixer == "mamba":
+        return [("conv_b", -1, _mamba_cfg(cfg).d_inner, lay.ssm_inner)]
+    if mixer == "mlstm":
+        return [("wq", -3, cfg.n_heads, lay.heads),
+                ("conv_b", -1, _xlstm_cfg(cfg).d_inner, lay.mlstm_inner)]
+    if mixer == "slstm":
+        return [("rz", -3, cfg.n_heads, lay.heads)]
+    raise _unknown(mixer)
 
 
 def _check_blocks(params, cfg: ModelConfig, lay: Layout) -> None:
     """The params hold the rank's blocks of the layout (a whole tree on a
-    mesh would compute wrong sums): the embedding's rows and the first
-    attention's query heads."""
+    mesh would compute wrong sums): the embedding's rows, and the first
+    leaf the model axis cuts of each mixer of the pattern."""
     if lay.mesh is None:
         return
-    want = cfg.vocab_padded // (lay.vocab.size if lay.vocab else 1)
-    got = params["embed"].shape[0]
-    attn = params["blocks"]["0"].get("attn")
-    if attn is not None:
-        want = (want, cfg.n_heads // (lay.heads.size if lay.heads else 1))
-        got = (got, attn["wq"].shape[-2])
-    if got != want:
-        raise ValueError(f"the params hold {got} (embedding rows, query heads) where this "
-                         f"rank's blocks hold {want}: cut them with "
+    checks = [("embedding rows", params["embed"].shape[0], cfg.vocab_padded, lay.vocab)]
+    seen = set()
+    for i, (mixer, _) in enumerate(cfg.pattern):
+        if mixer in seen:
+            continue
+        seen.add(mixer)
+        p = params["blocks"][str(i)][mixer]
+        checks += [(f"{mixer} {leaf}", p[leaf].shape[dim], n, ax)
+                   for leaf, dim, n, ax in _cut_leaves(cfg, lay, mixer)]
+    bad = [f"{what} {got} (the rank's block: {n // _split(ax)})"
+           for what, got, n, ax in checks if got != n // _split(ax)]
+    if bad:
+        raise ValueError(f"the params hold {'; '.join(bad)}: cut them with "
                          "models.layers.shard_params(params, param_pspecs(...), mesh)")
 
 
@@ -277,7 +306,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     the shared write index; the recurrent states (Mamba conv and ssm; mLSTM
     conv, C, n, m; sLSTM c, n, m, h) are float32 whatever ``cfg.cdtype`` is,
     as in the reference, with no index.  Under a mesh a rank's cache holds
-    its block of the batch and of the kv heads (the call's `Layout`)."""
+    its block of the batch, of the kv heads and of the recurrent states'
+    heads or inner channels (the call's `Layout`); the MLA latent has no
+    head axis and is whole on every rank of the model axis."""
     P = cfg.n_periods
     f32 = torch.float32
     lay = layout(cfg, batch)
@@ -293,11 +324,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
         elif mixer == "mla":
             c = mla_mod.init_mla_cache(_mla_cfg(cfg), P * batch, max_len, cfg.cdtype, device)
         elif mixer == "mamba":
-            c = ssm_mod.init_mamba_cache(_mamba_cfg(cfg), P * batch, f32, device)
+            c = ssm_mod.init_mamba_cache(_mamba_cfg(cfg), P * batch, f32, device,
+                                         _split(lay.ssm_inner))
         elif mixer == "mlstm":
-            c = xlstm_mod.init_mlstm_cache(_xlstm_cfg(cfg), P * batch, f32, device)
+            ax = xlstm_mod.mlstm_axis(lay.heads, lay.mlstm_inner)
+            c = xlstm_mod.init_mlstm_cache(_xlstm_cfg(cfg), P * batch, f32, device, _split(ax))
         elif mixer == "slstm":
-            c = xlstm_mod.init_slstm_cache(_xlstm_cfg(cfg), P * batch, device)
+            c = xlstm_mod.init_slstm_cache(_xlstm_cfg(cfg), P * batch, device, _split(lay.heads))
         else:
             raise _unknown(mixer)
         blocks[str(i)] = {k: (v if k == "idx" else v.unflatten(0, (P, batch)))
@@ -325,13 +358,16 @@ def _apply_sublayer(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
                                  kv_axis=lay.kv_heads)
     elif mixer == "mla":
         o, new_cache = mla_mod.mla_apply(p["mla"], h, _mla_cfg(cfg), positions=positions,
-                                         cache=cache)
+                                         cache=cache, heads_axis=lay.heads)
     elif mixer == "mamba":
-        o, new_cache = ssm_mod.mamba_apply(p["mamba"], h, _mamba_cfg(cfg), cache)
+        o, new_cache = ssm_mod.mamba_apply(p["mamba"], h, _mamba_cfg(cfg), cache,
+                                           axis=lay.ssm_inner)
     elif mixer == "mlstm":
-        o, new_cache = xlstm_mod.mlstm_apply(p["mlstm"], h, _xlstm_cfg(cfg), cache)
+        o, new_cache = xlstm_mod.mlstm_apply(p["mlstm"], h, _xlstm_cfg(cfg), cache,
+                                             heads_axis=lay.heads, inner_axis=lay.mlstm_inner)
     elif mixer == "slstm":
-        o, new_cache = xlstm_mod.slstm_apply(p["slstm"], h, _xlstm_cfg(cfg), cache)
+        o, new_cache = xlstm_mod.slstm_apply(p["slstm"], h, _xlstm_cfg(cfg), cache,
+                                             heads_axis=lay.heads, ff_axis=lay.slstm_ff)
     else:
         raise _unknown(mixer)
     x = x + o

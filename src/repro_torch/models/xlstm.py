@@ -14,6 +14,20 @@ memory, sequential), per arXiv:2405.04517 (counterpart of
 
 Every recurrent state (C, n, m; c, n, m, h) is float32 whatever the
 activations' dtype; the initial stabilizers ``m`` are -1e30.
+
+On a mesh (`launch.mesh`) both mixers split their heads over the model
+axis.  mLSTM reshapes its inner channels into heads, so it runs split only
+where the ``heads`` and ``ssm_inner`` rules cut the same axis
+(:func:`mlstm_axis`): each rank then holds its heads' block of ``up``'s two
+halves (a `core.partition.Parts` cut), ``conv``, ``norm`` and ``down``'s
+rows, and its heads of ``wq``…``bf``; the per-head norm is local and the
+outputs are added after ``down``.  Where the rules disagree (an axis that
+divides the inner channels but not the heads) the leaves cut over either
+axis are all-gathered and the mixer runs replicated, never on part of a
+head.  sLSTM's recurrence is block-diagonal per head, so its token loop
+needs no collective; ``h`` is all-gathered over the heads before the norm
+over the whole ``d``, and the FFN is a Megatron pair over the ``mlp`` rule
+where it divides ``slstm_ff``, else replicated.
 """
 from __future__ import annotations
 
@@ -23,6 +37,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.collectives import copy_to, gather_from, reduce_from
 from .layers import ParamSpec, rms_norm
 from .ssm import _conv_causal
 
@@ -60,7 +75,7 @@ class XLSTMConfig:
 def mlstm_specs(c: XLSTMConfig, dtype=torch.float32) -> dict:
     d, di, H, dh = c.d_model, c.d_inner, c.n_heads, c.dh
     return {
-        "up": ParamSpec((d, 2 * di), ("embed", "ssm_inner"), dtype),
+        "up": ParamSpec((d, 2 * di), ("embed", "ssm_inner"), dtype, parts=2),
         "conv_w": ParamSpec((c.d_conv, di), (None, "ssm_inner"), dtype, init="small"),
         "conv_b": ParamSpec((di,), ("ssm_inner",), dtype, init="zeros"),
         "wq": ParamSpec((H, dh, dh), ("heads", None, None), dtype),
@@ -75,23 +90,59 @@ def mlstm_specs(c: XLSTMConfig, dtype=torch.float32) -> dict:
     }
 
 
-def init_mlstm_cache(c: XLSTMConfig, batch: int, dtype=torch.float32, device=None) -> dict:
-    """The conv state in ``dtype``; C, n and m in float32."""
-    H, dh = c.n_heads, c.dh
+def init_mlstm_cache(c: XLSTMConfig, batch: int, dtype=torch.float32, device=None,
+                     split: int = 1) -> dict:
+    """The conv state in ``dtype``; C, n and m in float32.  ``split``: the
+    ranks the heads are split over (a rank's cache holds its heads)."""
+    H, dh = c.n_heads // split, c.dh
     f32 = dict(dtype=torch.float32, device=device)
     return {
-        "conv": torch.zeros((batch, c.d_conv - 1, c.d_inner), dtype=dtype, device=device),
+        "conv": torch.zeros((batch, c.d_conv - 1, H * dh), dtype=dtype, device=device),
         "C": torch.zeros((batch, H, dh, dh), **f32),
         "n": torch.zeros((batch, H, dh), **f32),
         "m": torch.full((batch, H), -1e30, **f32),
     }
 
 
-def _mlstm_qkv_gates(params, x, c: XLSTMConfig, conv_state):
+def mlstm_axis(heads_axis, inner_axis):
+    """The mesh axis mLSTM runs split over: the heads' axis when the inner
+    channels are cut over the same one (a rank's channels are then its whole
+    heads), else None."""
+    if heads_axis is None or inner_axis is None or heads_axis.names != inner_axis.names:
+        return None
+    return heads_axis
+
+
+def _whole_leaf(w, axis, dim, parts=1):
+    """A leaf cut over ``axis`` along ``dim`` (each of its ``parts`` alone)
+    all-gathered; its gradient is the rank's block of the cotangent."""
+    if axis is None:
+        return w
+    if parts == 1:
+        return gather_from(w, axis, dim)
+    return gather_from(w.unflatten(dim, (parts, -1)), axis, dim).flatten(dim - 1, dim)
+
+
+def _mlstm_whole(params, heads_axis, inner_axis):
+    """mLSTM's leaves whole, from the rank's blocks over the two axes (the
+    replicated run where the rules disagree)."""
+    out = dict(params)
+    out["up"] = _whole_leaf(params["up"], inner_axis, -1, parts=2)
+    for k in ("conv_w", "conv_b", "norm"):
+        out[k] = _whole_leaf(params[k], inner_axis, -1)
+    out["down"] = _whole_leaf(params["down"], inner_axis, 0)
+    for k in ("wq", "wk", "wv", "wi", "wf", "bi", "bf"):
+        out[k] = _whole_leaf(params[k], heads_axis, 0)
+    return out
+
+
+def _mlstm_qkv_gates(params, x, c: XLSTMConfig, conv_state, H: int):
+    """The projections and gates of the ``H`` heads the params hold."""
     B, S, _ = x.shape
-    H, dh = c.n_heads, c.dh
+    dh = c.dh
+    di = H * dh
     up = x @ params["up"].to(x.dtype)
-    xi, z = up[..., :c.d_inner], up[..., c.d_inner:]
+    xi, z = up[..., :di], up[..., di:]
     xc, new_conv = _conv_causal(xi, params["conv_w"].to(x.dtype),
                                 params["conv_b"].to(x.dtype), conv_state)
     xc = F.silu(xc)
@@ -182,27 +233,34 @@ def _mlstm_chunked(q, k, v, li, lf, state, chunk: int):
 
 
 def mlstm_apply(params: dict, x: torch.Tensor, c: XLSTMConfig,
-                cache: Optional[dict] = None) -> tuple[torch.Tensor, Optional[dict]]:
-    """x (B,S,d) -> (out (B,S,d), cache'); the new cache is a new dict."""
+                cache: Optional[dict] = None, heads_axis=None,
+                inner_axis=None) -> tuple[torch.Tensor, Optional[dict]]:
+    """x (B,S,d) -> (out (B,S,d), cache'); the new cache is a new dict.
+    ``heads_axis`` / ``inner_axis``: the mesh axes the heads and the inner
+    channels are split over (None: whole); x is replicated over them."""
     B, S, d = x.shape
-    H, dh = c.n_heads, c.dh
+    axis = mlstm_axis(heads_axis, inner_axis)
+    if axis is None:
+        params = _mlstm_whole(params, heads_axis, inner_axis)
+    H, dh = c.n_heads // (axis.size if axis is not None else 1), c.dh   # the rank's heads
+    di = H * dh
     conv_state = cache["conv"] if cache is not None else None
-    q, k, v, z, li, lf, new_conv = _mlstm_qkv_gates(params, x, c, conv_state)
+    q, k, v, z, li, lf, new_conv = _mlstm_qkv_gates(params, copy_to(x, axis), c, conv_state, H)
     state = ({k2: cache[k2] for k2 in ("C", "n", "m")} if cache is not None
-             else {k2: t for k2, t in init_mlstm_cache(c, B, device=x.device).items()
-                   if k2 != "conv"})
+             else {k2: t for k2, t in init_mlstm_cache(
+                 c, B, device=x.device, split=c.n_heads // H).items() if k2 != "conv"})
     if S == 1:
         h, new_state = _mlstm_decode_step(q[:, 0], k[:, 0], v[:, 0], li[:, 0], lf[:, 0],
                                           state)
         h = h[:, None]
     else:
         h, new_state = _mlstm_chunked(q, k, v, li, lf, state, c.chunk)
-    h = h.reshape(B, S, c.d_inner).to(x.dtype)
+    h = h.reshape(B, S, di).to(x.dtype)
     ones = torch.ones((dh,), dtype=x.dtype, device=x.device)
-    h = rms_norm(h.reshape(B, S, H, dh), ones).reshape(B, S, c.d_inner)
+    h = rms_norm(h.reshape(B, S, H, dh), ones).reshape(B, S, di)
     h = h * params["norm"].to(x.dtype)
     h = h * F.silu(z)
-    out = h @ params["down"].to(x.dtype)
+    out = reduce_from(h @ params["down"].to(x.dtype), axis)
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv.to(cache["conv"].dtype), **new_state}
@@ -243,24 +301,31 @@ def slstm_specs(c: XLSTMConfig, dtype=torch.float32) -> dict:
     return sp
 
 
-def init_slstm_cache(c: XLSTMConfig, batch: int, device=None) -> dict:
-    shape = (batch, c.n_heads, c.dh_model)
+def init_slstm_cache(c: XLSTMConfig, batch: int, device=None, split: int = 1) -> dict:
+    """c, n, m and h of ``batch`` rows in float32; ``split``: the ranks the
+    heads are split over (a rank's cache holds its heads)."""
+    shape = (batch, c.n_heads // split, c.dh_model)
     f32 = dict(dtype=torch.float32, device=device)
     return {"c": torch.zeros(shape, **f32), "n": torch.zeros(shape, **f32),
             "m": torch.full(shape, -1e30, **f32), "h": torch.zeros(shape, **f32)}
 
 
 def slstm_apply(params: dict, x: torch.Tensor, c: XLSTMConfig,
-                cache: Optional[dict] = None) -> tuple[torch.Tensor, Optional[dict]]:
+                cache: Optional[dict] = None, heads_axis=None,
+                ff_axis=None) -> tuple[torch.Tensor, Optional[dict]]:
     """x (B,S,d) -> (out (B,S,d), cache').  The recurrent weights r* are read
-    in float32, as in the reference."""
+    in float32, as in the reference.  ``heads_axis`` / ``ff_axis``: the mesh
+    axes the heads and the FFN's ``mlp`` dim are split over (None: whole);
+    x is replicated over them."""
     B, S, d = x.shape
-    pre = torch.stack([(torch.einsum("bsd,dhe->bshe", x, params[f"w{g}"].to(x.dtype))
+    split = heads_axis.size if heads_axis is not None else 1
+    xh = copy_to(x, heads_axis)
+    pre = torch.stack([(torch.einsum("bsd,dhe->bshe", xh, params[f"w{g}"].to(x.dtype))
                         + (3.0 if g == "f" else 1.0) * params[f"b{g}"].to(x.dtype)).float()
                        for g in SLSTM_GATES])                        # (4, B, S, H, dh)
     # the four recurrent products of a step as one: (4, H, dh, dh)
     r = torch.stack([params[f"r{g}"].float() for g in SLSTM_GATES])
-    st = cache if cache is not None else init_slstm_cache(c, B, x.device)
+    st = cache if cache is not None else init_slstm_cache(c, B, x.device, split)
     hs = []
     for t in range(S):
         zt, it, ft, ot = pre[:, :, t] + torch.einsum("bhe,ghef->gbhf", st["h"], r)
@@ -275,8 +340,10 @@ def slstm_apply(params: dict, x: torch.Tensor, c: XLSTMConfig,
         h = o * c_new / n_new.clamp_min(1e-6)
         st = {"c": c_new, "n": n_new, "m": m_new, "h": h}
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    # the rank's heads, then every head: the norm is over the whole d
+    h = gather_from(torch.stack(hs, dim=1).to(x.dtype), heads_axis, 2).reshape(B, S, d)
     h = rms_norm(h, params["norm"].to(x.dtype))
-    h = h + F.gelu(h @ params["ff_up"].to(x.dtype),
-                   approximate="tanh") @ params["ff_down"].to(x.dtype)
+    hf = copy_to(h, ff_axis)
+    h = h + reduce_from(F.gelu(hf @ params["ff_up"].to(x.dtype),
+                               approximate="tanh") @ params["ff_down"].to(x.dtype), ff_axis)
     return h, (st if cache is not None else None)

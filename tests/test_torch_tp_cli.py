@@ -8,9 +8,10 @@ the one-device CLIs in this process, on the CPU:
 * the checkpoint the mesh run writes (rank 0, the gathered tree) has the
   one-device run's leaves and shapes, and a one-device run restarts from it
   with the uninterrupted run's losses;
-* a part-2b arch on the mesh raises ``NotImplementedError``; more than one
-  rank needs ``--dist-backend``, and ``--model-parallel`` above 1 needs
-  torchrun.
+* minicpm3-4b, jamba-v0.1-52b and xlstm-350m (the part-2b mixers) serve
+  and train on the mesh: tokens equal to the one-device CLI's, losses
+  within rtol 1e-5; more than one rank needs ``--dist-backend``, and
+  ``--model-parallel`` above 1 needs torchrun.
 """
 import json
 import os
@@ -73,9 +74,19 @@ def test_mesh_checkpoint_restarts_on_one_device(runs, tmp_path):
 
 
 def test_part_2b_arch_raises_on_the_mesh(runs):
+    """(The name dates from when these archs refused a model axis of more
+    than one rank.)  Each serves and trains on the (2, 2) mesh as on one
+    device."""
     res, _ = runs
-    for r in res:
-        assert r["part2b"] is not None and "item 8(e) part 2b" in r["part2b"]
+    for arch in C.PART_2B:
+        toks = serve.run(["--arch", arch] + C.SERVE_ARGS)
+        losses = train.run(["--arch", arch] + C.PART_2B_TRAIN_ARGS)
+        for r in res:
+            got_toks, got_losses = r["part2b"][arch]
+            assert got_toks.shape == toks.shape == (6, 4)
+            assert np.array_equal(got_toks, toks), arch
+            assert len(got_losses) == len(losses) == 2
+            assert np.allclose(got_losses, losses, rtol=1e-5, atol=0), (arch, got_losses, losses)
 
 
 def test_mesh_flags_need_torchrun_and_a_backend(monkeypatch, capsys):

@@ -15,9 +15,11 @@ single-threaded ranks (`tests/torch_spmd_worlds.py`) then takes each step on
   same state: a replicated region summed twice would show here n times too
   large;
 * minicpm3-4b, jamba-v0.1-52b and xlstm-350m (the mla, mamba, mlstm and
-  slstm mixers, ROADMAP item 8(e) part 2b) raise ``NotImplementedError`` on
-  a model axis of 2, and their step on a (2, 1) mesh (data parallelism
-  alone) equals the one-rank step within rtol 1e-5.
+  slstm mixers, ROADMAP item 8(e) part 2b) take a step on a model axis of 2
+  (the (1, 2) mesh) whose loss is within rtol 1e-5 and grad norm within
+  rtol 1e-4 of the one-rank step's, and their step on a (2, 1) mesh (data
+  parallelism alone) equals the one-rank step within rtol 1e-5
+  (`tests/test_torch_tp_mixers_train.py` holds them on every mesh).
 """
 import pickle
 
@@ -90,8 +92,12 @@ def test_gathered_grads_equal_the_one_rank_port(runs, arch, shape):
 
 @pytest.mark.parametrize("arch", C.PART_2B)
 def test_part_2b_mixers_raise_on_a_model_axis_and_train_on_the_data_axis(runs, arch):
+    """(The name dates from when these mixers refused a model axis of more
+    than one rank.)  A step on a model axis of 2 and on the data axis alone
+    against the one-rank step."""
     _, port = runs
-    raised, (mesh, one) = port[("part2b", arch)]
-    assert raised is not None and "item 8(e) part 2b" in raised
+    model, data, one = port[("part2b", arch)]
+    for k, rtol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        assert abs(model[k] - one[k]) <= rtol * abs(one[k]), (k, model[k], one[k])
     for k in ("loss", "grad_norm"):
-        assert abs(mesh[k] - one[k]) <= 1e-5 * abs(one[k]), (k, mesh[k], one[k])
+        assert abs(data[k] - one[k]) <= 1e-5 * abs(one[k]), (k, data[k], one[k])

@@ -392,6 +392,22 @@ def tp_train(rank, world, device, in_path):
     return train_results(rank, world, device, in_path)
 
 
+def tp_mixers(rank, world, device, in_path):
+    """The part-2b archs' forward, loss, decode and serve, and each mixer
+    alone, on meshes (`tests/torch_tp_cases.py`)."""
+    from tests.torch_tp_cases import model_results
+
+    return model_results(rank, world, device, in_path, "mixers")
+
+
+def tp_mixers_train(rank, world, device, in_path, ckpt_dir):
+    """The part-2b archs' train step and checkpoints on meshes
+    (`tests/torch_tp_cases.py`)."""
+    from tests.torch_tp_cases import mixer_train_results
+
+    return mixer_train_results(rank, world, device, in_path, ckpt_dir)
+
+
 def tp_cli(rank, world, device, ckpt):
     """The serve and train CLIs with --model-parallel (`tests/torch_tp_cases.py`)."""
     from tests.torch_tp_cases import cli_results
@@ -401,4 +417,4 @@ def tp_cli(rank, world, device, ckpt):
 
 # the scenarios a world starts with (main runs the first four in turn)
 SCENARIOS = {f.__name__: f for f in (main, iterate_spmd, noc_diamond, fail, moe_mesh, tp_models,
-                                     tp_train, tp_cli)}
+                                     tp_train, tp_mixers, tp_mixers_train, tp_cli)}
