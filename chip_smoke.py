@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, then runs sixteen phases and raises on any failure:
+with ``nvcc``, then runs seventeen phases and raises on any failure:
 
 1. environment — the card, its power limit, torch/CUDA versions, build time,
                  ptxas's registers, spills and shared memory of each kernel;
@@ -147,12 +147,26 @@ with ``nvcc``, then runs sixteen phases and raises on any failure:
    norm (float32 compute) held to one rank's at rtol 1e-2; jamba's Mamba and
    attention sub-layers at full width through the backward on (1, 4), the
    gradients of x and of each rank's leaves held to one rank's at 1e-5
-   (relative L2), flash on the rank's head block held to its plain version.
+   (relative L2), flash on the rank's head block held to its plain version;
+17. the cross-pod gradient exchange and elastic rescale — 4 ranks spawned as
+   phase 12's: llama3.2-1b FULL on a (2, 1, 2) ``("pod", "data", "model")``
+   mesh, one float32 step at batch 8 x seq 128 from one state under
+   ``pod_sync="auto"`` and ``"serdes"`` with none, bf16 and int8 links, the
+   grad norm and AdamW's m and v (over each leaf's max) held to auto's
+   (1e-4 / 1e-5 none, 1e-3 / 1e-2 bf16, 1e-3 / 2e-2 int8), with each
+   variant's wall, transport, staged and wire bytes, ppermutes, peak and
+   flash launches; none at 4 layers on (2, 2, 1) held to one process's step
+   on the whole batch; llama3.2-1b at 4 layers trained 2 steps on a (2, 2)
+   mesh and saved, then restored by a world of 2 ranks through
+   ``restore(shardings=remesh_plan(...))`` (the gathered blocks equal to the
+   saved arrays bit for bit) and its float32 step held to one rank's; every
+   float32 flash call of a step at each shape held to its plain version.
 
 Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
 no result when no CUDA device is present or the port is not beside it.
 """
+import contextlib
 import datetime
 import json
 import os
@@ -765,6 +779,9 @@ def main():
 
     # -- phase 16: the mla, mamba, mlstm and slstm mixers on the model axis, 4 ranks
     tp2b = tp2b_phase(torch, dev, smi)
+
+    # -- phase 17: the cross-pod gradient exchange and elastic rescale, 4 and 2 ranks
+    pods = pod_phase(torch, dev, smi)
     phase3_path = {"gf2_bmvm": "iterate_kernel", "minsum_check": "decode_minsum",
                    "particle_histogram": "track"}
     for kern in kernels:
@@ -783,14 +800,16 @@ def main():
                                         **families["launches"], **recurrent["launches"],
                                         "llama_serve_mesh": tp["serve_launches"],
                                         "llama_train_mesh": tp["train_launches"],
-                                        "jamba_attn_layer_mesh": tp2b["launches"]}
+                                        "jamba_attn_layer_mesh": tp2b["launches"],
+                                        "llama_train_pods": pods["launches"]}
             kern["launches"] = sum(kern["launches_by_path"].values())
             kern["combine"]["launches_by_path"] = {
                 "whisper_serve": serve_stats["combine_launches"], "llama_serve": 0,
                 "llama_train": dense["train_combine_launches"],
                 **families["combine_launches"], **recurrent["combine_launches"],
                 "llama_serve_mesh": 0, "llama_train_mesh": tp["train_combine_launches"],
-                "jamba_attn_layer_mesh": tp2b["combine_launches"]}
+                "jamba_attn_layer_mesh": tp2b["combine_launches"],
+                "llama_train_pods": pods["combine_launches"]}
             kern["combine"]["launches"] = sum(kern["combine"]["launches_by_path"].values())
 
     print(json.dumps({"kernels": kernels}))
@@ -2226,7 +2245,7 @@ def spmd_phase(torch, smi):
     return dict(launches=launches)
 
 
-def _spmd_rank(rank, world, tmp, part):
+def _spmd_rank(rank, world, tmp, part, args=()):
     """One rank of phase 12: join the gloo group, run ``part`` on the card,
     write what it measured for the parent."""
     import torch
@@ -2242,8 +2261,8 @@ def _spmd_rank(rank, world, tmp, part):
     try:
         dev = join_process_group("gloo", "cuda")
         out = {"mesh8": _spmd_mesh8, "ldpc16": _spmd_ldpc16, "moe4": _moe_mesh4,
-               "moe8": _moe_mesh8, "tp4": _tp_mesh4, "tp2b4": _tp2b_mesh4}[part](torch, dev,
-                                                                                rank)
+               "moe8": _moe_mesh8, "tp4": _tp_mesh4, "tp2b4": _tp2b_mesh4, "pod4": _pod_mesh4,
+               "elastic2": _elastic_restore2}[part](torch, dev, rank, *args)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"{part}-{rank}.pkl"), "wb") as f:
@@ -2424,17 +2443,18 @@ def moe_input(torch, dev):
     return torch.randn(MOE_X_SHAPE, generator=gen, device=dev)
 
 
-def run_ranks(torch, part, world, deadline=400.0):
-    """Spawn ``world`` ranks running ``part`` (phase 12's ``_spmd_rank``),
-    wait for them with a deadline, and return what each wrote, in rank
-    order; a rank that fails or outlives the deadline fails the run."""
+def run_ranks(torch, part, world, deadline=400.0, args=()):
+    """Spawn ``world`` ranks running ``part`` (phase 12's ``_spmd_rank``)
+    with ``args`` after its own, wait for them with a deadline, and return
+    what each wrote, in rank order; a rank that fails or outlives the
+    deadline fails the run."""
     import torch.multiprocessing as mp
 
     os.environ.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{part}_")
     t0 = time.perf_counter()
     try:
-        ctx = mp.start_processes(_spmd_rank, args=(world, tmp, part), nprocs=world,
+        ctx = mp.start_processes(_spmd_rank, args=(world, tmp, part, args), nprocs=world,
                                  join=False, start_method="spawn")
         try:
             while not ctx.join(timeout=1.0):
@@ -3457,6 +3477,467 @@ def _tp2b_mesh4(torch, dev, rank):
                                    flash_shape=", ".join(f"q {q} k {k}" for q, k in shapes))
         del whole, local, ref, g
         torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 17: the cross-pod gradient exchange and elastic rescale -----------------
+
+POD_VARIANTS = ("auto", "none", "bf16", "int8")
+# against auto: the grad norm, relative, and AdamW's m and v, max |diff| over
+# each leaf's max |.| (tests/test_torch_pod_sync.py's GNORM_TOL and AUTO_TOL)
+POD_GNORM_TOL = {"none": 1e-4, "bf16": 1e-3, "int8": 1e-3}
+POD_TOL = {"none": 1e-5, "bf16": 1e-2, "int8": 2e-2}
+# (2, 2, 1) none against the step of one process: float32 sums in another
+# order (the CPU tests' bound of the port against the reference)
+ONE_TOL = {"loss": 1e-5, "gnorm": 1e-4, "state": 1e-4}
+FLASH_F32_TOL = 3e-5                           # x max |out|, phase 2's float32 limit
+ELASTIC_LAYERS = 4                             # llama3.2-1b at full width, 4 of 16 layers
+ELASTIC_STEPS = 2
+
+
+def pod_phase(torch, dev, smi):
+    """Phase 17: the cross-pod gradient exchange and elastic rescale, ranks
+    spawned as phase 12's are (one world of 4, then one of 2):
+
+    (a) llama3.2-1b FULL (16 layers, d 2048; phase 9's weights, seed 0, with
+        the attention rescaled by `conditioned`) on a ("pod", "data",
+        "model") mesh of (2, 1, 2), batch 8 x seq 128, float32 masters and
+        float32 compute: from one state, one step under ``auto`` and under
+        ``serdes`` with ``compress`` none, bf16 and int8
+        (`core.serdes.QuasiSerdesConfig`'s defaults otherwise): the loss
+        within 1e-3 of auto's (it is taken before the exchange), the grad
+        norm (taken after it) within :data:`POD_GNORM_TOL` of auto's and
+        AdamW's m and v (every rank's block, so the whole tensors) within
+        :data:`POD_TOL` of each leaf's max |.|; on a (2, 2, 1) mesh at 4 of
+        16 layers (whole replicas, where the within-pod data mean runs too)
+        the none step held to rank 0's step alone on the whole batch at
+        :data:`ONE_TOL`.  Every flash call of the auto step, of both
+        (2, 2, 1) steps, of (b)'s resumed step and of the one-rank step here
+        is held to the plain version on its own inputs at phase 2's float32
+        limit.  Each variant's step wall, transport share, staged bytes,
+        cross-pod wire bytes (`serdes.link_bytes_on_wire` over the rank's
+        leaves), ppermutes, peak memory and flash launches a rank are
+        printed;
+    (b) llama3.2-1b at full width cut to 4 of 16 layers: 2 bf16 steps on a
+        (2, 2) ("data", "model") mesh of 4 ranks, saved through
+        `CheckpointManager` (the gathered tree, float32 params, m and v); a
+        world of 2 ranks restores it on ``factor_mesh(2, prefer_model=2)``
+        through ``restore(shardings=remesh_plan(...))`` (its blocks, gathered,
+        equal to the saved arrays bit for bit) and takes one step in float32
+        compute, whose loss and grad norm are held to one rank's step here
+        from the same files at rtol 1e-5 and 1e-4."""
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, _synthesize
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig
+
+    import gc
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 17 starts with {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated and "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved by this process, "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        ranks = run_ranks(torch, "pod4", 4, args=(ckpt,))
+        restored = run_ranks(torch, "elastic2", 2, args=(ckpt,))
+        cfg = get_config("llama3.2-1b").replace(attn_impl="flash", n_layers=ELASTIC_LAYERS)
+        proto = elastic_proto(torch, cfg, dev)
+        state, step_no, _ = CheckpointManager(CheckpointConfig(ckpt)).restore(proto)
+        batch = train.device_batch(_synthesize(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                                          global_batch=8, seed=0),
+                                               ELASTIC_STEPS), cfg, dev)
+        step = make_train_step(cfg.replace(dtype="float32"), AdamWConfig(lr=3e-4),
+                               total_steps=6, warmup=1)
+        warm_s = warm_up(torch, dev, cfg.replace(dtype="float32"), batch)
+        ops.reset_launch_counts()
+        combines0 = flash_attention.flash_attention.combine_launches
+        with holding_flash(torch) as one_rec:
+            (_, mets), one_secs = wall(torch, lambda: step(state, batch))
+        one = (float(mets["loss"]), float(mets["grad_norm"]))
+        one_flash = ops.launch_counts()["flash_attention"]
+        one_comb = flash_attention.flash_attention.combine_launches - combines0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt)
+                         for f in fs)
+        del state, proto, batch
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    r0 = ranks[0]
+    print(f"phase 17: the cross-pod gradient exchange and elastic rescale, worlds of 4 and 2 "
+          f"ranks over gloo (FileStore), every rank on {r0['device']}; CUDA tensors staged "
+          f"through the host at every transfer ({smi})")
+
+    # (a) the exchange
+    print(f"  (a) first step of one layer of llama3.2-1b FULL on (2, 1, 2) (serdes int8, float32) "
+          f"{min(r['warm_s'] for r in ranks):.2f}-{max(r['warm_s'] for r in ranks):.2f} s a rank; "
+          f"the timed steps come after it")
+    launches, combines = 0, 0
+    for name, layers, shape in (("full", 16, (2, 1, 2)), ("cut", ELASTIC_LAYERS, (2, 2, 1))):
+        runs = [r["pod"][name] for r in ranks]
+        ref = "auto" if name == "full" else "one"
+        for v in runs[0]:
+            got = [r[v] for r in runs if v in r]       # "one": rank 0 alone
+            want = runs[0][ref]
+            # the loss is taken before the exchange; a lossy link rounds
+            # the other pod's gradients, so the pods' grad norms may differ
+            check(len({g["loss"] for g in got}) == 1
+                  and all(np.isfinite([g["loss"], g["gnorm"]]).all() for g in got),
+                  f"phase 17 (a) {name} {v}: the ranks' losses / grad norms "
+                  f"{[(g['loss'], g['gnorm']) for g in got]}, or not finite")
+            check(all(g["flash"] == 2 * layers == g["flash_calls"] for g in got),
+                  f"phase 17 (a) {name} {v}: flash launches {[g['flash'] for g in got]}, calls "
+                  f"{[g['flash_calls'] for g in got]}")
+            loss_err = abs(got[0]["loss"] - want["loss"]) / abs(want["loss"])
+            gn_err = max(abs(g["gnorm"] - want["gnorm"]) for g in got) / want["gnorm"]
+            cmp = [g for g in got if "m_err" in g]      # the ranks that hold ref's m and v
+            err = max(max(g["m_err"], g["v_err"]) for g in cmp) if v != ref else 0.0
+            if v == ref:
+                held_txt = ""
+            else:
+                lim = (dict(loss=ONE_TOL["loss"], gnorm=ONE_TOL["gnorm"], state=ONE_TOL["state"])
+                       if ref == "one" else dict(loss=1e-3 / abs(want["loss"]),
+                                                 gnorm=POD_GNORM_TOL[v], state=POD_TOL[v]))
+                check(loss_err <= lim["loss"] and gn_err <= lim["gnorm"] and err <= lim["state"],
+                      f"phase 17 (a) {name} {v}: loss {loss_err:.3e}, grad norm {gn_err:.3e} "
+                      f"from {ref}'s (relative), m and v {err:.3e} of each leaf's max (limits "
+                      f"{lim})")
+                g0 = got[0]
+                held_txt = (f"; against {ref}'s: grad norm {gn_err:.2e} (limit {lim['gnorm']:g}), "
+                            f"m {max(g['m_err'] for g in cmp):.3e} and v "
+                            f"{max(g['v_err'] for g in cmp):.3e} of each leaf's max |.| (limit "
+                            f"{lim['state']:g}; max |diff| {g0['m_abs']:.3e} / {g0['v_abs']:.3e}"
+                            f", max |m| {g0['m_max']:.4e}, max |v| {g0['v_max']:.4e})")
+            calls = [e for g in got for e in g["per_call"]]
+            if calls:
+                check(len(calls) == sum(g["flash"] for g in got) and max(calls) <= FLASH_F32_TOL,
+                      f"phase 17 (a) {name} {v}: {len(calls)} flash calls held, worst "
+                      f"{max(calls):.3e} x max |out| (limit {FLASH_F32_TOL})")
+                held_txt += (f"; every flash call ({len(calls)}) within {max(calls):.2e} x max "
+                             f"|out| of the plain version (limit {FLASH_F32_TOL:g})")
+            launches += sum(g["flash"] for g in got)
+            combines += sum(g["combines"] for g in got)
+            walls = [g["step_ms"] for g in got]
+            share = [g["transport_ms"] / g["step_ms"] for g in got]
+            peaks = ", ".join(f"{g['peak'] / 2**30:.2f}" for g in got)
+            s0 = got[0]
+            where = "one process, whole batch" if v == "one" else f"{shape}"
+            print(f"  (a) llama3.2-1b FULL at {layers} of 16 layers on {where}, batch 8 x seq "
+                  f"128, float32, {v}: loss {s0['loss']:.6f} ({loss_err:.1e} from {ref}'s), "
+                  f"grad norm {s0['gnorm']:.7g}{held_txt}; step "
+                  f"{min(walls):.1f}-{max(walls):.1f} ms a rank, transport "
+                  f"{min(share) * 100:.1f}-{max(share) * 100:.1f} %, staged "
+                  f"{s0['staged'] / 2**30:.3f} GiB a rank, cross-pod wire "
+                  f"{s0['wire'] / 2**30:.3f} GiB a rank, {s0['ppermutes']} ppermutes a rank, "
+                  f"{s0['calls']} transfers, peak {peaks} GiB, flash {s0['flash']} a rank "
+                  f"at {s0['flash_shape']} ({smi})")
+
+    # (b) elastic rescale
+    save = [r["elastic"] for r in ranks]
+    check(all(s["losses"] == save[0]["losses"] for s in save)
+          and np.isfinite(save[0]["losses"]).all(),
+          f"phase 17 (b): the saving ranks' losses {[s['losses'] for s in save]}")
+    res = restored[0]
+    check(res["step"] == ELASTIC_STEPS == step_no and res["mesh"] == ((1, 2), ("data", "model"))
+          and res["equal"] == res["leaves"] > 0,
+          f"phase 17 (b): restored step {res['step']}, mesh {res['mesh']}, {res['equal']} of "
+          f"{res['leaves']} leaves equal to the saved arrays")
+    check(all(r["mets"] == res["mets"] for r in restored), "phase 17 (b): the ranks' steps differ")
+    calls = [e for r in restored for e in r["per_call"]] + one_rec["errs"]
+    check(len(calls) == sum(r["flash"] for r in restored) + one_flash
+          and max(calls) <= FLASH_F32_TOL,
+          f"phase 17 (b): {len(calls)} flash calls of the resumed and the one-rank step held, "
+          f"worst {max(calls, default=0.0):.3e} x max |out| (limit {FLASH_F32_TOL})")
+    got = res["mets"]
+    check(abs(got[0] - one[0]) <= 1e-5 * abs(one[0]) and abs(got[1] - one[1]) <= 1e-4 * one[1],
+          f"phase 17 (b): the resumed step's loss / grad norm {got} against one rank's {one}")
+    launches += sum(s["flash"] for s in save) + sum(r["flash"] for r in restored)
+    combines += sum(s["combines"] for s in save) + sum(r["combines"] for r in restored)
+    print(f"  (b) llama3.2-1b at full width, {ELASTIC_LAYERS} of 16 layers: {ELASTIC_STEPS} "
+          f"bf16 steps on (2, 2) (losses {np.round(save[0]['losses'], 4).tolist()}), saved in "
+          f"{max(s['save_s'] for s in save):.2f} s ({ckpt_bytes / 2**30:.3f} GiB of "
+          f"checkpoint); restored on factor_mesh(2, prefer_model=2) = {res['mesh'][0]} in "
+          f"{max(r['restore_s'] for r in restored):.2f} s, all {res['leaves']} leaves' blocks "
+          f"gathered equal to the saved arrays bit for bit; the resumed float32 step "
+          f"{max(r['step_ms'] for r in restored):.1f} ms a rank (transport "
+          f"{max(r['transport_ms'] for r in restored):.1f} ms, staged "
+          f"{res['staged'] / 2**30:.3f} GiB a rank; after a first step of one layer in "
+          f"{max(r['warm_s'] for r in restored):.2f} s): loss {got[0]:.7f} vs one "
+          f"rank's {one[0]:.7f} (rtol 1e-5), grad norm {got[1]:.7g} vs {one[1]:.7g} (rtol "
+          f"1e-4); one rank's step {one_secs * 1e3:.1f} ms after a first step of one layer "
+          f"in {warm_s:.2f} s, flash {one_flash}; every flash call of both steps ({len(calls)}: "
+          f"{res['flash_shape']} on the mesh, {sorted(one_rec['shapes'])} alone) within "
+          f"{max(calls):.2e} x max |out| of the plain version (limit {FLASH_F32_TOL:g}); peak "
+          f"{max(r['peak'] for r in restored) / 2**30:.2f} GiB a restoring rank ({smi})")
+    print(f"pod phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(launches=launches + one_flash, combine_launches=combines + one_comb)
+
+
+def elastic_proto(torch, cfg, dev):
+    """A tree of the train state's structure whose leaves are empty tensors
+    on ``dev``: what ``restore`` reads of its target."""
+    from repro_torch._tree import tree_map
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import param_shapes
+
+    params = tree_map(lambda _: torch.empty(0, device=dev),
+                      param_shapes(T.abstract_params(cfg)))
+    return {"params": params, "opt": {"m": params, "v": params,
+                                      "step": torch.empty(0, device=dev)}}
+
+
+def warm_up(torch, dev, cfg, batch, mesh=None, **kw):
+    """One step of ``cfg`` cut to one layer on ``batch`` and ``mesh`` (None:
+    this process alone), and its synced seconds: a process's first float32
+    step at full width takes seconds more than the next (PERF.md §6),
+    so the timed steps come after one of the same shapes; ``kw`` goes to
+    ``make_train_step``."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = cfg.replace(n_layers=1)
+    params = init_params(T.abstract_params(cfg), torch.Generator(device=dev).manual_seed(1), dev,
+                         mesh=mesh)
+    step = make_train_step(cfg, AdamWConfig(), mesh=mesh, **kw)
+    return wall(torch, lambda: step({"params": params, "opt": adamw_init(params)}, batch))[1]
+
+
+@contextlib.contextmanager
+def holding_flash(torch, hold=True):
+    """Every flash call in the block, through ``ops.flash_attention``:
+    counted, its shapes kept and, with ``hold``, its output held to the plain
+    version on its own inputs (max |diff| / max |out|, read after the block,
+    so the step is not synced call by call).  Yields {"calls", "shapes",
+    "errs"}."""
+    from repro_torch.kernels import flash_attention, ops
+
+    real, rec = ops.flash_attention, {"calls": 0, "shapes": set(), "errs": []}
+
+    def held(q, k, v, causal=True, use_kernel=False):
+        o = real(q, k, v, causal, use_kernel)
+        rec["calls"] += 1
+        rec["shapes"].add((tuple(q.shape), tuple(k.shape)))
+        if hold:
+            with torch.no_grad():
+                plain = flash_attention.flash_attention_plain(q, k, v, causal).float()
+                rec["errs"].append((o.float() - plain).abs().max() / plain.abs().max())
+        return o
+
+    ops.flash_attention = held
+    try:
+        yield rec
+    finally:
+        ops.flash_attention = real
+    rec["errs"] = [float(e) for e in rec["errs"]]
+
+
+def _pod_step(torch, mesh, cfg, params, batch, pod_sync, serdes, auto=None, keep=False,
+              hold=False):
+    """One step of ``cfg`` on ``mesh`` (None: this process alone) from
+    ``params`` (updated in place) and a fresh AdamW state, with what it cost
+    this rank and its flash calls (held to the plain version with ``hold``).
+    ``keep``: also return m and v on the host; else against ``auto`` (such
+    a kept pair) the largest |diff| of m and of v, alone and over each
+    leaf's max |.|, and the largest |.| of auto's."""
+    from repro_torch._tree import leaves
+    from repro_torch.core import serdes as qserdes
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    state = {"params": params, "opt": adamw_init(params)}
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4), mesh=mesh, pod_sync=pod_sync,
+                           serdes=serdes, total_steps=6, warmup=1)
+    real_pp, n_pp = qserdes.ppermute, [0]
+
+    def counted(*a, **k):
+        n_pp[0] += 1
+        return real_pp(*a, **k)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if mesh is not None:
+        mesh.stats.reset()
+    ops.reset_launch_counts()
+    combines0 = flash_attention.flash_attention.combine_launches
+    qserdes.ppermute = counted
+    try:
+        with holding_flash(torch, hold) as rec:
+            (state, mets), secs = wall(torch, lambda: step(state, batch))
+    finally:
+        qserdes.ppermute = real_pp
+    st = mesh.stats if mesh is not None else None
+    out = dict(loss=float(mets["loss"]), gnorm=float(mets["grad_norm"]), step_ms=secs * 1e3,
+               transport_ms=st.seconds * 1e3 if st else 0.0, staged=st.staged_bytes if st else 0,
+               calls=st.calls if st else 0, ppermutes=n_pp[0],
+               peak=torch.cuda.max_memory_allocated(),
+               flash=ops.launch_counts()["flash_attention"],
+               combines=flash_attention.flash_attention.combine_launches - combines0,
+               flash_calls=rec["calls"], per_call=rec["errs"],
+               flash_shape=", ".join(f"q {q} k {k}" for q, k in sorted(rec["shapes"])),
+               wire=(sum(qserdes.link_bytes_on_wire(t.shape, t.dtype, serdes)
+                         for t in leaves(state["params"])) if serdes else 0))
+    m, v = leaves(state["opt"]["m"]), leaves(state["opt"]["v"])
+    if keep:
+        return out, ([t.cpu() for t in m], [t.cpu() for t in v])
+    for key, got, want in (("m", m, auto[0]), ("v", v, auto[1])) if auto else ():
+        diffs, sizes = [], []
+        for a, b in zip(got, want):
+            b = b.to(a.device)
+            diffs.append(float((a - b).abs().max()))
+            sizes.append(float(b.abs().max()))
+        out[f"{key}_abs"], out[f"{key}_max"] = max(diffs), max(sizes)
+        out[f"{key}_err"] = max(d / max(sz, 1e-30) for d, sz in zip(diffs, sizes))
+    return out, None
+
+
+def _pod_mesh4(torch, dev, rank, ckpt):
+    """Phase 17 (a) and the saving half of (b) in one of 4 ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import make_mesh
+    from repro_torch.core.serdes import QuasiSerdesConfig
+    from repro_torch.data.pipeline import DataConfig, _synthesize
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step, state_shardings
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    meshes = {shape: make_mesh(tuple(zip(("pod", "data", "model"), shape)), range(4),
+                               axis_groups=True) for shape in ((2, 1, 2), (2, 2, 1))}
+    m22 = make_host_mesh(model=2)
+    out = dict(device=str(dev), pod={})
+    full = get_config("llama3.2-1b").replace(attn_impl="flash")
+    data = DataConfig(vocab=full.vocab, seq_len=128, global_batch=8, seed=0)
+    batch = train.device_batch(_synthesize(data, 0), full, dev)
+    out["warm_s"] = warm_up(torch, dev, full.replace(dtype="float32"), batch,
+                            meshes[(2, 1, 2)], pod_sync="serdes",
+                            serdes=QuasiSerdesConfig(compress="int8"))
+    # the full model's auto step, and on (2, 2, 1) rank 0's step alone (the
+    # whole batch, whole params: what the mesh's steps must equal) and the
+    # none step, hold every flash call to the plain version
+    for name, layers, shape, variants in (("full", 16, (2, 1, 2), POD_VARIANTS),
+                                          ("cut", ELASTIC_LAYERS, (2, 2, 1), ("one", "none"))):
+        cfg = full.replace(n_layers=layers)
+        runs, auto = {}, None
+        for v in variants:
+            dist.barrier()          # each step starts together, after rank 0's step alone
+            if v == "one" and rank != 0:
+                continue
+            mesh = None if v == "one" else meshes[shape]
+            # phase 9's weights (seed 0; each leaf drawn whole, the rank's
+            # block kept), drawn again for each variant: one copy a rank
+            masters = init_params(T.abstract_params(cfg),
+                                  torch.Generator(device=dev).manual_seed(0), dev, mesh=mesh)
+            params = conditioned(masters, cfg)
+            del masters
+            serdes = None if v in ("auto", "one") else QuasiSerdesConfig(compress=v)
+            runs[v], kept = _pod_step(torch, mesh, cfg.replace(dtype="float32"), params, batch,
+                                      "serdes" if serdes else "auto", serdes, auto,
+                                      keep=serdes is None, hold=serdes is None or name == "cut")
+            auto = kept if kept is not None else auto
+            del params
+            torch.cuda.empty_cache()
+        out["pod"][name] = runs
+        del auto
+
+    # (b) the saving half: 2 bf16 steps on (2, 2), then the checkpoint
+    cfg = full.replace(n_layers=ELASTIC_LAYERS)
+    masters = init_params(T.abstract_params(cfg), torch.Generator(device=dev).manual_seed(0),
+                          dev, mesh=m22)
+    state = {"params": conditioned(masters, cfg)}
+    del masters
+    state["opt"] = adamw_init(state["params"])
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4), mesh=m22, total_steps=6, warmup=1)
+    ops.reset_launch_counts()
+    combines0 = flash_attention.flash_attention.combine_launches
+    losses = []
+    for s in range(ELASTIC_STEPS):
+        state, mets = step(state, train.device_batch(_synthesize(data, s), cfg, dev))
+        losses.append(float(mets["loss"]))
+    flash = ops.launch_counts()["flash_attention"]
+    combines = flash_attention.flash_attention.combine_launches - combines0
+    (_, save_s) = wall(torch, lambda: CheckpointManager(
+        CheckpointConfig(ckpt, async_save=False), m22, state_shardings(cfg, m22)).save(
+            ELASTIC_STEPS, state))
+    out["elastic"] = dict(losses=losses, save_s=save_s, flash=flash, combines=combines)
+    return out
+
+
+def _elastic_restore2(torch, dev, rank, ckpt):
+    """Phase 17 (b)'s restoring half in one of 2 ranks: the mesh of
+    ``factor_mesh``, ``restore(shardings=remesh_plan(...))``, the gathered
+    blocks against the saved arrays, one float32 step."""
+    import json
+
+    import torch.distributed as dist
+
+    from repro_torch._tree import flatten
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, _synthesize
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step, state_shardings
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import gather_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import factor_mesh, remesh_plan
+    from repro_torch.runtime.elastic import make_mesh_from_devices
+
+    cfg = get_config("llama3.2-1b").replace(attn_impl="flash", n_layers=ELASTIC_LAYERS)
+    shape, axes = factor_mesh(2, prefer_model=2)
+    mesh = make_mesh_from_devices(range(2), shape, axes)
+    plan = remesh_plan(T.abstract_params(cfg), mesh)
+    shardings = {"params": plan, "opt": {"m": plan, "v": plan, "step": None}}
+    data = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8, seed=0)
+    batch = train.device_batch(_synthesize(data, ELASTIC_STEPS), cfg, dev)
+    warm_s = warm_up(torch, dev, cfg.replace(dtype="float32"), batch, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    (state, step_no, _), restore_s = wall(torch, lambda: CheckpointManager(
+        CheckpointConfig(ckpt)).restore(elastic_proto(torch, cfg, dev), shardings=shardings))
+    out = dict(mesh=(shape, axes), step=step_no, restore_s=restore_s, warm_s=warm_s)
+    # the blocks, gathered, against the arrays in the files
+    whole = gather_params(state, state_shardings(cfg, mesh), mesh)
+    d = os.path.join(ckpt, f"step_{step_no:08d}")
+    with open(os.path.join(d, "meta.json")) as fh:
+        volume_of = json.load(fh)["volume_of"]
+    equal = 0
+    for i, ((_, t), vol) in enumerate(zip(flatten(whole), volume_of)):
+        if rank == 0:
+            with np.load(os.path.join(d, f"arrays_{vol:02d}.npz")) as z:
+                want = torch.as_tensor(z[f"a{i}"])
+            equal += int(t.dtype == want.dtype and torch.equal(t.cpu(), want))
+    out.update(equal=equal if rank == 0 else None, leaves=len(volume_of))
+    del whole
+    torch.cuda.empty_cache()
+    dist.barrier()          # rank 0 compared alone: the timed step starts together
+    step = make_train_step(cfg.replace(dtype="float32"), AdamWConfig(lr=3e-4), mesh=mesh,
+                           total_steps=6, warmup=1)
+    ops.reset_launch_counts()
+    mesh.stats.reset()
+    combines0 = flash_attention.flash_attention.combine_launches
+    with holding_flash(torch) as rec:
+        (_, mets), secs = wall(torch, lambda: step(state, batch))
+    out.update(mets=(float(mets["loss"]), float(mets["grad_norm"])), step_ms=secs * 1e3,
+               transport_ms=mesh.stats.seconds * 1e3, staged=mesh.stats.staged_bytes,
+               flash=ops.launch_counts()["flash_attention"], per_call=rec["errs"],
+               flash_shape=", ".join(f"q {q} k {k}" for q, k in sorted(rec["shapes"])),
+               combines=flash_attention.flash_attention.combine_launches - combines0,
+               peak=torch.cuda.max_memory_allocated())
     return out
 
 

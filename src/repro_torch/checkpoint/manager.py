@@ -29,6 +29,9 @@ state_shardings`) every rank calls save and restore at the same step: save
 gathers the global tree from the ranks' blocks and rank 0 writes it, the same
 files as a one-device run; restore reads the global leaves and keeps each
 rank's block, so a run restarts on any mesh, or on one device.
+``restore(shardings=...)`` (`runtime.elastic.remesh_plan`) names the mesh of
+each leaf at restore time instead: the elastic path, where a job resumes on
+fewer ranks than saved it.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ import numpy as np
 import torch
 
 from .._tree import flatten, unflatten
-from ..core.partition import block, spec_leaves
+from ..core.partition import NamedSharding, block, spec_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,9 +159,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, target, step: Optional[int] = None) -> tuple[Any, int, dict]:
-        """target: the tree prototype (structure and devices).  -> (tree of
-        tensors in the saved dtypes, step, extra)."""
+    def restore(self, target, step: Optional[int] = None,
+                shardings=None) -> tuple[Any, int, dict]:
+        """target: the tree prototype (structure and devices).  shardings: a
+        tree matching it of `core.partition.NamedSharding` leaves (the
+        rank's block of the leaf on that mesh is kept) and None leaves
+        (kept whole); None: the manager's ``mesh`` and ``specs``.  -> (tree
+        of tensors in the saved dtypes, step, extra)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.cfg.dir}")
@@ -170,16 +177,22 @@ class CheckpointManager:
             raise ValueError("checkpoint tree structure mismatch: "
                              f"{set(meta['paths']) ^ set(proto_paths)}")
         protos = [x for _, x in flatten(target)]
-        specs = (spec_leaves(self.specs) if self.mesh is not None
-                 else [None] * len(protos))
+        if shardings is not None:
+            cuts = spec_leaves(shardings)
+            if len(cuts) != len(protos):
+                raise ValueError(f"shardings hold {len(cuts)} leaves, the target {len(protos)}")
+        elif self.mesh is not None:
+            cuts = [NamedSharding(self.mesh, sp) for sp in spec_leaves(self.specs)]
+        else:
+            cuts = [None] * len(protos)
         vols: dict[int, Any] = {}
         leaves = []
         for i, vol_id in enumerate(meta["volume_of"]):
             if vol_id not in vols:
                 vols[vol_id] = np.load(os.path.join(d, f"arrays_{vol_id:02d}.npz"))
             t = torch.as_tensor(vols[vol_id][f"a{i}"])
-            if specs[i] is not None:
-                t = block(t, specs[i], self.mesh)      # the rank's block of the leaf
+            if cuts[i] is not None:
+                t = block(t, cuts[i].spec, cuts[i].mesh)      # the rank's block of the leaf
             p = protos[i]
             leaves.append(t.to(p.device if isinstance(p, torch.Tensor) else "cpu", copy=True))
         for vol in vols.values():

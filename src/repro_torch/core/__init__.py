@@ -17,9 +17,9 @@ from .interchip import (BridgeConfig, BridgedProgram, BridgeLink, BridgeStats,
                         PodProgram, bridge_program_stats, compile_bridges,
                         run_bridged_program, simulate_bridged_program)
 from .noc import NoCConfig, NoCExecutor, NoCStats, wrapper_overhead
-from .partition import (PartitionPlan, candidate_cuts, cut, mesh_for_partition,
-                        mesh_for_topology, node_device_coords, optimize_placement,
-                        optimize_pod_cut, pair_cut_weights, place_greedy,
+from .partition import (PartitionPlan, candidate_cuts, cross_pod_mean, cut,
+                        mesh_for_partition, mesh_for_topology, node_device_coords,
+                        optimize_placement, optimize_pod_cut, pair_cut_weights, place_greedy,
                         place_round_robin, placement_cost, placement_to_device_coords,
                         resolve_placement)
 from .routing import (RouteProgram, ScheduleStats, all_to_all_for, compile_routes,

@@ -120,6 +120,11 @@ class MeshAxis:
     def size(self) -> int:
         return len(self.ranks)
 
+    @property
+    def grouped(self) -> bool:
+        """Whether the reductions and the all-gather can run over it."""
+        return self.group is not _NO_GROUP
+
 
 class NoCMesh:
     """The ranks of the default process group that play NoC nodes, shaped by

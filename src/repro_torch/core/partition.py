@@ -25,6 +25,8 @@ layers of ``repro.core.partition``).
    ``constrain`` has no counterpart: it hints a layout to XLA, where the
    port's layout is explicit, so each of its call sites is where a model
    function of the port moves data (or says why none moves).
+4. **Cross-pod sync** — :func:`cross_pod_mean`, the LM's gradient mean over
+   the ``pod`` axis, plain or around a ring of quasi-SERDES links.
 """
 from __future__ import annotations
 
@@ -36,8 +38,10 @@ from typing import Any, Mapping, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .._tree import leaves, unflatten
 from . import serdes as qserdes
-from .collectives import NoCMesh, gather_blocks, make_mesh, own_block, world_size
+from .collectives import (NoCMesh, current_mesh, gather_blocks, make_mesh, own_block, pmean,
+                          world_size)
 from .graph import Channel, TaskGraph
 from .topology import Mesh2D, Topology
 
@@ -585,9 +589,74 @@ def unblock(t: torch.Tensor, spec: Spec, mesh: NoCMesh) -> torch.Tensor:
     return t
 
 
+def block_run(shape: Sequence[int], spec: Spec, mesh) -> int:
+    """The length of the runs of the whole tensor's flat order that a rank's
+    block of ``shape`` (the block's own shape) under ``spec`` holds, each run
+    whole and in order in the block's flat order; the block's size when no
+    dim is split.  A quantizer that scales blocks of ``k`` elements of the
+    flattened tensor sees the whole tensor's blocks in the rank's block when
+    ``k`` divides this."""
+    sizes = mesh_shape(mesh)
+    split = [d for d, e in enumerate(spec) if e and math.prod(
+        sizes[a] for a in ((str(e),) if isinstance(e, str) else e)) > 1]
+    if not split:
+        return math.prod(shape)
+    d = split[-1]
+    rows = shape[d] // spec[d].n if isinstance(spec[d], Parts) else shape[d]
+    return rows * math.prod(shape[d + 1:])
+
+
 def spec_leaves(specs) -> list:
     """The specs of a spec tree (nested dicts with spec tuples at the
     leaves) in the order `_tree.leaves` visits a param tree: sorted keys."""
     if isinstance(specs, dict):
         return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
     return [specs]
+
+
+# -- cross-pod gradient exchange (the "cut link" of the LM framework) --------
+
+def cross_pod_mean(tree, axis="pod", cfg: Optional[qserdes.QuasiSerdesConfig] = None,
+                   residuals=None, n_pods: int = 2, serialized: bool = True):
+    """Average a tree of tensors over the pod axis; every rank of the axis
+    calls it with its own tree.  ``axis``: a name on the ambient mesh, or a
+    `MeshAxis`.
+
+    cfg=None      → `collectives.pmean` over the axis (the flat baseline).
+    cfg given     → each pod's contribution goes around a ring of ``n_pods``
+                    pods through quasi-SERDES endpoints
+                    (`serdes.send_over_link`), ``n_pods - 1`` rounds, each
+                    forwarding what the last one brought; compression and the
+                    error-feedback residual (threaded through the rounds) as
+                    the config says.
+    Returns (tree, new_residuals): a residual leaf is the int8 error
+    feedback (float32 zeros when no round ran), else 0.0."""
+    if isinstance(axis, str):
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError(f"cross_pod_mean over {axis!r} needs an ambient mesh (set_mesh)")
+        axis = mesh.axis(axis)
+    if cfg is None:
+        return unflatten(tree, [pmean(g, axis) for g in leaves(tree)]), residuals
+
+    perm = [(i, (i + 1) % n_pods) for i in range(n_pods)]
+
+    def sync_leaf(g, res):
+        acc = send = g
+        r = res
+        for _ in range(n_pods - 1):
+            recv, r = qserdes.send_over_link(send, axis, perm, cfg, residual=r,
+                                             serialized=serialized)
+            acc = acc + recv
+            send = recv  # forward the neighbour's contribution around the ring
+        return acc / n_pods, r
+
+    grads = leaves(tree)
+    res_leaves = leaves(residuals) if residuals is not None else [None] * len(grads)
+    out, new_res = [], []
+    for g, r in zip(grads, res_leaves):
+        o, nr = sync_leaf(g, r)
+        out.append(o)
+        new_res.append(nr if nr is not None else torch.zeros_like(g, dtype=torch.float32)
+                       if cfg.compress == "int8" else 0.0)
+    return unflatten(tree, out), unflatten(tree, new_res)

@@ -19,8 +19,10 @@ keeps its blocks of the params and of AdamW's state, and runs the step on
 the whole batch (`launch.steps.make_train_step(mesh=)`: the batch split over
 ``data``, the weights over ``model``); rank 0 prints and writes the
 checkpoint, the gathered global tree in the one-device files, and a restore
-cuts it for any mesh.  ``--pod-sync serdes`` waits for ROADMAP item 8(e)
-part 3.
+cuts it for any mesh.  ``--pod-sync {auto,serdes}`` is passed to
+`launch.steps.make_train_step`, as in the reference: the host mesh has no
+``pod`` axis, so both take the same path (the cross-pod exchange runs on a
+mesh with one, through `make_train_step(pod_sync="serdes", serdes=...)`).
 
 ``--metrics PATH`` turns on the telemetry metrics registry: each step's wall
 clock lands in the ``train.step.seconds`` histogram (p50/p99/p99.9 printed at
@@ -89,6 +91,7 @@ def run(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--pod-sync", default="auto", choices=["auto", "serdes"])
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
@@ -112,8 +115,8 @@ def _train(args, dev, mesh):
     say = print if mesh is None or mesh.node == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch, smoke=args.smoke)
     opt_cfg = AdamWConfig(lr=args.lr)
-    step_fn = make_train_step(cfg, opt_cfg, mesh=mesh, total_steps=args.steps,
-                              warmup=max(args.steps // 20, 5))
+    step_fn = make_train_step(cfg, opt_cfg, mesh=mesh, pod_sync=args.pod_sync,
+                              total_steps=args.steps, warmup=max(args.steps // 20, 5))
     state = build_state(cfg, args.seed, dev, mesh=mesh)
     where = f"device={dev}" if mesh is None else f"mesh={mesh_shape(mesh)} device={dev}"
     say(f"arch={cfg.name} params={cfg.param_count():,} {where} "

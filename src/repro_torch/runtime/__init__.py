@@ -1,1 +1,2 @@
+from .elastic import factor_mesh, remesh_plan
 from .ft import FTConfig, ResilientRunner, RunStats, StepFailure

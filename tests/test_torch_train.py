@@ -186,11 +186,26 @@ def test_first_step_grads_match_reference(impl, init):
         assert a.shape == w.shape and np.allclose(a, w, rtol=1e-4, atol=atol)
 
 
-def test_pod_sync_serdes_waits_for_the_mesh():
+def test_pod_sync_serdes_waits_for_the_mesh(init):
+    """(The name dates from when ``serdes`` raised.)  Off a mesh with a pod
+    axis, here on one device, ``serdes`` is ``auto`` bit for bit, as the
+    reference takes ``grads_auto`` when ``n_pods == 1``; any other mode raises.
+    The exchange itself: tests/test_torch_pod_sync.py."""
     _, tcfg = _cfgs("naive")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_train_step(tcfg, toptim.AdamWConfig(), pod_sync="serdes")
-    with pytest.raises(ValueError):
+    out = []
+    for mode in ("auto", "serdes"):
+        step = make_train_step(tcfg, toptim.AdamWConfig(lr=LR), pod_sync=mode, total_steps=TOTAL,
+                               warmup=1)
+        state = {"params": convert.model_params_to_torch(init, "cpu")}
+        state["opt"] = toptim.adamw_init(state["params"])
+        for s in range(2):
+            state, m = step(state, _tbatch(_batch(s)))
+        out.append(({k: float(v) for k, v in m.items()}, convert.model_params_to_numpy(
+            state["params"])))
+    assert out[0][0] == out[1][0]
+    assert all(np.array_equal(a, b) for a, b in zip(jax.tree.leaves(out[0][1]),
+                                                    jax.tree.leaves(out[1][1])))
+    with pytest.raises(ValueError, match="'auto' or 'serdes'"):
         make_train_step(tcfg, toptim.AdamWConfig(), pod_sync="ring")
 
 

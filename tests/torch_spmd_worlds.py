@@ -415,6 +415,28 @@ def tp_cli(rank, world, device, ckpt):
     return cli_results(rank, world, device, ckpt)
 
 
+def pod_sync(rank, world, device, in_path):
+    """The cross-pod exchange and the pod-synced train step (`tests/torch_pod_cases.py`)."""
+    from tests.torch_pod_cases import pod_sync_results
+
+    return pod_sync_results(rank, world, device, in_path)
+
+
+def elastic_save(rank, world, device, ckpt_dir):
+    """Train on 4 ranks and save (`tests/torch_pod_cases.py`)."""
+    from tests.torch_pod_cases import elastic_save as run
+
+    return run(rank, world, device, ckpt_dir)
+
+
+def elastic_restore(rank, world, device, ckpt_dir):
+    """Restore on fewer ranks and step (`tests/torch_pod_cases.py`)."""
+    from tests.torch_pod_cases import elastic_restore as run
+
+    return run(rank, world, device, ckpt_dir)
+
+
 # the scenarios a world starts with (main runs the first four in turn)
 SCENARIOS = {f.__name__: f for f in (main, iterate_spmd, noc_diamond, fail, moe_mesh, tp_models,
-                                     tp_train, tp_mixers, tp_mixers_train, tp_cli)}
+                                     tp_train, tp_mixers, tp_mixers_train, tp_cli, pod_sync,
+                                     elastic_save, elastic_restore)}
