@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, then runs seventeen phases and raises on any failure:
+with ``nvcc``, then runs eighteen phases and raises on any failure:
 
 1. environment — the card, its power limit, torch/CUDA versions, build time,
                  ptxas's registers, spills and shared memory of each kernel;
@@ -160,7 +160,21 @@ with ``nvcc``, then runs seventeen phases and raises on any failure:
    mesh and saved, then restored by a world of 2 ranks through
    ``restore(shardings=remesh_plan(...))`` (the gathered blocks equal to the
    saved arrays bit for bit) and its float32 step held to one rank's; every
-   float32 flash call of a step at each shape held to its plain version.
+   float32 flash call of a step at each shape held to its plain version;
+18. the multi-pod dry run and the H100 roofline — ``python -m
+   repro_torch.launch.dryrun`` on the host (fake CUDA tensors, a no-op world
+   of 256 or 512 ranks) over a named subset of cells, in parallel processes,
+   each printed as the reference's CLI prints it, and
+   ``python -m repro_torch.launch.report`` over them; then two real steps
+   counted on the card by ``launch.roofline.CostCounter``: llama3.2-1b FULL
+   trained one step at batch 8 x seq 128 and whisper-large-v3 FULL's
+   prefill at batch 4 (prompt 32), both with flash, launch counters reset
+   just before and read just after: the count over the real CUDA tensors
+   equal to the count over fake copies of the same arguments (flops, bytes,
+   raw bytes, every op), the counted flash ops equal to the launches and
+   the combines to the expected count, every flash call held to its plain
+   version, the synced wall beside the H100 roofline terms, and the custom
+   op's host cost per call.
 
 Prints the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 JSON line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
@@ -295,6 +309,7 @@ def wall(torch, fn):
 
 
 def main():
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -782,6 +797,9 @@ def main():
 
     # -- phase 17: the cross-pod gradient exchange and elastic rescale, 4 and 2 ranks
     pods = pod_phase(torch, dev, smi)
+
+    # -- phase 18: the multi-pod dry run and the H100 roofline of two counted steps
+    roof = roofline_phase(torch, dev, smi)
     phase3_path = {"gf2_bmvm": "iterate_kernel", "minsum_check": "decode_minsum",
                    "particle_histogram": "track"}
     for kern in kernels:
@@ -801,7 +819,8 @@ def main():
                                         "llama_serve_mesh": tp["serve_launches"],
                                         "llama_train_mesh": tp["train_launches"],
                                         "jamba_attn_layer_mesh": tp2b["launches"],
-                                        "llama_train_pods": pods["launches"]}
+                                        "llama_train_pods": pods["launches"],
+                                        **roof["launches"]}
             kern["launches"] = sum(kern["launches_by_path"].values())
             kern["combine"]["launches_by_path"] = {
                 "whisper_serve": serve_stats["combine_launches"], "llama_serve": 0,
@@ -809,9 +828,10 @@ def main():
                 **families["combine_launches"], **recurrent["combine_launches"],
                 "llama_serve_mesh": 0, "llama_train_mesh": tp["train_combine_launches"],
                 "jamba_attn_layer_mesh": tp2b["combine_launches"],
-                "llama_train_pods": pods["combine_launches"]}
+                "llama_train_pods": pods["combine_launches"], **roof["combine_launches"]}
             kern["combine"]["launches"] = sum(kern["combine"]["launches_by_path"].values())
 
+    print(f"chip_smoke phases 1-18 in {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -4128,6 +4148,221 @@ def draw_serving_params(torch, cfg, gen, dev):
         return {k: walk(v, path + (k,)) for k, v in tree.items()}
 
     return walk(T.abstract_params(cfg), ())
+
+# -- phase 18: the multi-pod dry run and the H100 roofline ---------------------------
+
+# (a) the dry run's cells on the host, one process each: args, and the
+# record files each must leave with their status
+DRYRUN_CELLS = (
+    (["--arch", "llama3.2-1b", "--shape", "train_4k", "--single-pod-only"], "main",
+     {"llama3.2-1b__train_4k__16x16": "ok"}),
+    (["--arch", "llama3.2-1b", "--shape", "train_4k", "--single-pod-only",
+      "--override", "attn_impl=flash"], "flash", {"llama3.2-1b__train_4k__16x16": "ok"}),
+    (["--arch", "gemma-7b", "--shape", "train_4k", "--single-pod-only"], "main",
+     {"gemma-7b__train_4k__16x16": "ok"}),
+    (["--arch", "internvl2-1b", "--shape", "train_4k", "--single-pod-only"], "main",
+     {"internvl2-1b__train_4k__16x16": "ok"}),
+    (["--arch", "jamba-v0.1-52b", "--shape", "decode_32k", "--single-pod-only"], "main",
+     {"jamba-v0.1-52b__decode_32k__16x16": "ok"}),
+    (["--arch", "xlstm-350m", "--shape", "long_500k"], "main",
+     {"xlstm-350m__long_500k__16x16": "ok", "xlstm-350m__long_500k__2x16x16": "ok"}),
+    (["--arch", "llama3.2-1b", "--shape", "long_500k"], "main",
+     {"llama3.2-1b__long_500k__16x16": "skip", "llama3.2-1b__long_500k__2x16x16": "skip"}),
+)
+
+
+def roofline_phase(torch, dev, smi):
+    """Phase 18: (a) the dry run on the host over `DRYRUN_CELLS` and its
+    report; (b) llama3.2-1b FULL's train step and whisper-large-v3 FULL's
+    prefill counted on the card over real tensors and over fake copies of the
+    same arguments."""
+    from repro_torch.launch import report
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"), OMP_NUM_THREADS="1")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = []
+        for args, sub, _ in DRYRUN_CELLS:
+            out = os.path.join(tmp, sub)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--device", "cuda",
+                 "--out", out], cwd=HERE, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        lines = []
+        for p, (args, sub, want) in zip(procs, DRYRUN_CELLS):
+            out, err = p.communicate(timeout=400)
+            check(p.returncode == 0, f"dryrun {args}: exit {p.returncode}\n{out[-2000:]}"
+                                     f"\n{err[-2000:]}")
+            lines += [ln for ln in out.splitlines() if ln[:4] in ("OK  ", "SKIP", "FAIL")]
+            for stem, status in want.items():
+                with open(os.path.join(tmp, sub, stem + ".json")) as fh:
+                    rec = json.load(fh)
+                check(rec["status"] == status, f"dryrun {stem}: {rec['status']} "
+                                               f"{rec.get('error', '')}")
+        dry_s = time.perf_counter() - t0
+        for ln in lines:
+            print(f"  {ln}")
+        print(f"dry run of {len(lines)} cells on the host (fake CUDA tensors, {len(procs)} "
+              f"processes at once): {dry_s:.1f} s")
+        print(report.table(os.path.join(tmp, "main"), md=True))
+        print(report.table(os.path.join(tmp, "flash"), md=True).splitlines()[-1]
+              + "  <- attn_impl=flash")
+
+    launches, combines = {}, {}
+    for tag, build in (("llama_train_counted", _llama_counted),
+                       ("whisper_prefill_counted", _whisper_counted)):
+        launches[tag], combines[tag] = _counted_on_card(torch, dev, smi, tag, *build(torch, dev))
+    _flash_op_host_cost(torch, dev, smi)
+    print(f"roofline phase {time.perf_counter() - t_phase:.2f} s")
+    return {"launches": launches, "combine_launches": combines}
+
+
+def _llama_counted(torch, dev):
+    """llama3.2-1b FULL with flash, one train step at batch 8 x seq 128 from
+    seeded weights: (cfg, fn, args, model FLOPs, the forward whose flash
+    calls are held, (flash launches, combines, flash calls of the forward)):
+    under remat each layer's flash runs again in the backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, _synthesize
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_config("llama3.2-1b").replace(attn_impl="flash")
+    params = init_params(T.abstract_params(cfg), torch.Generator(device=dev).manual_seed(0))
+    state = {"params": params, "opt": adamw_init(params)}
+    batch = train.device_batch(_synthesize(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                                      global_batch=8, seed=0), 0), cfg, dev)
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4), total_steps=6, warmup=5)
+    return (cfg, step, (state, batch), 6.0 * cfg.active_param_count() * 8 * 128,
+            lambda: T.loss(state["params"], batch, cfg), (2 * cfg.n_layers, 0, cfg.n_layers))
+
+
+def _whisper_counted(torch, dev):
+    """whisper-large-v3 FULL with flash, one prefill at batch 4 (prompt 32)
+    from a bf16 serving copy of seeded weights, into a cache of 32: the
+    encoder's self-attention and the decoder's cross-attention take flash
+    (the cross-attention's keys split, so a combine each), the decoder's
+    cached self-attention the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+
+    cfg = get_config("whisper-large-v3").replace(attn_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.cast_params(init_params(T.abstract_params(cfg), gen), cfg.cdtype)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 32), generator=gen, device=dev),
+             "frames": torch.randn((4, cfg.enc_seq, cfg.d_frontend), generator=gen,
+                                   device=dev).to(cfg.cdtype)}
+    cache = T.init_cache(cfg, 4, 32, device=dev)
+
+    def fn(p, b, c):
+        return T.prefill(p, b, cfg, c)
+    return (cfg, fn, (params, batch, cache), 2.0 * cfg.active_param_count() * 4 * 32,
+            lambda: fn(params, batch, cache),
+            (cfg.n_enc_layers + cfg.n_layers, cfg.n_layers, cfg.n_enc_layers + cfg.n_layers))
+
+
+def _counted_on_card(torch, dev, smi, tag, cfg, fn, args, mflops, forward, expect):
+    """Count ``fn(*args)`` over the real CUDA tensors (launch counters reset
+    just before, read just after) and over fake copies of the same
+    arguments; hold them equal, the counted kernel ops to the launches, and
+    every flash call of ``forward`` to its plain version; print the synced
+    wall beside the H100 roofline terms.  -> (flash launches, combines)."""
+    from repro_torch._tree import leaves, unflatten
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as RL
+
+    fm = dryrun.fake_mode()
+    fake_args = unflatten(list(args), [fm.from_tensor(t) if isinstance(t, torch.Tensor) else t
+                                       for t in leaves(list(args))])
+    with fm:
+        t0 = time.perf_counter()
+        fake = dryrun.count(fn, fake_args)[0]
+        fake_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    (real, _), counted_s = wall(torch, lambda: dryrun.count(fn, args))
+    n_launch = ops.launch_counts()["flash_attention"]
+    n_comb = flash_attention.flash_attention.combine_launches
+    rt, ft = real.totals(), fake.totals()
+    check(rt == ft and real.ops == fake.ops,
+          f"{tag}: the count over real tensors {rt} differs from the fake count {ft}; ops "
+          f"only real {real.ops - fake.ops}, only fake {fake.ops - real.ops}")
+    k_ops = real.ops["repro_torch.flash_attention"]
+    check(k_ops == n_launch == expect[0] and n_comb == expect[1],
+          f"{tag}: counted flash ops {k_ops}, launches {(n_launch, n_comb)}, "
+          f"expected {expect[:2]}")
+    walls = [wall(torch, lambda: fn(*args))[1] for _ in range(4)][1:]
+    (_, per_call) = held_flash_calls(torch, forward)
+    worst = max(per_call)
+    check(len(per_call) == expect[2] and worst <= 1e-2,
+          f"{tag}: {len(per_call)} flash calls held, worst max |diff| / max |out| {worst:.3e}")
+    roof = RL.analyze(rt, n_chips=1, model_flops_global=mflops)
+    fused_ms = rt["bytes"] / RL.HBM_BW * 1e3
+    med = statistics.median(walls)
+    print(f"{tag}: the count over real CUDA tensors equals the count over fake copies of the "
+          f"same arguments: flops {rt['flops']:.6e}, bytes {rt['bytes']:.6e}, raw bytes "
+          f"{rt['bytes_raw']:.6e}, {sum(real.ops.values())} ops of {len(real.ops)} kinds "
+          f"(fake run {fake_s:.2f} s, counted real run {counted_s:.2f} s); flash ops "
+          f"{k_ops} = launches {n_launch}, {n_comb} of them with a combine launch; every "
+          f"flash call of the forward ({len(per_call)}) held to the plain version, worst max "
+          f"|diff| / max |out| {worst:.3e} (limit 1e-2)")
+    print(f"  {tag}: synced wall {med * 1e3:.3f} ms (median of 3 after a warm-up; "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls)}) against the H100 roofline terms: "
+          f"compute {roof.compute_s * 1e3:.3f} ms, memory {fused_ms:.3f} ms fusion-aware / "
+          f"{roof.memory_s * 1e3:.3f} ms raw, collective {roof.collective_s * 1e3:.3f} ms; "
+          f"model FLOPs {mflops:.4e} = {roof.useful_flops_frac:.3f} of the counted; "
+          f"wall / max(compute, fusion-aware memory) "
+          f"{med / max(roof.compute_s, fused_ms / 1e3):.2f} ({smi})")
+    return n_launch, n_comb
+
+
+def _flash_op_host_cost(torch, dev, smi):
+    """Host microseconds a flash call spends in the custom-op dispatch, at
+    llama3.2-1b's training shape (no split) and whisper's cross-attention
+    shape (3 splits and a combine, in the op's one C call): the op
+    (``torch.ops.repro_torch.flash_attention``) against its function called
+    directly, and the wrapper the models call (its checks around the op);
+    5 interleaved rounds of 1000 calls each."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    for what, (B, Hq, Hkv, S, T, D), causal in (("llama train", (8, 32, 8, 128, 128, 64), True),
+                                               ("whisper cross", (4, 20, 20, 32, 1500, 64), False)):
+        q = torch.randn((B, Hq, S, D), generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn((B, Hkv, T, D), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, Hkv, T, D), generator=g, device=dev).to(torch.bfloat16)
+        n = fa.num_splits(B, Hq, S, T, fa._build.sm_count(dev), D)
+        calls = {"wrapper": lambda: fa.flash_attention(q, k, v, causal),
+                 "op": lambda: torch.ops.repro_torch.flash_attention.default(q, k, v, causal),
+                 "direct": lambda: fa._flash_forward._init_fn(q, k, v, causal)}
+        want = calls["direct"]()
+        check(all(torch.equal(f(), want) for f in calls.values()),
+              f"flash through the custom op differs from the direct launch at {what}")
+        per = {name: [] for name in calls}
+        for _ in range(5):
+            for name, f in calls.items():
+                for _ in range(50):
+                    f()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(1000):
+                    f()
+                per[name].append((time.perf_counter() - t0) / 1000 * 1e6)
+                torch.cuda.synchronize()
+        added = [o - d for o, d in zip(per["op"], per["direct"])]
+        ms = timed(torch, calls["wrapper"])
+        print(f"flash custom op at {what} ({B}, {Hq}:{Hkv}, {S}, {T}, {D}) bf16, {n} split(s), "
+              f"host us a call by round: " + "; ".join(
+                  f"{name} {', '.join(f'{x:.2f}' for x in xs)}" for name, xs in per.items())
+              + f"; the dispatch adds {', '.join(f'{x:.2f}' for x in added)} (median "
+              f"{statistics.median(added):.2f}); the call's device time {ms:.4f} ms, "
+              f"L2 warm ({smi})")
 
 
 def _to(x, device):

@@ -1,8 +1,9 @@
 """Model configuration of the port: `ModelConfig` with the reference's fields
 (``repro/configs/base.py``) and the per-arch registry.
 
-``cdtype`` is a torch dtype.  The reference's ``input_specs`` (ShapeDtypeStruct
-stand-ins for its dry run) arrives with the mesh slice that uses it.
+``cdtype`` is a torch dtype.  `ShapeConfig` and `SHAPES` are the dry run's
+input-shape cells; `input_specs` gives ``meta`` tensors (or fake ones, under
+a ``FakeTensorMode``) where the reference gives ``ShapeDtypeStruct``\\ s.
 """
 from __future__ import annotations
 
@@ -117,6 +118,58 @@ class ModelConfig:
                 n = n // self.n_experts * self.top_k
             total += n
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def long_context_ok(cfg: ModelConfig) -> bool:
+    """long_500k runs for SSM/hybrid archs; skipped for pure full-attention."""
+    mixers = {m for m, _ in cfg.pattern}
+    return bool(mixers & {"mamba", "mlstm", "slstm"})
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    if shape.name == "long_500k" and not long_context_ok(cfg):
+        return False, "pure full-attention arch: 500k dense-KV decode out of regime (per spec)"
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, device="meta") -> dict:
+    """Every model input of this cell as an uninitialized tensor on
+    ``device`` (``meta``: shapes and dtypes, no storage): int32 tokens
+    (and labels for train), decode's one new token ``(B, 1)``, whisper's
+    ``frames`` and a vlm's ``patches`` (outside decode) in ``cdtype``."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def tok(s):
+        return torch.empty(s, dtype=torch.int32, device=device)
+    if shape.kind == "train":
+        specs = {"tokens": tok((B, S)), "labels": tok((B, S))}
+    elif shape.kind == "prefill":
+        specs = {"tokens": tok((B, S))}
+    else:  # decode: one new token against a seq_len cache
+        specs = {"tokens": tok((B, 1))}
+    if cfg.family == "encdec":
+        specs["frames"] = torch.empty((B, cfg.enc_seq, cfg.d_frontend), dtype=cfg.cdtype,
+                                      device=device)
+    if cfg.family == "vlm" and shape.kind != "decode":
+        specs["patches"] = torch.empty((B, cfg.n_patches, cfg.d_frontend), dtype=cfg.cdtype,
+                                       device=device)
+    return specs
 
 
 # registry filled by the per-arch modules

@@ -62,12 +62,26 @@ Transport semantics
   mesh's :class:`TransportStats` count the staged bytes.  Under NCCL a CUDA
   tensor goes direct.  The transport never picks a backend: whoever
   initializes the default group does (`launch.mesh.join_process_group`).
+
+Counting
+--------
+Under :func:`count_collectives` (what `launch.roofline.CostCounter` enters)
+each collective over more than one rank is reported to the counter once, by
+its meaning, at its output bytes, under the HLO name of the reference's
+parser: ``all-reduce`` (:func:`psum`, :func:`pmean`, :func:`pmax`, so
+:func:`reduce_from`, :func:`mean_from` and the backward of :func:`copy_to`
+too), ``all-gather`` (:func:`all_gather`, so :func:`gather_blocks` and
+:func:`gather_from`, and :meth:`NoCMesh.gather_nodes`), ``all-to-all`` and
+``collective-permute`` (:func:`ppermute`).  The transport inside a
+collective (a psum's all-gather and adds, the staging copies) is not
+counted again; :class:`TransportStats` go on counting it.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import itertools
 import math
 import time
@@ -101,6 +115,44 @@ def world_size() -> int:
 
 
 _NO_GROUP = object()     # an axis row with no process group of its own
+
+# the counters of count_collectives, innermost last: a module global, not a
+# context variable, since a backward runs on autograd's device threads
+_COUNTERS: list = []
+
+
+@contextlib.contextmanager
+def count_collectives(counter) -> Iterator:
+    """Report every collective of the block to ``counter``:
+    ``counter.collective(kind, out)`` after it, with ``counter.suspended()``
+    entered around its transport."""
+    _COUNTERS.append(counter)
+    try:
+        yield counter
+    finally:
+        _COUNTERS.remove(counter)
+
+
+def _counted(kind: str):
+    """Report each call of the collective (one over more than one rank:
+    its second argument's ``size``) to the innermost counter as one ``kind``
+    op at its output's bytes; the collectives it calls inside are not
+    reported."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args):
+            if not _COUNTERS or args[1].size == 1:
+                return fn(*args)
+            counter = _COUNTERS.pop()
+            try:
+                with counter.suspended():
+                    out = fn(*args)
+            finally:
+                _COUNTERS.append(counter)
+            counter.collective(kind, out)
+            return out
+        return run
+    return wrap
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -253,13 +305,7 @@ class NoCMesh:
         """Every node's ``row`` stacked in node order, ``(n, *row.shape)``, on
         every rank of the default group (ranks off the mesh pass any row of
         the same shape and dtype)."""
-        t0 = time.perf_counter()
-        wire = self._to_wire(_bytes(row))
-        bufs = [torch.empty_like(wire) for _ in range(dist.get_world_size())]
-        dist.all_gather(bufs, wire)
-        out = self._from_wire(torch.stack([bufs[r] for r in self.ranks]), row.device)
-        self._count(t0)
-        return out.view(row.dtype).reshape((self.size,) + tuple(row.shape))
+        return _gather_nodes(row, self)
 
     def _count(self, t0: float) -> None:
         self.stats.calls += 1
@@ -288,11 +334,23 @@ def make_mesh(axes: Sequence[tuple[str, int]], ranks: Sequence[int],
     return mesh
 
 
+@_counted("all-gather")
+def _gather_nodes(row: torch.Tensor, mesh: NoCMesh) -> torch.Tensor:
+    t0 = time.perf_counter()
+    wire = mesh._to_wire(_bytes(row))
+    bufs = [torch.empty_like(wire) for _ in range(dist.get_world_size())]
+    dist.all_gather(bufs, wire)
+    out = mesh._from_wire(torch.stack([bufs[r] for r in mesh.ranks]), row.device)
+    mesh._count(t0)
+    return out.view(row.dtype).reshape((mesh.size,) + tuple(row.shape))
+
+
 def _bytes(x: torch.Tensor) -> torch.Tensor:
     """The bytes of ``x`` in memory order, as a flat uint8 view."""
     return x.contiguous().reshape(-1).view(torch.uint8)
 
 
+@_counted("collective-permute")
 def ppermute(x: torch.Tensor, axis: MeshAxis, perm: Sequence[tuple[int, int]]) -> torch.Tensor:
     """``lax.ppermute(x, axis, perm)`` for this rank: send ``x`` to ``d`` for
     each pair ``(coord, d)``, return what arrives from ``s`` for the pair
@@ -333,6 +391,7 @@ def _group_order(axis: MeshAxis) -> tuple[Any, list[int]]:
     return axis.group, [axis.ranks.index(r) for r in group_ranks]
 
 
+@_counted("all-to-all")
 def all_to_all(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """``lax.all_to_all(x, axis, split_axis=0, concat_axis=0)``: ``x[d]`` goes
     to node ``d`` of the axis; returns ``out[s]``, what node ``s`` sent here."""
@@ -355,6 +414,7 @@ def all_to_all(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     return out
 
 
+@_counted("all-gather")
 def all_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """``lax.all_gather(x, axis)``: every node's ``x`` stacked in axis order,
     ``(axis.size, *x.shape)``, on every rank of the row."""
@@ -374,6 +434,7 @@ def all_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     return out.view(x.dtype).reshape((axis.size,) + tuple(x.shape))
 
 
+@_counted("all-reduce")
 def psum(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """``lax.psum(x, axis)``: the row's tensors added in axis order; a
     bf16/fp16 sum accumulates in float32 and rounds once."""
@@ -389,11 +450,13 @@ def psum(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     return out.to(x.dtype) if wide else out
 
 
+@_counted("all-reduce")
 def pmean(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """``lax.pmean(x, axis)``: :func:`psum` over the axis's size."""
     return x if axis.size == 1 else psum(x, axis) / axis.size
 
 
+@_counted("all-reduce")
 def pmax(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """``lax.pmax(x, axis)``: the row's elementwise maximum."""
     return x if axis.size == 1 else all_gather(x, axis).amax(0)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -230,10 +231,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     1; float32 takes the CUDA-core kernel with 1, 2, 4 or 8 lanes a query row
     (D ≤ 32, 64, 128, 256).  Each launch is counted in
     ``flash_attention.launches`` and, by instance, in
-    ``flash_attention.instance_launches``."""
+    ``flash_attention.instance_launches``.
+
+    The launch goes through one ``torch.library`` custom op,
+    ``repro_torch::flash_attention``, so a dispatch mode
+    (``launch.roofline.CostCounter``) sees it and a fake tensor goes through
+    its fake implementation."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
     _check(q, k, v)
+    return torch.ops.repro_torch.flash_attention.default(q, k, v, causal)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
+    """One C call on checked CUDA tensors: the forward kernel and, with more
+    than one split of the keys, the combine kernel after it."""
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -253,6 +267,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key = instance(q.dtype, D)
     flash_attention.instance_launches[key] = flash_attention.instance_launches.get(key, 0) + 1
     return out
+
+
+@_flash_forward.register_fake
+def _flash_forward_fake(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, out_shape=None, **kwargs) -> int:
+    """4·B·Hq·S·T·D: Q·Kᵀ and P·V over every (query, key) pair, as
+    ``torch.utils.flop_counter`` counts SDPA (a causal mask does not halve
+    it).  A combine's merge of the splits is elementwise and, as every
+    elementwise op under this counter, adds nothing."""
+    B, Hq, S, D = q_shape
+    return 4 * B * Hq * S * k_shape[2] * D
 
 
 flash_attention.launches = 0

@@ -13,8 +13,12 @@ data axes (:func:`batch_shardings`'s rule) and the weights over the model
 axis, the gradients are averaged over the data axes, and the global grad
 norm adds each sharded leaf's squares over the axes it is split on.  The
 helpers return specs and ``meta`` tensors where the reference returns
-``NamedSharding``\\ s and ``ShapeDtypeStruct``\\ s.  The ``jit_*`` lowering
-of the dry run waits for ROADMAP item 8(e) part 5.
+``NamedSharding``\\ s and ``ShapeDtypeStruct``\\ s.  :func:`jit_train_step`,
+:func:`jit_prefill` and :func:`jit_decode` give the dry run
+(`launch.dryrun`) a cell's step and its arguments as uninitialized tensors
+(``meta``, or fake under a ``FakeTensorMode``): eager PyTorch has nothing to
+lower, so where the reference returns a jitted function the port returns
+the function a rank calls.
 
 ``pod_sync="serdes"`` on a mesh with a ``pod`` axis of more than one rank
 averages the gradients over ``data`` and then over ``pod`` through
@@ -33,11 +37,11 @@ from typing import Optional
 
 import torch
 
-from .._tree import leaves, tree_map, unflatten
-from ..configs.base import ModelConfig
+from .._tree import flatten, leaves, tree_map, unflatten
+from ..configs.base import ModelConfig, ShapeConfig, input_specs
 from ..core import collectives as coll
-from ..core.partition import (DEFAULT_RULES, Spec, block, block_run, cross_pod_mean, mesh_shape,
-                              spec_leaves, unblock)
+from ..core.partition import (DEFAULT_RULES, Spec, block, block_run, cross_pod_mean,
+                              local_shape, mesh_shape, spec_leaves, unblock)
 from ..core.serdes import QuasiSerdesConfig
 from ..models import transformer as T
 from ..models.layers import param_pspecs, param_shapes
@@ -210,3 +214,85 @@ def _pod_sync(flat: list, specs: list, mesh, B: int,
         g = unblock(flat[i], spec, mesh) if whole else flat[i]
         g, _ = cross_pod_mean(g, pod, serdes, n_pods=pod.size, serialized=True)
         flat[i] = block(g, spec, mesh).clone() if whole else g
+
+
+# ---------------------------------------------------------------------------
+# the dry run's cells: a step and its arguments, uninitialized
+# ---------------------------------------------------------------------------
+
+def param_blocks(cfg: ModelConfig, mesh, device="meta", serve: bool = False):
+    """Every param as an uninitialized tensor on ``device``: the rank's block
+    on ``mesh`` (`shardings_for_params`), the whole leaf without one.
+    ``serve``: in the dtype the server reads (`serve_param_shapes`: bf16
+    when the config serves bf16 params, but `models.transformer`'s float32
+    leaves, as `models.transformer.cast_params` keeps them)."""
+    abst = T.abstract_params(cfg)
+    specs = spec_leaves(shardings_for_params(cfg, mesh)) if mesh is not None else None
+    out = []
+    for i, (path, s) in enumerate(flatten(abst)):
+        shape = local_shape(s.shape, specs[i], mesh) if mesh is not None else s.shape
+        dtype = s.dtype
+        if serve and cfg.serve_param_dtype == "bfloat16":
+            dtype = T.serving_dtype(path, torch.bfloat16)
+        out.append(torch.empty(shape, dtype=dtype, device=device))
+    return unflatten(abst, out)
+
+
+def jit_train_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
+                   opt_cfg: AdamWConfig = AdamWConfig(), device="meta", **kw):
+    """The reference's ``jit_train_step``: -> (step, state, batch).  ``step``
+    is :func:`make_train_step` on ``mesh`` (``kw``: its ``pod_sync`` and
+    ``serdes``), called as ``step(state, batch)``; ``state`` holds the
+    rank's blocks of the params and of AdamW's ``m`` and ``v`` and the
+    ``step`` counter, ``batch`` the cell's inputs (`configs.input_specs`),
+    all uninitialized on ``device``."""
+    step = make_train_step(cfg, opt_cfg, mesh=mesh, **kw)
+    params = param_blocks(cfg, mesh, device)
+
+    def moments():
+        return tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32, device=device),
+                        params)
+    opt = {"m": moments(), "v": moments(),
+           "step": torch.zeros((), dtype=torch.int32, device=device)}
+    return step, {"params": params, "opt": opt}, input_specs(cfg, shape, device)
+
+
+def _serve_fn(fn, cfg: ModelConfig, mesh):
+    def run(params, batch, cache):
+        with coll.use_mesh(mesh):
+            return fn(params, batch, cfg, cache)
+    return run
+
+
+def _rank_cache(cfg: ModelConfig, mesh, batch: int, max_len: int, device) -> dict:
+    with coll.use_mesh(mesh):
+        return T.init_cache(cfg, batch, max_len, device=device)
+
+
+def jit_prefill(cfg: ModelConfig, mesh, shape: ShapeConfig, device="meta"):
+    """The reference's ``jit_prefill``: -> (fn, batch, cache), ``fn(params,
+    batch, cache)`` = `models.transformer.prefill` on ``mesh``; the cache is
+    the rank's (`models.transformer.init_cache` under the mesh), of
+    ``seq_len`` positions plus a vlm's ``n_patches``, uninitialized on
+    ``device``.  The params: :func:`param_blocks` with ``serve=True``."""
+    extra = cfg.n_patches if cfg.family == "vlm" else 0
+    cache = _rank_cache(cfg, mesh, shape.global_batch, shape.seq_len + extra, device)
+    return _serve_fn(T.prefill, cfg, mesh), input_specs(cfg, shape, device), cache
+
+
+def jit_decode(cfg: ModelConfig, mesh, shape: ShapeConfig, device="meta"):
+    """The reference's ``jit_decode``: one decode step against a cache of
+    ``seq_len`` positions holding ``seq_len - 1`` tokens (and, for encdec,
+    the rank's rows of ``enc_out``) -> (fn, batch, cache) as in
+    :func:`jit_prefill`, ``fn`` = `models.transformer.decode_step`."""
+    B = shape.global_batch
+    cache = _rank_cache(cfg, mesh, B, shape.seq_len, device)
+    cache["pos"] = shape.seq_len - 1
+    for sub in cache["blocks"].values():
+        if "idx" in sub:
+            sub["idx"] = shape.seq_len - 1
+    if cfg.family == "encdec":
+        rows = T.layout(cfg, B, mesh).local_batch(B) if mesh is not None else B
+        cache["enc_out"] = torch.empty((rows, cfg.enc_seq, cfg.d_model), dtype=cfg.cdtype,
+                                       device=device)
+    return _serve_fn(T.decode_step, cfg, mesh), input_specs(cfg, shape, device), cache
