@@ -132,7 +132,9 @@ with ``nvcc``, then runs eighteen phases and raises on any failure:
    to the one-rank tokens; llama3.2-1b FULL trained 3 steps on a (2, 2) mesh
    at batch 8 x seq 128 (remat, flash on each rank's head block, every flash
    call of step 1 held to its plain version), step 1's loss and grad norm
-   held to phase 9's one-rank step at rtol 1e-2; qwen3-moe's layer at full
+   held to phase 9's one-rank step at rtol 1e-2, the bytes staged and the
+   peak memory a rank a step printed (the loss keeps the logits the rank's
+   vocab block); qwen3-moe's layer at full
    width through the backward on the (1, 4) mesh, ``gather`` and ``noc``, the
    gradients of x, the router and each rank's experts held to the one-rank
    engine's at 1e-5 x scale;
@@ -164,7 +166,9 @@ with ``nvcc``, then runs eighteen phases and raises on any failure:
 18. the multi-pod dry run and the H100 roofline — ``python -m
    repro_torch.launch.dryrun`` on the host (fake CUDA tensors, a no-op world
    of 256 or 512 ranks) over a named subset of cells, in parallel processes,
-   each printed as the reference's CLI prints it, and
+   each printed as the reference's CLI prints it with each record's
+   ``temp_bytes`` and ``peak_bytes`` a rank (llama3.2-1b x train_4k's peak
+   held under the card's memory), and
    ``python -m repro_torch.launch.report`` over them; then two real steps
    counted on the card by ``launch.roofline.CostCounter``: llama3.2-1b FULL
    trained one step at batch 8 x seq 128 and whisper-large-v3 FULL's
@@ -2815,7 +2819,7 @@ def tp_phase(torch, dev, smi, dense):
           f"against {one_f32} on one rank")
     med = [statistics.median(t["step_ms"][1:]) for t in b]
     share = [statistics.median(t["transport_ms"][1:]) / m for t, m in zip(b, med)]
-    peaks = ", ".join(f"{t['peak'] / 2**30:.2f}" for t in b)
+    peaks = ", ".join(f"{t['peak'] / 2**30:.3f}" for t in b)
     print(f"  (b) llama3.2-1b FULL trained 3 steps on the (2, 2) mesh at batch 8 x seq 128 "
           f"(each rank 4 rows, 16 of 32 heads): losses {np.round(b[0]['losses'], 4).tolist()}, "
           f"grad_norm {np.round(b[0]['gnorms'], 3).tolist()}; step 1 against phase 9's one "
@@ -2823,7 +2827,9 @@ def tp_phase(torch, dev, smi, dense):
           f"(rtol 1e-2); step {min(med):.1f}-{max(med):.1f} ms (median of steps 2-3 over "
           f"ranks; one rank's phase 9 step {dense['step_ms']:.1f} ms), transport "
           f"{min(share) * 100:.1f}-{max(share) * 100:.1f} % of it, staged "
-          f"{b[0]['staged_per_step'] / 2**30:.2f} GiB a step a rank; peak memory {peaks} GiB; "
+          f"{', '.join(str(t['staged_per_step']) for t in b)} bytes a step (ranks 0-3; "
+          f"{b[0]['staged_per_step'] / 2**30:.3f} GiB; the loss's logits stay the rank's vocab "
+          f"block); peak memory {peaks} GiB; "
           f"one rank's bf16 step 1 through the plain attention path: loss {one_plain[0]:.5f}, "
           f"grad norm {one_plain[1]:.4g}; step 1 in float32 compute, attention rescaled: loss "
           f"{f32[0]:.6f} vs "
@@ -4189,7 +4195,7 @@ def roofline_phase(torch, dev, smi):
                 [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--device", "cuda",
                  "--out", out], cwd=HERE, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True))
-        lines = []
+        lines, mems = [], {}
         for p, (args, sub, want) in zip(procs, DRYRUN_CELLS):
             out, err = p.communicate(timeout=400)
             check(p.returncode == 0, f"dryrun {args}: exit {p.returncode}\n{out[-2000:]}"
@@ -4200,11 +4206,25 @@ def roofline_phase(torch, dev, smi):
                     rec = json.load(fh)
                 check(rec["status"] == status, f"dryrun {stem}: {rec['status']} "
                                                f"{rec.get('error', '')}")
+                if status == "ok":
+                    mems[f"{stem}{' (flash)' if sub == 'flash' else ''}"] = rec["memory"]
         dry_s = time.perf_counter() - t0
         for ln in lines:
             print(f"  {ln}")
         print(f"dry run of {len(lines)} cells on the host (fake CUDA tensors, {len(procs)} "
               f"processes at once): {dry_s:.1f} s")
+        # the logits stay sharded on the mesh: a rank's counted peak of the
+        # llama3.2-1b train_4k step fits the card
+        card = torch.cuda.get_device_properties(0).total_memory
+        for stem, m in mems.items():
+            print(f"  memory a rank, {stem}: temp_bytes {m['temp_bytes']}, peak_bytes "
+                  f"{m['peak_bytes']} ({m['peak_bytes'] / 1e9:.2f} GB; argument_bytes "
+                  f"{m['argument_bytes']}, output_bytes {m['output_bytes']})")
+        peak = mems["llama3.2-1b__train_4k__16x16"]["peak_bytes"]
+        check(peak < card, f"dryrun llama3.2-1b__train_4k__16x16: peak_bytes {peak} a rank "
+                           f"over the card's {card} bytes")
+        print(f"  llama3.2-1b x train_4k: counted peak a rank {peak / 1e9:.2f} GB under the "
+              f"card's {card / 1e9:.2f} GB ({smi})")
         print(report.table(os.path.join(tmp, "main"), md=True))
         print(report.table(os.path.join(tmp, "flash"), md=True).splitlines()[-1]
               + "  <- attn_impl=flash")

@@ -72,7 +72,8 @@ class ModelConfig:
     dtype: str = "bfloat16"
     serve_param_dtype: str = "float32"   # bfloat16 => serving reads bf16 params
     remat: bool = True
-    analysis_unroll: bool = False    # roofline analysis: unroll inner seq scans
+    analysis_unroll: bool = False    # unread (eager loops run every trip); kept so
+                                     #   asdict equals the reference's
     seq_shard_kv: bool = False       # long-context: shard KV/state seq over 'data'
 
     @property

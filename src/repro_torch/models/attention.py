@@ -52,7 +52,6 @@ class AttnConfig:
     bkv: int = 512
     logit_softcap: float = 0.0
     seq_shard: bool = False         # long-context: KV seq axis over 'data'
-    unroll: bool = False            # analysis mode: unroll the KV-block scan
     compute_dtype: str = "f32"      # f32 (baseline) | bf16 (bf16 operands,
                                     #   f32 accumulation)
 

@@ -10,8 +10,9 @@ cross-entropy's log-sum-exp are computed in float32.
 
 On a mesh (`launch.mesh`), each rank holds the block of every leaf that
 :func:`param_pspecs` gives it (:func:`shard_params` cuts a whole tree,
-:func:`gather_params` puts it back together), and :func:`mlp_apply` runs
-on the rank's ``mlp`` columns.
+:func:`gather_params` puts it back together), :func:`mlp_apply` runs
+on the rank's ``mlp`` columns, and :func:`vocab_parallel_cross_entropy`
+takes the loss over the rank's ``vocab`` columns of the logits.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .._tree import leaves
-from ..core.collectives import copy_to, reduce_from
+from ..core.collectives import copy_to, pmax, psum, reduce_from
 from ..core.partition import (DEFAULT_RULES, Parts, block, logical_to_spec, mesh_shape,
                               unblock)
 
@@ -234,3 +235,46 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     gold = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels != ignore_id).float()
     return ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """The NLL of each position of logits whose vocab is split over a mesh
+    axis, from the rank's block alone: the row max ``pmax``'ed (no gradient),
+    the float32 sums of ``exp(l - max)`` ``psum``'ed, and the gold logit
+    ``psum``'ed from the one rank whose block holds the label.  The backward
+    is ``softmax - onehot`` on the rank's block, with no collective."""
+
+    @staticmethod
+    def forward(ctx, block, labels, axis):
+        n = block.shape[-1]
+        z = block.float()
+        m = pmax(z.amax(-1), axis)
+        lse = psum((z - m[..., None]).exp_().sum(-1), axis).log_().add_(m)
+        local = labels.clamp_min(0).long() - axis.coord * n
+        mine = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        gold = psum(torch.gather(z, -1, local[..., None])[..., 0] * mine, axis)
+        ctx.save_for_backward(block, lse, local, mine)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        block, lse, local, mine = ctx.saved_tensors
+        d = (block.float() - lse[..., None]).exp_()
+        d.scatter_add_(-1, local[..., None], -mine[..., None].float())
+        return d.mul_(g[..., None]).to(block.dtype), None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, axis,
+                                 ignore_id: int = -1) -> torch.Tensor:
+    """:func:`cross_entropy` of logits whose vocab is split over ``axis``
+    (a `MeshAxis`; ``logits`` (B, S, V / axis.size) the rank's block of
+    columns), the same on every rank of the axis, with no rank holding a
+    whole row: the reference's ``cross_entropy`` over its vocab-sharded
+    logits.  The mask and the mean are :func:`cross_entropy`'s; with no
+    axis, or one of one rank, it is :func:`cross_entropy` itself."""
+    if axis is None or axis.size == 1:
+        return cross_entropy(logits, labels, ignore_id)
+    nll = _VocabParallelNLL.apply(logits, labels, axis)
+    mask = (labels != ignore_id).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

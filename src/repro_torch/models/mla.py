@@ -41,7 +41,6 @@ class MLAConfig:
     rope_theta: float = 10000.0
     impl: str = "blocked"
     bkv: int = 512
-    unroll: bool = False
     compute_dtype: str = "f32"
     absorb: bool = False            # attention in the compressed latent space
 

@@ -29,10 +29,13 @@ it divides them (`core.partition.split_axis`), and the recurrent mixers'
 heads and inner channels (``ssm_inner``): MLA its heads, Mamba its inner
 channels, mLSTM and sLSTM their heads (each mixer module says how).
 Activations between sub-layers are replicated over the model axis.  The
-embedding looks up the rank's rows and adds over the model axis; the logits
-are the rank's vocab block, all-gathered; ``forward`` all-gathers the batch
-blocks, so every rank returns the whole result, and ``loss`` reduces over
-the data axes.
+embedding looks up the rank's rows and adds over the model axis; the head
+gives each rank its vocab block of the logits, which stays sharded where no
+caller needs whole rows: ``loss`` takes a vocab-parallel cross-entropy over
+the block (`layers.vocab_parallel_cross_entropy`) and reduces over the data
+axes, and ``prefill`` gathers the last position alone.  ``forward`` and
+``decode_step`` all-gather the vocab and batch blocks, so every rank
+returns the whole result.
 
 API:
   abstract_params(cfg)                  -> ParamSpec tree
@@ -60,7 +63,8 @@ from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
 from .attention import AttnConfig, attention, attn_specs
 from .attention import init_cache as attn_init_cache
-from .layers import ParamSpec, cross_entropy, mlp_apply, mlp_specs, rms_norm, stack_specs
+from .layers import (ParamSpec, mlp_apply, mlp_specs, rms_norm, stack_specs,
+                     vocab_parallel_cross_entropy)
 
 MASK_LOGIT = -1e30   # padded vocab classes (pad_vocab)
 
@@ -80,14 +84,12 @@ def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
                       use_rope=cfg.use_rope and cfg.pos_embed == "rope",
                       impl=cfg.attn_impl, bkv=cfg.bkv,
                       logit_softcap=cfg.logit_softcap, seq_shard=cfg.seq_shard_kv,
-                      unroll=cfg.analysis_unroll,
                       compute_dtype=cfg.attn_compute_dtype)
 
 
 def _mla_cfg(cfg: ModelConfig) -> mla_mod.MLAConfig:
     return mla_mod.MLAConfig(cfg.d_model, cfg.n_heads, rope_theta=cfg.rope_theta,
-                             impl=cfg.attn_impl, bkv=cfg.bkv,
-                             unroll=cfg.analysis_unroll, absorb=cfg.mla_absorb,
+                             impl=cfg.attn_impl, bkv=cfg.bkv, absorb=cfg.mla_absorb,
                              compute_dtype=cfg.attn_compute_dtype)
 
 
@@ -513,15 +515,21 @@ def forward(params: dict, batch: dict, cfg: ModelConfig,
     n_patches, d_frontend) are projected by ``frontend`` and run before the
     tokens; the logits cover the tokens only.  Under a mesh the batch is the
     whole one on every rank, the cache the rank's (`init_cache` under the
-    same mesh), and every rank returns the whole logits."""
+    same mesh), and every rank returns the whole logits: its vocab and batch
+    blocks all-gathered, (B, S, V) on every rank (`loss` and `prefill` keep
+    them sharded instead)."""
     lay = layout(cfg, batch["tokens"].shape[0])
     logits, aux, new_cache, moe_stats = _forward(params, batch, cfg, cache, lay)
-    return coll.gather_from(logits, lay.batch, 0), aux, new_cache, moe_stats
+    logits = coll.gather_from(coll.gather_from(logits, lay.vocab, -1), lay.batch, 0)
+    return logits, aux, new_cache, moe_stats
 
 
 def _forward(params: dict, batch: dict, cfg: ModelConfig, cache: Optional[dict],
              lay: Layout):
-    """`forward` on the rank's batch rows: its logits are the rank's rows."""
+    """`forward` on the rank's batch rows, ungathered: its logits are the
+    rank's rows and its block of the vocab (``lay.vocab``'s; every column
+    when the vocab is not split), which `loss` and `prefill` read without
+    gathering the (rows, S, V) tensor."""
     _check_blocks(params, cfg, lay)
     tokens = lay.take_batch(batch["tokens"])
     B, S = tokens.shape
@@ -558,10 +566,12 @@ def _forward(params: dict, batch: dict, cfg: ModelConfig, cache: Optional[dict],
     head = (params["embed"].to(x.dtype).T if cfg.tie_embeddings
             else params["lm_head"].to(x.dtype))
     # the reference's constrain(logits, ("batch", "seq", "vocab")): each rank
-    # computes its vocab block, then the blocks are all-gathered
-    logits = coll.gather_from(coll.copy_to(x, lay.vocab) @ head, lay.vocab, -1)
-    if cfg.vocab_padded != cfg.vocab:
-        logits[..., cfg.vocab:] = MASK_LOGIT
+    # computes its vocab block
+    logits = coll.copy_to(x, lay.vocab) @ head
+    # the padded vocab classes (pad_vocab: global columns cfg.vocab on)
+    lo = lay.vocab.coord * logits.shape[-1] if lay.vocab is not None else 0
+    if lo + logits.shape[-1] > cfg.vocab:
+        logits[..., max(cfg.vocab - lo, 0):] = MASK_LOGIT
     new_cache = None
     if cache is not None:
         new_cache = {"blocks": new_blocks, "pos": pos0 + S_all}
@@ -574,15 +584,19 @@ def loss(params: dict, batch: dict, cfg: ModelConfig):
     """-> (nll + aux_weight · aux, {"nll", "aux", "moe_drops",
     "moe_peak_occupancy"}), the MoE counters in float32 as in the reference.
 
-    Under a mesh that splits the batch, each rank computes the loss of its
-    rows and the loss and nll are averaged over the data axes (the
-    reference's global step); their backward is the identity, since the
-    train step averages the ranks' gradients over those axes.  The MoE
-    counters are the whole batch's already (summed, and maxed, in
-    `moe.moe_apply`), and aux is replicated."""
+    Under a mesh that splits the vocab, the logits stay the rank's (rows, S,
+    V / m) block, never gathered: the nll is the vocab-parallel
+    cross-entropy over the blocks (`layers.vocab_parallel_cross_entropy`),
+    whose backward leaves each rank the gradient of its own block.  Under a
+    mesh that splits the batch, each rank computes the loss of its rows and
+    the loss and nll are averaged over the data axes (the reference's global
+    step); their backward is the identity, since the train step averages the
+    ranks' gradients over those axes.  The MoE counters are the whole
+    batch's already (summed, and maxed, in `moe.moe_apply`), and aux is
+    replicated."""
     lay = layout(cfg, batch["tokens"].shape[0])
     logits, aux, _, moe_stats = _forward(params, batch, cfg, None, lay)
-    nll = cross_entropy(logits, lay.take_batch(batch["labels"]))
+    nll = vocab_parallel_cross_entropy(logits, lay.take_batch(batch["labels"]), lay.vocab)
     total = nll + cfg.aux_weight * aux
     if lay.batch is not None:
         total, nll = coll.mean_from(torch.stack([total, nll]), lay.batch, 1.0).unbind(0)
@@ -595,8 +609,15 @@ def loss(params: dict, batch: dict, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, cache: dict):
-    logits, _, cache, _ = forward(params, batch, cfg, cache)
-    return logits[:, -1:], cache
+    """-> (the last position's logits (B, 1, V), the cache).  The head runs
+    over every position, as in `forward` (the same products, so the same
+    values); the last position is cut from the rank's vocab block before any
+    gather, so a mesh moves (rows, 1, V / m) blocks, and the result owns its
+    storage rather than keeping a (B, S, V) tensor alive."""
+    lay = layout(cfg, batch["tokens"].shape[0])
+    logits, _, cache, _ = _forward(params, batch, cfg, cache, lay)
+    last = logits[:, -1:].clone()
+    return coll.gather_from(coll.gather_from(last, lay.vocab, -1), lay.batch, 0), cache
 
 
 def decode_step(params: dict, batch: dict, cfg: ModelConfig, cache: dict):

@@ -4,9 +4,9 @@ failure injection, straggler accounting (counterpart of
 
 Synchronous data-parallel training sees a node failure as a failed or hung
 step on every rank; the recovery protocol is (1) abort the step, (2) rebuild
-the device group (``runtime/elastic.py`` of the reference; ROADMAP item 8(e)
-part 4 here), (3) restore the last committed checkpoint, (4) resume from the
-data pipeline's step counter (deterministic batches make this replay exact).
+the device group (``runtime/elastic.py``), (3) restore the last committed
+checkpoint, (4) resume from the data pipeline's step counter (deterministic
+batches make this replay exact).
 
 Straggler mitigation: with synchronous collectives a straggler is invisible
 inside a step; the lever is *between* steps.  The runner keeps an EWMA of

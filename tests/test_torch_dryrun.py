@@ -165,3 +165,25 @@ def test_overrides_reach_the_cell():
                             overrides={"no_tp": True})
     assert notp["status"] == "ok"
     assert notp["memory"]["argument_bytes"] > base["memory"]["argument_bytes"]
+
+
+# one rank's vocab-gathered logits on the (16, 16) mesh: llama3.2-1b's
+# prefill_32k (2 rows a rank x 32768 x 128256, bf16) and train_4k (16 rows a
+# rank x 4096 x 128256, the cross-entropy's float32)
+GATHERED_LOGITS = {"prefill_32k": 2 * 32768 * 128256 * 2, "train_4k": 16 * 4096 * 128256 * 4}
+
+
+@pytest.mark.parametrize("shape", sorted(GATHERED_LOGITS))
+def test_mesh_logits_stay_sharded(shape):
+    """llama3.2-1b at 2 of its 16 layers on the production mesh: the
+    temporaries a rank holds (and a prefill's output, the last position
+    alone) stay under one rank's vocab-gathered logits, as the reference's
+    vocab-sharded logits do (``loss`` takes a vocab-parallel cross-entropy,
+    ``prefill`` cuts the last position before its gathers)."""
+    rec = tdry.dryrun_cell("llama3.2-1b", shape, multi_pod=False, overrides={"n_layers": 2},
+                           device="cpu")
+    assert rec["status"] == "ok", rec.get("error")
+    m = rec["memory"]
+    assert m["temp_bytes"] < GATHERED_LOGITS[shape], m
+    if shape == "prefill_32k":
+        assert m["output_bytes"] < GATHERED_LOGITS[shape], m

@@ -7,7 +7,8 @@ runs the cases of `tests/torch_tp_cases.py` on (1, 2), (1, 4) and (2, 2)
 meshes while this process computes the reference's results on the same
 params (the reference's init) and inputs: llama3.2-1b, gemma-7b,
 whisper-large-v3, internvl2-1b, phi3.5-moe and qwen3-moe at SMOKE, and
-llama3.2-1b with a vocab of 255, which no model axis divides.
+llama3.2-1b with a vocab of 255, which no model axis divides, and with a
+vocab of 250 padded to 256 (``pad_vocab``).
 
 * ``forward``, ``prefill`` and teacher-forced ``decode_step`` logits within
   2e-3 × max(|logits|, 1) of the reference's (each arch's one-rank test
@@ -15,7 +16,15 @@ llama3.2-1b with a vocab of 255, which no model axis divides.
   MoE counters equal, and ``serve_batch(mesh=)`` tokens equal;
 * each rank holds exactly its `param_pspecs` block of every leaf, and its
   cache its batch rows and kv heads;
-* ``shard_params`` then ``gather_params`` gives the tree back bit for bit.
+* ``shard_params`` then ``gather_params`` gives the tree back bit for bit;
+* the logits stay sharded where the reference's do: ``loss`` gathers no
+  vocab block, ``prefill`` gathers only the last position's (rows, 1, V/m)
+  blocks, its logits equal the gathered forward's last position bit for
+  bit and own a storage of B·V elements;
+* the vocab-parallel cross-entropy (labels in every rank's block, ignored
+  labels, the padded vocab) of each rank's block and the block's gradient
+  within 1e-6 of `cross_entropy` over the gathered logits, and the mesh
+  ``loss`` and nll within rtol 1e-4 of the reference's.
 """
 import types
 
@@ -49,6 +58,10 @@ def runs(tmp_path_factory):
         ref = {case: C.ref_model(data[case][0], jax_config(arch, smoke=True).replace(**kw),
                                  data[case][1])
                for case, arch, kw in C.MODEL_CASES}
+        for case in C.NLL_CASES:
+            _, arch, kw = C._model_case(case)
+            ref[("nll", case)] = C.ref_nll_loss(
+                data[case][0], jax_config(arch, smoke=True).replace(**kw), data[case][1])
         res = world.results()
     finally:
         world.close()
@@ -118,3 +131,40 @@ def test_whole_params_under_a_mesh_raise(runs, shape):
     _, port, _ = runs
     msg = port[("whole-tree", shape)]
     assert msg is not None and "shard_params" in msg
+
+
+@pytest.mark.parametrize("shape", C.MESHES)
+@pytest.mark.parametrize("case", CASES)
+def test_loss_and_prefill_keep_the_logits_sharded(runs, case, shape):
+    """``loss`` gathers no vocab block; ``prefill`` gathers the last
+    position's blocks alone, equals the gathered forward's last position bit
+    for bit, and returns logits that own a storage of B·V elements."""
+    _, port, _ = runs
+    got = port[("sharded", case, shape)]
+    _, arch, kw = C._model_case(case)
+    V = get_config(arch, smoke=True).replace(**kw).vocab_padded
+    n_data, n_model = shape
+    rows = C.B // n_data if C.B % n_data == 0 else C.B
+    assert got["prefill_equal"] is True
+    assert got["shape"] == (C.B, 1, V) and got["storage"] == C.B * V
+    assert got["loss_gathers"] == []
+    assert got["prefill_gathers"] == ([(rows, 1, V // n_model)] if V % n_model == 0 else [])
+
+
+@pytest.mark.parametrize("shape", C.MESHES)
+@pytest.mark.parametrize("case", C.NLL_CASES)
+def test_vocab_parallel_cross_entropy(runs, case, shape):
+    """On each rank's rows, the nll of its vocab block and the block's
+    gradient against `cross_entropy` over the gathered logits; the mesh
+    ``loss`` against the reference's, with labels in every block and
+    ignored labels."""
+    ref, port, mine = runs
+    got = port[("nll", case, shape)]
+    assert got["split"] == shape[1]
+    want_loss, want_nll = ref[("nll", case)]
+    assert abs(got["loss"] - want_loss) <= 1e-4 * abs(want_loss)
+    assert abs(got["nll"] - want_nll) <= 1e-4 * abs(want_nll)
+    for rank_res in mine:
+        r = rank_res[("nll", case, shape)]
+        assert abs(r["vp"] - r["ce"]) <= 1e-6 * abs(r["ce"]), r
+        assert r["grad"] <= 1e-6, r

@@ -11,13 +11,15 @@ test process (``ref_*``).
 """
 from __future__ import annotations
 
+import contextlib
 import pickle
 
 import numpy as np
 
 MESHES = ((1, 2), (1, 4), (2, 2))
 # (case, arch, config overrides): the part-2a archs at SMOKE, and llama3.2-1b
-# with a vocab no model axis divides (the replicated-vocab branch)
+# with a vocab no model axis divides (the replicated-vocab branch) and with a
+# padded one (``pad_vocab``: 250 classes in 256 columns)
 MODEL_CASES = (
     ("llama3.2-1b", "llama3.2-1b", {}),
     ("gemma-7b", "gemma-7b", {}),
@@ -26,7 +28,11 @@ MODEL_CASES = (
     ("phi3.5-moe-42b-a6.6b", "phi3.5-moe-42b-a6.6b", {}),
     ("qwen3-moe-235b-a22b", "qwen3-moe-235b-a22b", {}),
     ("llama-vocab255", "llama3.2-1b", {"vocab": 255}),
+    ("llama-vocab250", "llama3.2-1b", {"vocab": 250, "pad_vocab": True}),
 )
+# the vocab-parallel cross-entropy's cases: a vocab of 256, and one of 250
+# padded to 256, whose last block holds the 6 padded classes
+NLL_CASES = ("llama3.2-1b", "llama-vocab250")
 TRAIN_ARCHS = ("llama3.2-1b", "qwen3-moe-235b-a22b")
 TRAIN_MESHES = ((2, 2), (1, 4))
 # the archs of the mla, mamba, mlstm and slstm mixers (ROADMAP item 8(e) part 2b)
@@ -94,6 +100,20 @@ def _prefix(cfg):
     return cfg.n_patches if cfg.family == "vlm" else 0
 
 
+def nll_labels(cfg):
+    """:func:`inputs`' labels with a label in each 64-column block of the
+    vocab in every row (so in each rank's block of every model axis here),
+    the last class, and two ignored (-1) positions."""
+    lab = inputs(cfg)["labels"].copy()
+    lab[:, :5] = [0, 64 + 1, 128 + 2, 192 + 3, cfg.vocab - 1]
+    lab[0, 6] = lab[1, 9] = -1
+    return lab
+
+
+def _model_case(case):
+    return next(c for c in MODEL_CASES if c[0] == case)
+
+
 # ---------------------------------------------------------------------------
 # the reference, in the test process
 # ---------------------------------------------------------------------------
@@ -140,6 +160,20 @@ def ref_model(params, jcfg, inp):
     return {"forward": np.asarray(full), "loss": float(loss),
             "mets": {k: float(v) for k, v in mets.items()},
             "serve_logits": np.stack(steps, 1), "tokens": np.stack(toks, 1)}
+
+
+def ref_nll_loss(params, jcfg, inp):
+    """The reference's unsharded ``loss`` and nll on :func:`inputs` with
+    :func:`nll_labels` (under ``jax.jit``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import transformer as JT
+
+    p = jax.tree.map(jnp.asarray, params)
+    b = {"tokens": jnp.asarray(inp["tokens"]), "labels": jnp.asarray(nll_labels(jcfg))}
+    loss, mets = jax.jit(lambda p, b: JT.loss(p, b, jcfg))(p, b)
+    return float(loss), float(mets["nll"])
 
 
 def write_model_inputs(path, cases=MODEL_CASES) -> dict:
@@ -211,7 +245,8 @@ def model_results(rank, world, device, in_path, cases="models"):
             same[("fused", case, shape)] = _fused_blocks_ok(full, p, mesh)
             with set_mesh(mesh), torch.no_grad():
                 logits, *_ = T.forward(p, batch, cfg)
-                loss, mets = T.loss(p, batch, cfg)
+                with vocab_gathers() as loss_gathers:
+                    loss, mets = T.loss(p, batch, cfg)
                 cache = T.init_cache(cfg, B, _prefix(cfg) + S, device=device)
                 mine[("caches", case, shape)] = {f"{i}/{k}": tuple(v.shape)
                                                  for i, blk in cache["blocks"].items()
@@ -220,7 +255,16 @@ def model_results(rank, world, device, in_path, cases="models"):
                     mine[("cache", case, shape)] = tuple(cache["blocks"]["0"]["k"].shape)
                 pre = dict(batch, tokens=batch["tokens"][:, :PRE])
                 pre.pop("labels")
-                lg, cache = T.prefill(p, pre, cfg, cache)
+                with vocab_gathers() as prefill_gathers:
+                    lg, cache = T.prefill(p, pre, cfg, cache)
+                if cases == "models":
+                    # the gathered forward's last position, into a fresh cache
+                    old = T.forward(p, pre, cfg, T.init_cache(cfg, B, _prefix(cfg) + S,
+                                                              device=device))[0][:, -1:]
+                    same[("sharded", case, shape)] = {
+                        "prefill_equal": torch.equal(lg, old), "shape": tuple(lg.shape),
+                        "storage": lg.untyped_storage().nbytes() // lg.element_size(),
+                        "loss_gathers": loss_gathers, "prefill_gathers": prefill_gathers}
                 steps = [lg[:, 0]]
                 for t in range(PRE, S):
                     lg, cache = T.decode_step(p, {"tokens": batch["tokens"][:, t:t + 1]}, cfg,
@@ -240,7 +284,80 @@ def model_results(rank, world, device, in_path, cases="models"):
                 "serve_logits": torch.stack(steps, 1).numpy(), "tokens": np.asarray(toks)}
     if cases == "mixers":
         same.update(mixer_layer_results(ms, device))
+    if cases == "models":
+        nll_same, nll_mine = nll_results(ms, device, data)
+        same.update(nll_same)
+        mine.update(nll_mine)
     return {"same": same, "rank": mine}
+
+
+@contextlib.contextmanager
+def vocab_gathers():
+    """The shapes of the blocks that `core.collectives.gather_from` gathers
+    along the last dim over an axis of more than one rank inside the block:
+    the logits' vocab gathers (no other caller of the LM archs of
+    :data:`MODEL_CASES` gathers along it)."""
+    from repro_torch.core import collectives as coll
+
+    calls, inner = [], coll.gather_from
+
+    def spy(x, axis, dim):
+        if dim == -1 and axis is not None and axis.size > 1:
+            calls.append(tuple(x.shape))
+        return inner(x, axis, dim)
+
+    coll.gather_from = spy
+    try:
+        yield calls
+    finally:
+        coll.gather_from = inner
+
+
+def nll_results(ms, device, data):
+    """Each case of :data:`NLL_CASES` on each mesh with :func:`nll_labels`:
+    ``loss`` and its nll (the same on every rank), and on the rank's rows
+    the vocab-parallel cross-entropy of its block of the logits with the
+    gradient of that block, against `cross_entropy` over the gathered
+    logits and the gathered gradient's own block (each rank's own)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.launch.steps import shardings_for_params
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import (cross_entropy, shard_params,
+                                           vocab_parallel_cross_entropy)
+
+    same, mine = {}, {}
+    for case in NLL_CASES:
+        _, arch, kw = _model_case(case)
+        cfg = get_config(arch, smoke=True).replace(**kw)
+        params, inp = data[case]
+        full = convert.model_params_to_torch(params, device)
+        batch = _torch_batch(dict(inp, labels=nll_labels(cfg)), ("tokens", "labels"))
+        for shape, mesh in ms.items():
+            p = shard_params(full, shardings_for_params(cfg, mesh), mesh)
+            with set_mesh(mesh):
+                lay = T.layout(cfg, B)
+                labels = lay.take_batch(batch["labels"])
+                with torch.no_grad():
+                    block = T._forward(p, batch, cfg, None, lay)[0]
+                    loss, mets = T.loss(p, batch, cfg)
+                block.requires_grad_()
+                vp = vocab_parallel_cross_entropy(block, labels, lay.vocab)
+                vp.backward()
+                whole = coll.gather_blocks(block.detach(), lay.vocab, -1).requires_grad_()
+                ce = cross_entropy(whole, labels)
+                ce.backward()
+                want = coll.own_block(whole.grad, lay.vocab, -1)
+            same[("nll", case, shape)] = {"split": lay.vocab.size, "loss": float(loss),
+                                          "nll": float(mets["nll"])}
+            mine[("nll", case, shape)] = {
+                "vp": float(vp.detach()), "ce": float(ce.detach()),
+                "grad": float((block.grad - want).abs().max() / want.abs().max())}
+    return same, mine
 
 
 def _fused_blocks_ok(full, local, mesh) -> dict:
@@ -409,7 +526,46 @@ def train_results(rank, world, device, in_path):
             _, m = step({"params": params, "opt": toptim.adamw_init(params)}, batch)
             got.append({k: float(v) for k, v in m.items()})
         same[("part2b", arch)] = got
+    same.update(vocab_grad_results(ms, device))
     return {"same": same}
+
+
+def vocab_grad_results(ms, device) -> dict:
+    """The padded-vocab llama3.2-1b SMOKE (``llama-vocab250``; the port's
+    init, seed 0) through ``loss`` on every mesh of :data:`MESHES` with
+    :func:`nll_labels`: the vocab axis's size, the vocab gathers of the
+    forward and backward (:func:`vocab_gathers`), the loss, the one-rank
+    loss, and every leaf's gradient, gathered and averaged over the data
+    axis, against the one-rank port's (`_rel`)."""
+    import torch
+
+    from repro_torch._tree import flatten, leaves, unflatten
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.launch.steps import loss_and_grads, shardings_for_params
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import gather_params, init_params, shard_params
+
+    _, arch, kw = _model_case("llama-vocab250")
+    cfg = get_config(arch, smoke=True).replace(**kw)
+    full = init_params(T.abstract_params(cfg), torch.Generator().manual_seed(0), device)
+    batch = _torch_batch(dict(inputs(cfg), labels=nll_labels(cfg)), ("tokens", "labels"))
+    loss1, _, g1 = _one_rank_grads(full, batch, cfg)
+    res = {}
+    for shape, mesh in ms.items():
+        specs = shardings_for_params(cfg, mesh)
+        with set_mesh(mesh):
+            with vocab_gathers() as gathers:
+                loss, _, g = loss_and_grads(shard_params(full, specs, mesh), batch, cfg)
+            bax = T.batch_axis(mesh, B)
+            if bax is not None:
+                g = unflatten(g, [coll.pmean(x, bax) for x in leaves(g)])
+            g = gather_params(g, specs, mesh)
+            split = T.layout(cfg, B).vocab.size
+        res[("vocab-grads", shape)] = (split, gathers, float(loss), float(loss1), {
+            "/".join(map(str, k)): _rel(a, b) for (k, a), (_, b) in zip(flatten(g), flatten(g1))})
+    return res
 
 
 def mixer_train_results(rank, world, device, in_path, ckpt_dir):
